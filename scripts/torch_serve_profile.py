@@ -38,10 +38,12 @@ PROFILED_BATCHES = 10
 
 def kernel_table(prof, per: int):
     """Device ms per ``per`` runs of each kernel name, largest first, and
-    their sum."""
+    their sum. Ranges that code marks on the device timeline (the
+    optimizer's step) are left out: the kernels inside them are counted."""
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         ms = e.self_device_time_total / 1e3 / per
         if ms > 0:
@@ -50,7 +52,7 @@ def kernel_table(prof, per: int):
     return rows, sum(r["ms"] for r in rows)
 
 
-def profile(fn, runs: int):
+def profile(fn, runs: int, top: int = 12):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -64,7 +66,7 @@ def profile(fn, runs: int):
         wall_ms = 1e3 * (time.perf_counter() - t0) / runs
     kernels, busy_ms = kernel_table(prof, runs)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": kernels[:12]}
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels": kernels[:top]}
 
 
 def max_in_degree(graph) -> int:

@@ -173,7 +173,7 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "ultra_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_serve_profile.py"]
+        ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
     assert len(files) > 10
     banned = {"jax", "jaxlib", "flax", "optax", "ultra_tpu"}
     for f in files:

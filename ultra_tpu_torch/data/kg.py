@@ -1,6 +1,6 @@
 """Knowledge-graph splits and their device graphs.
 
-Counterpart of ``ultra_tpu/data/kg.py``: the split record and
+Counterpart of ``ultra_tpu/data/kg.py``: the split and dataset records and
 ``split_to_graph``. The dataset loaders are ported with the command-line
 slice (ROADMAP A6).
 """
@@ -22,6 +22,13 @@ class KGSplit(NamedTuple):
     num_relations: int  # including inverses (2x raw)
     target_edge_index: np.ndarray  # (2, T) supervision edges, no inverses
     target_edge_type: np.ndarray  # (T,)
+
+
+class KGDataset(NamedTuple):
+    name: str
+    train: KGSplit
+    valid: KGSplit
+    test: KGSplit
 
 
 def split_to_graph(split: KGSplit, device="cuda") -> Graph:

@@ -9,12 +9,19 @@ package's convention:
 - ``edge_weight`` (E_pad,): **weight 0 means the edge is absent.** Padding
   and runtime edge removal zero weights instead of slicing arrays.
 
-The CSR (:class:`CSR`) replaces the TPU planners
+Three host layouts of the live edges replace the TPU planners
 (``rspmm_pallas.py::GraphPlans.build`` / ``attach_plans`` and
-``rspmm_pallas_v2.py::build_plan_v2``). It is built once per graph on the
-host: rows are destinations, ``col`` holds sources, and ``eid`` indexes the
-graph's padded weight vector, so a runtime weight mask reaches the kernel
-with no rebuild.
+``rspmm_pallas_v2.py::build_plan_v2``). They are built once per graph, and
+each edge carries ``eid``, its slot in the graph's padded weight vector, so
+a runtime weight mask reaches every kernel with no rebuild:
+
+- ``csr`` (:class:`CSR`): rows are destinations, ``col`` holds sources. The
+  forward walks it.
+- ``csr_src``: the transpose, rows are sources and ``col`` holds
+  destinations. The input gradient walks it.
+- ``segments`` (:class:`TypeSegments`): edges sorted by type, cut into
+  chunks of at most :data:`SEGMENT_CHUNK` edges. The relation gradient
+  walks it.
 """
 
 from __future__ import annotations
@@ -54,6 +61,72 @@ class CSR:
         return CSR(*(t.to(device) for t in dataclasses.astuple(self)))
 
 
+SEGMENT_CHUNK = 256  # edges per chunk of a type segment
+
+
+@dataclasses.dataclass(frozen=True)
+class TypeSegments:
+    """Edges sorted by type (stable, so destination-major within a type),
+    each type's run cut into chunks of at most :data:`SEGMENT_CHUNK` edges.
+
+    ``etype``, ``src``, ``dst`` and ``eid`` are (E_live,) int32. Chunk ``k``
+    holds edges ``chunkptr[k]:chunkptr[k+1]`` (``chunkptr`` (K+1,) int64);
+    the chunks of type ``t`` are ``type_chunkptr[t]:type_chunkptr[t+1]``
+    (``type_chunkptr`` (R+1,) int64). A type with no edges has no chunk.
+    """
+
+    etype: torch.Tensor
+    src: torch.Tensor
+    dst: torch.Tensor
+    eid: torch.Tensor
+    chunkptr: torch.Tensor
+    type_chunkptr: torch.Tensor
+
+    @property
+    def num_types(self) -> int:
+        return self.type_chunkptr.numel() - 1
+
+    def to(self, device) -> "TypeSegments":
+        return TypeSegments(*(t.to(device) for t in dataclasses.astuple(self)))
+
+
+def build_segments(csr: CSR, num_types: int) -> TypeSegments:
+    """The type segments of ``csr``'s edges, with their chunk table.
+
+    Many chunks per type let one type's edges spread over many blocks: the
+    relation graph has 4 types, and a block per type would leave most of the
+    card idle."""
+    device = csr.col.device
+    num_rows = csr.rowptr.numel() - 1
+    dst = torch.repeat_interleave(
+        torch.arange(num_rows, device=device), csr.rowptr.diff(),
+        output_size=csr.col.numel(),
+    )
+    etype = csr.etype.long()
+    order = torch.argsort(etype, stable=True)
+    counts = torch.bincount(etype, minlength=num_types)
+    chunks = -(-counts // SEGMENT_CHUNK)  # per type
+    type_chunkptr = torch.zeros(num_types + 1, dtype=torch.int64, device=device)
+    type_chunkptr[1:] = torch.cumsum(chunks, 0)
+    # chunk k of type t starts at t's first edge + SEGMENT_CHUNK * (k - t's first chunk)
+    type_start = torch.cumsum(counts, 0) - counts
+    chunk_type = torch.repeat_interleave(
+        torch.arange(num_types, device=device), chunks, output_size=int(type_chunkptr[-1]),
+    )
+    k = torch.arange(chunk_type.numel(), device=device)
+    chunkptr = torch.empty(chunk_type.numel() + 1, dtype=torch.int64, device=device)
+    chunkptr[:-1] = type_start[chunk_type] + SEGMENT_CHUNK * (k - type_chunkptr[chunk_type])
+    chunkptr[-1] = csr.col.numel()
+    return TypeSegments(
+        etype=etype[order].to(torch.int32),
+        src=csr.col[order],
+        dst=dst[order].to(torch.int32),
+        eid=csr.eid[order],
+        chunkptr=chunkptr,
+        type_chunkptr=type_chunkptr,
+    )
+
+
 def build_csr(edge_index, edge_type, num_nodes: int, edge_ids=None) -> CSR:
     """Destination-major CSR of the given edges.
 
@@ -79,9 +152,19 @@ def build_csr(edge_index, edge_type, num_nodes: int, edge_ids=None) -> CSR:
     )
 
 
+def build_layouts(edge_index, edge_type, num_nodes: int, num_types: int, edge_ids=None):
+    """(csr, csr_src, segments) of the given edges: the three layouts the
+    forward, the input gradient and the relation gradient walk."""
+    edge_index = torch.as_tensor(edge_index)
+    csr = build_csr(edge_index, edge_type, num_nodes, edge_ids)
+    csr_src = build_csr(edge_index.flip(0), edge_type, num_nodes, edge_ids)
+    return csr, csr_src, build_segments(csr, num_types)
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """A relational graph with padded edge arrays and its CSR.
+    """A relational graph with padded edge arrays and its three edge
+    layouts (``csr``, ``csr_src``, ``segments``: see the module note).
 
     ``relation_graph`` is the graph of relations (nodes = relation types,
     4 meta-relations), None for the relation graph itself.
@@ -93,14 +176,20 @@ class Graph:
     num_nodes: int
     num_relations: int
     csr: CSR
+    csr_src: CSR
+    segments: TypeSegments
     relation_graph: Optional["Graph"] = None
 
     @property
     def device(self) -> torch.device:
         return self.edge_weight.device
 
+    @property
+    def num_edges_padded(self) -> int:
+        return self.edge_weight.numel()
+
     def replace_weights(self, edge_weight: torch.Tensor) -> "Graph":
-        """The same graph under a runtime weight mask; the CSR is kept."""
+        """The same graph under a runtime weight mask; the layouts are kept."""
         if edge_weight.shape != self.edge_weight.shape:
             raise ValueError(
                 f"edge_weight {tuple(edge_weight.shape)} does not match the "
@@ -116,6 +205,8 @@ class Graph:
             edge_type=self.edge_type.to(device),
             edge_weight=self.edge_weight.to(device),
             csr=self.csr.to(device),
+            csr_src=self.csr_src.to(device),
+            segments=self.segments.to(device),
             relation_graph=(
                 None if self.relation_graph is None
                 else self.relation_graph.to(device)
@@ -142,11 +233,12 @@ def make_graph(
     relation_graph: Optional[Graph] = None,
     device="cuda",
 ) -> Graph:
-    """Build a padded :class:`Graph` (and its CSR) from host arrays.
+    """Build a padded :class:`Graph` (and its edge layouts) from host arrays.
 
     ``edge_index`` is (2, E) with row 0 = destination, row 1 = source.
-    Padding edges self-loop on node 0 / relation 0 with weight 0. The CSR
-    holds the edges live at build time (weight != 0); padding is left out.
+    Padding edges self-loop on node 0 / relation 0 with weight 0. The
+    layouts hold the edges live at build time (weight != 0); padding is
+    left out.
     """
     device = resolve_device(device)
     edge_index = np.asarray(edge_index, dtype=np.int64)
@@ -173,10 +265,11 @@ def make_graph(
     edge_weight = np.pad(edge_weight, (0, pad))
 
     live = np.nonzero(edge_weight != 0.0)[0]
-    csr = build_csr(
+    csr, csr_src, segments = build_layouts(
         torch.from_numpy(edge_index[:, live]),
         torch.from_numpy(edge_type[live]),
         int(num_nodes),
+        int(num_relations),
         edge_ids=torch.from_numpy(live),
     )
     return Graph(
@@ -186,5 +279,7 @@ def make_graph(
         num_nodes=int(num_nodes),
         num_relations=int(num_relations),
         csr=csr,
+        csr_src=csr_src,
+        segments=segments,
         relation_graph=relation_graph,
     ).to(device)

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ultra_tpu_torch.graph import Graph
 from ultra_tpu_torch.models.layers import ConvConfig, GeneralizedRelationalConv
@@ -34,6 +35,10 @@ class NBFNetConfig:
     concat_hidden: bool = False
     num_mlp_layer: int = 2
     project_relations: bool = False
+    # recompute each conv in the backward instead of keeping its activations
+    # (torch.utils.checkpoint): O(V*B*D) live memory per stack instead of per
+    # layer, for one more forward
+    remat: bool = False
 
     @property
     def dims(self) -> Tuple[int, ...]:
@@ -113,11 +118,17 @@ def bellmanford(
 ):
     """Run every conv layer with the original boundary condition and
     residual short-cuts between equal-width layers; returns all hidden
-    states."""
+    states. With ``cfg.remat`` and a gradient wanted, each conv is
+    recomputed in the backward instead of keeping its activations."""
     layer_input = boundary
     hiddens = []
+    remat = model.cfg.remat and torch.is_grad_enabled()
     for conv in model.layers:
-        hidden = conv(graph, layer_input, boundary, query, relation_input)
+        if remat:
+            hidden = checkpoint(conv, graph, layer_input, boundary, query, relation_input,
+                                use_reentrant=False)
+        else:
+            hidden = conv(graph, layer_input, boundary, query, relation_input)
         if model.cfg.short_cut and hidden.shape == layer_input.shape:
             hidden = hidden + layer_input
         hiddens.append(hidden)

@@ -6,6 +6,7 @@ a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), at first use, into ``build/ultra_tpu_torch/`` of the
 checkout. The file name carries a hash of the source and the flags, so an
 edited source is rebuilt and a stale library is never loaded.
+:func:`build_all` builds several sources at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -16,11 +17,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -52,22 +53,40 @@ def library_path(name: str) -> Path:
     return _BUILD / f"lib{name}-{digest}.so"
 
 
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """Build the libraries of ``names`` that are not built yet, one ``nvcc``
+    per source, all started together; returns each build's compiler output
+    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, out, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs, failed = {}, []
+    for name, (tmp, out, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        out = library_path(name)
-        if not out.exists():
-            nvcc = nvcc_path()
-            _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
-                capture_output=True, text=True,
-            )
-            if proc.returncode:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)  # atomic: a reader never sees half a file
-        lib = _LIBS[name] = ctypes.CDLL(str(out))
+        build_all([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib

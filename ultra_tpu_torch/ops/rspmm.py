@@ -1,4 +1,4 @@
-"""Generalized relational sparse matrix multiply (rspmm), forward only.
+"""Generalized relational sparse matrix multiply (rspmm) and its gradient.
 
 Counterpart of ``ultra_tpu/ops/rspmm.py``. Semantics:
 
@@ -10,38 +10,68 @@ transe). Output rows are ``edge_index[0]``, inputs are gathered from
 the node-major ``(V, B, D)`` layout and reach the kernel flattened to
 ``(V, B*D)`` rows.
 
-Only ``sum="add"`` is ported. The min/max aggregators and every backward
-are later slices of the port (ROADMAP A8 with B3-B5, A7 with B1 d_x and B2).
+Only ``sum="add"`` is ported, as a ``torch.autograd.Function``: the
+forward is kernel B1 on the destination-major CSR, the input gradient B1 on
+the source-major CSR and the relation gradient kernel B2 on the type
+segments (``ops/rspmm_cuda.py``). The edge-weight gradient (ROADMAP B6) and
+the min/max aggregators (ROADMAP A8 with B3-B5) are later slices and raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ultra_tpu_torch.graph import CSR, Graph, build_csr
-from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd
+from ultra_tpu_torch.graph import Graph, build_layouts
+from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_drel, rspmm_sum_dx, rspmm_sum_fwd
 
 _SUM_OPS = ("add", "min", "max")
 
 
-def _rspmm(csr: CSR, edge_weight, relation, x, sum: str, mul: str):
+class _SumRspmm(torch.autograd.Function):
+    """Sum rspmm over (R, F) relation and (N, F) x rows; ``layouts`` is
+    (csr, csr_src, segments). The backward computes each gradient only when
+    autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, layouts, edge_weight, relation, x, mul: str):
+        ctx.layouts, ctx.mul = layouts, mul
+        ctx.save_for_backward(edge_weight, relation, x)
+        return rspmm_sum_fwd(layouts[0], edge_weight, relation, x, mul)
+
+    @staticmethod
+    def backward(ctx, g):
+        edge_weight, relation, x = ctx.saved_tensors
+        (_, csr_src, segments), mul = ctx.layouts, ctx.mul
+        g = g.contiguous()
+        d_rel = d_x = None
+        if ctx.needs_input_grad[2]:
+            d_rel = rspmm_sum_drel(segments, edge_weight, x if mul == "mul" else g, g, mul)
+        if ctx.needs_input_grad[3]:
+            d_x = rspmm_sum_dx(csr_src, edge_weight, relation, g, mul)
+        return None, None, d_rel, d_x, None
+
+
+def _rspmm(layouts, edge_weight, relation, x, sum: str, mul: str):
     if sum not in _SUM_OPS:
         raise ValueError(f"sum must be one of {_SUM_OPS}, got {sum!r}")
     if sum != "add":
         raise NotImplementedError(
-            f"sum={sum!r} rspmm is not ported yet (ROADMAP A8 / B3: min/max forward)"
+            f"sum={sum!r} rspmm is not ported yet (ROADMAP A8 / B3-B5: min/max "
+            "forward and gradients)"
         )
-    if torch.is_grad_enabled() and (relation.requires_grad or x.requires_grad):
+    if torch.is_grad_enabled() and edge_weight.requires_grad:
         raise NotImplementedError(
-            "the rspmm backward is not ported yet (ROADMAP A7: B1 d_x and B2); "
-            "run inference under torch.no_grad()"
+            "the rspmm edge-weight gradient is not ported yet (ROADMAP B6); "
+            "pass the weights detached"
         )
     feat = tuple(x.shape[1:])
     # the relation operand may broadcast over the batch (e.g. a (R, 1, D)
-    # view); the kernel takes it materialised as contiguous (R, B*D) rows
+    # view); the kernel takes it materialised as contiguous (R, B*D) rows.
+    # The Function sees the materialised rows, so autograd sums their
+    # gradient back over the broadcast axis.
     relation = relation.expand((relation.shape[0],) + feat)
-    out = rspmm_sum_fwd(
-        csr,
+    out = _SumRspmm.apply(
+        layouts,
         edge_weight,
         relation.reshape(relation.shape[0], -1).contiguous(),
         x.reshape(x.shape[0], -1).contiguous(),
@@ -58,18 +88,20 @@ def generalized_rspmm(
 
     ``edge_index`` (2, E) with row 0 = dst, row 1 = src; ``edge_type`` (E,);
     ``edge_weight`` (E,) f32, 0 = absent; ``relation`` (R, ...feat) and
-    ``x`` (V, ...feat). Builds a CSR on every call: a caller with a fixed
-    graph uses :func:`rspmm_from_graph`, whose CSR is built once.
+    ``x`` (V, ...feat). Builds the edge layouts on every call: a caller with
+    a fixed graph uses :func:`rspmm_from_graph`, whose layouts are built
+    once.
     """
     if num_nodes is None:
         num_nodes = x.shape[0]
-    csr = build_csr(edge_index, edge_type, int(num_nodes))
-    return _rspmm(csr, edge_weight, relation, x, sum, mul)
+    layouts = build_layouts(edge_index, edge_type, int(num_nodes), int(relation.shape[0]))
+    return _rspmm(layouts, edge_weight, relation, x, sum, mul)
 
 
 def rspmm_from_graph(graph: Graph, relation, x, *, sum: str = "add", mul: str = "mul"):
-    """rspmm over ``graph``'s CSR under its current edge weights."""
-    return _rspmm(graph.csr, graph.edge_weight, relation, x, sum, mul)
+    """rspmm over ``graph``'s edge layouts under its current edge weights."""
+    layouts = (graph.csr, graph.csr_src, graph.segments)
+    return _rspmm(layouts, graph.edge_weight, relation, x, sum, mul)
 
 
 def degree(graph: Graph, *, include_self_loop: bool = True):
