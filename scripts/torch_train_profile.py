@@ -1,9 +1,10 @@
 """Where the port's fine-tuning step time goes on the card.
 
-    python3 scripts/torch_train_profile.py [--out build/torch_train_profile.json]
+    python3 scripts/torch_train_profile.py [--pna] [--out build/torch_train_profile.json]
 
-Needs one CUDA card. It fine-tunes the ``ultra_3g`` model (random weights,
-seed 0) on the FB15k-237-shaped synthetic graph as ``chip_smoke.py`` does
+Needs one CUDA card. It fine-tunes the ``ultra_3g`` model, or with ``--pna``
+its PNA variant (``benchlib.pna_config``), with random weights from seed 0,
+on the FB15k-237-shaped synthetic graph as ``chip_smoke.py`` does
 (batch 8, 256 strict negatives, easy-edge masks, AdamW) and measures, with
 ``torch.profiler`` over 5 warm steps, the device time of each kernel per
 step and the device's busy share of the wall time; and, as the profiler
@@ -34,6 +35,7 @@ WARM_STEPS, PROFILED_STEPS = 3, 5
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--pna", action="store_true", help="profile the PNA model")
     parser.add_argument("--out", default="build/torch_train_profile.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -47,13 +49,14 @@ def main() -> int:
     from ultra_tpu_torch.ops import build
     from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params, make_train_step
     from ultra_tpu_torch.train.runner import triples_of
-    from ultra_tpu_torch.utils.benchlib import fb15k237_split
+    from ultra_tpu_torch.utils.benchlib import fb15k237_split, pna_config
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    build.build_all(("rspmm_sum_fwd", "rspmm_sum_drel"))
+    build.build_all(("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx",
+                     "rspmm_minmax_drel"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -71,14 +74,16 @@ def main() -> int:
         batches.append((torch.as_tensor(batch, device="cuda"),
                         torch.as_tensor(ew, device="cuda")))
 
-    model = init_ultra_params(UltraConfig(), torch.Generator().manual_seed(0), device="cuda")
+    cfg = pna_config() if args.pna else UltraConfig()
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cuda")
     state = init_train_state(model, lr=5e-4, weight_decay=0.01)
     step = make_train_step(adversarial_temperature=1.0, num_negative=NUM_NEGATIVE)
     for b in batches[:WARM_STEPS]:
         step(state, graph, *b)
     queue = iter(batches[WARM_STEPS:])  # profile() runs one step before its window
 
-    result = {"card": card, "batch": BATCH, "num_negative": NUM_NEGATIVE,
+    result = {"card": card, "model": "pna" if args.pna else "ultra_3g", "batch": BATCH,
+              "num_negative": NUM_NEGATIVE,
               "graph": {"V": graph.num_nodes, "E": int(graph.csr.col.numel()),
                         "R": graph.num_relations,
                         "max_in_degree": int(graph.csr.rowptr.diff().max()),
@@ -98,6 +103,7 @@ def main() -> int:
     wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILED_STEPS
     result["step"]["wall_ms_unprofiled"] = wall_ms
     result["step"]["device_idle_share_unprofiled"] = 1.0 - result["step"]["device_busy_ms"] / wall_ms
+    result["step"]["peak_mem_mib"] = torch.cuda.max_memory_allocated() / 2**20
 
     text = json.dumps(result, indent=1)
     print(text)

@@ -38,15 +38,17 @@ METRICS = ("mr", "mrr", "hits@1", "hits@3", "hits@10", "hits@10_50", "mrr-tail",
            "hits@3-tail")
 
 
-def _cfgs():
+def _cfgs(entity_aggregate="sum"):
     def nb(mod, **kw):
         return mod.NBFNetConfig(input_dim=D, hidden_dims=(D, D), **kw)
 
     return (
         jnbf.UltraConfig(relation_model=nb(jnbf, num_relation=4),
-                         entity_model=nb(jnbf, num_relation=1, project_relations=True)),
+                         entity_model=nb(jnbf, num_relation=1, project_relations=True,
+                                         aggregate_func=entity_aggregate)),
         nbfnet.UltraConfig(relation_model=nb(nbfnet, num_relation=4),
-                           entity_model=nb(nbfnet, num_relation=1, project_relations=True)),
+                           entity_model=nb(nbfnet, num_relation=1, project_relations=True,
+                                           aggregate_func=entity_aggregate)),
     )
 
 
@@ -73,12 +75,23 @@ def setup():
             jtasks.GraphIndex.build(ei, et, V, nrel), params, model)
 
 
-def _assert_no_near_ties(setup, trips):
+def _with_model(setup, entity_aggregate):
+    """``setup`` with the JAX params and port model of ``entity_aggregate``."""
+    if entity_aggregate == "sum":
+        return setup
+    jcfg, pcfg = _cfgs(entity_aggregate)
+    params = jax.device_get(jax_init_ultra_params(jcfg, jax.random.key(1)))
+    model = nbfnet.Ultra(pcfg)
+    model.load_state_dict(params_from_jax(params))
+    return setup[:5] + (params, model)
+
+
+def _assert_no_near_ties(setup, trips, entity_aggregate="sum"):
     """The two packages' scores differ by at most delta, and every counted
     candidate scores more than 2 * delta from its positive (or exactly the
     same in both), so rounding cannot change a rank."""
-    _, port, jgraphs, index, _, params, model = setup
-    jcfg = _cfgs()[0]
+    _, port, jgraphs, index, _, params, model = _with_model(setup, entity_aggregate)
+    jcfg = _cfgs(entity_aggregate)[0]
     num_direct = port.num_relations // 2
     h, t, r = (trips[:, i] for i in range(3))
     t_mask, h_mask = tasks.strict_negative_mask(index, trips)
@@ -125,6 +138,20 @@ def test_collect_rankings_matches_jax(setup, plans, cache_relations):
     want = jeval.collect_rankings(params, _cfgs()[0], jgraphs[plans], trips, jindex,
                                   batch_size=BATCH, cache_relations=cache_relations)
     assert got[0].shape == (2 * len(trips),)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("cache_relations", [False, True])
+def test_pna_collect_rankings_matches_jax(setup, cache_relations):
+    """The same for a PNA entity model, on the graph with plans."""
+    trip, port, jgraphs, index, jindex, params, model = _with_model(setup, "pna")
+    trips = trip[23:33]
+    _assert_no_near_ties(setup, trips, "pna")
+    got = peval.collect_rankings(model, port, trips, index, batch_size=BATCH,
+                                 cache_relations=cache_relations)
+    want = jeval.collect_rankings(params, _cfgs("pna")[0], jgraphs[True], trips, jindex,
+                                  batch_size=BATCH, cache_relations=cache_relations)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
 

@@ -2,11 +2,13 @@
 the same weights: ``init_ultra_params`` through ``params_from_jax``.
 
 Each case runs on a JAX graph with Pallas plans attached (interpret mode
-on the CPU) and on one without (the XLA backend). The query batch repeats
-a head, which pins the add-not-set boundary.
+on the CPU) and on one without (the XLA backend), for every aggregator
+(sum, mean, max, pna) and message (distmult, transe, rotate). The query
+batch repeats a head, which pins the add-not-set boundary.
 
 Tolerance: f32, rtol 1e-4 and atol 1e-5; sums run in other orders and the
-error grows through the stacked layers.
+error grows through the stacked layers. Gradients at ties are exact
+(values built from small integers).
 """
 
 import jax
@@ -33,9 +35,18 @@ H = np.array([3, 3, 17, 25])  # duplicate head in one batch
 R = np.array([1, 3, 0, 2])  # direct relations; r + 4 is the inverse
 
 
-def _cfgs(aggregate="sum"):
+# (message, aggregate) of both models of an Ultra variant
+VARIANTS = {"sum": ("distmult", "sum"), "max": ("distmult", "max"),
+            "pna": ("distmult", "pna"), "rotate-sum": ("rotate", "sum"),
+            "rotate-mean": ("rotate", "mean"), "rotate-max": ("rotate", "max"),
+            "rotate-pna": ("rotate", "pna")}
+
+
+def _cfgs(variant="sum"):
+    message, aggregate = VARIANTS[variant]
+
     def nb(jmod, **kw):
-        return jmod.NBFNetConfig(input_dim=D, hidden_dims=(D, D),
+        return jmod.NBFNetConfig(input_dim=D, hidden_dims=(D, D), message_func=message,
                                  aggregate_func=aggregate, **kw)
 
     jcfg = jnbf.UltraConfig(
@@ -67,8 +78,8 @@ def graphs():
     return port, jax_graphs
 
 
-def _models(aggregate="sum"):
-    jcfg, pcfg = _cfgs(aggregate)
+def _models(variant="sum"):
+    jcfg, pcfg = _cfgs(variant)
     params = jax.device_get(jax_init_ultra_params(jcfg, jax.random.key(0)))
     model = nbfnet.Ultra(pcfg)
     model.load_state_dict(params_from_jax(params))
@@ -79,13 +90,13 @@ def _t(a, dtype=torch.float32):
     return torch.as_tensor(np.asarray(a), dtype=dtype)
 
 
-def _conv_case(mode, aggregate, rng):
+def _conv_case(mode, aggregate, rng, message="distmult"):
     """(JAX conv config, params, port conv, query, relation_input) for one
     layer_relation mode."""
-    cfg = dict(input_dim=D, output_dim=D, aggregate_func=aggregate)
+    cfg = dict(input_dim=D, output_dim=D, aggregate_func=aggregate, message_func=message)
     lin = lambda i, o: {"w": rng.normal(size=(i, o)).astype(np.float32) / np.sqrt(i),
                         "b": rng.normal(size=o).astype(np.float32)}
-    params = {"linear": lin(2 * D, D),
+    params = {"linear": lin((13 if aggregate == "pna" else 2) * D, D),
               "layer_norm": {"scale": rng.uniform(0.5, 1.5, D).astype(np.float32),
                              "bias": rng.normal(size=D).astype(np.float32)}}
     nrel, relation_input = 2 * R_DIRECT, None
@@ -110,12 +121,13 @@ def _conv_case(mode, aggregate, rng):
 
 
 @pytest.mark.parametrize("plans", [False, True])
-@pytest.mark.parametrize("aggregate", ["sum", "mean"])
+@pytest.mark.parametrize("message", ["distmult", "transe", "rotate"])
+@pytest.mark.parametrize("aggregate", ["sum", "mean", "max", "pna"])
 @pytest.mark.parametrize("mode", ["embedding", "dependent", "project_relations"])
-def test_conv_matches_jax(graphs, plans, aggregate, mode):
+def test_conv_matches_jax(graphs, plans, aggregate, message, mode):
     port, jax_graphs = graphs
     rng = np.random.default_rng(7)
-    jcfg, params, conv, query, relation_input = _conv_case(mode, aggregate, rng)
+    jcfg, params, conv, query, relation_input = _conv_case(mode, aggregate, rng, message)
     x = rng.normal(size=(V, BATCH, D)).astype(np.float32)
     boundary = rng.normal(size=(V, BATCH, D)).astype(np.float32)
     want = jlayers.conv_apply(
@@ -130,10 +142,11 @@ def test_conv_matches_jax(graphs, plans, aggregate, mode):
 
 
 @pytest.mark.parametrize("plans", [False, True])
-def test_nbfnets_and_ultra_match_jax(graphs, plans):
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_nbfnets_and_ultra_match_jax(graphs, plans, variant):
     port, jax_graphs = graphs
     jgraph = jax_graphs[plans]
-    jcfg, params, model = _models()
+    jcfg, params, model = _models(variant)
     h, r = jnp.asarray(H), jnp.asarray(R)
     nrel = 2 * R_DIRECT
 
@@ -187,8 +200,72 @@ def test_negative_sample_to_tail_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_unported_branches_raise():
-    for kw in (dict(aggregate_func="max"), dict(aggregate_func="pna"),
-               dict(message_func="rotate")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_aggregator_or_message_raises():
+    for kw, match in ((dict(aggregate_func="median"), "aggregate_func"),
+                      (dict(message_func="complex"), "message_func"),
+                      (dict(message_func="rotate", input_dim=15), "even")):
+        with pytest.raises(ValueError, match=match):
             layers.GeneralizedRelationalConv(layers.ConvConfig(**kw))
+
+
+def test_pna_linear_takes_thirteen_widths():
+    conv = layers.GeneralizedRelationalConv(layers.ConvConfig(aggregate_func="pna"))
+    assert tuple(conv.linear.weight.shape) == (64, 13 * 64)
+
+
+def test_pna_features_gradient_at_ties_matches_jax():
+    """``pna_features``' clips split a tie's gradient in half, as
+    ``jnp.clip``/``jnp.maximum`` do (``torch.clamp`` would give all of it to
+    the input): max_, min_ and the boundary tie, mostly at 0; one row's
+    variance is exactly 0 (under the EPS floor) and one's exactly EPS."""
+    rng = np.random.default_rng(0)
+    shape = (6, 2, 4)
+    boundary = np.zeros(shape, np.float32)
+    boundary[0] = rng.integers(-2, 3, size=shape[1:])
+    max_ = np.maximum(boundary, rng.integers(-1, 2, size=shape).astype(np.float32))
+    min_ = np.minimum(boundary, rng.integers(-1, 2, size=shape).astype(np.float32))
+    sum_ = rng.integers(-2, 3, size=shape).astype(np.float32)
+    deg = np.array([1, 2, 2, 4, 8, 8], np.float32)[:, None, None]
+    sum_[2] = 0.0
+    mean = (sum_ + boundary) / deg
+    sq_sum = (mean ** 2) * deg - boundary ** 2  # variance 0 in row 1
+    sq_sum[2] = 2 * np.float32(jlayers.EPS)  # deg 2: variance EPS in row 2
+    var = (sq_sum + boundary ** 2) / deg - mean ** 2
+    assert (var[1] == 0).all() and (var[2] == np.float32(jlayers.EPS)).all()
+    g = rng.normal(size=(6, 2, 48)).astype(np.float32)
+    args = [sum_, sq_sum, max_, min_, boundary]
+    torch_args = [torch.from_numpy(a).requires_grad_() for a in args]
+    out = layers.pna_features(*torch_args, torch.from_numpy(deg))
+    out.backward(torch.from_numpy(g))
+    want, vjp = jax.vjp(lambda *a: jlayers._pna_features(*a, jnp.asarray(deg)),
+                        *map(jnp.asarray, args))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    for name, t, w in zip(("sum", "sq_sum", "max", "min", "boundary"), torch_args,
+                          vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), err_msg=name, **TOL)
+    # the ties are really there, and clamp would not split them
+    assert (max_ == boundary).mean() > 0.3 and (min_ == boundary).mean() > 0.3
+
+
+def test_pna_transe_sum_of_squares_is_rspmm_of_squares(graphs, monkeypatch):
+    """A reference contract kept as it is: PNA's second moment is
+    rspmm(rel^2, x^2), which for transe is sum_e w (r^2 + x^2) and not
+    sum_e (w (r + x))^2."""
+    port, _ = graphs
+    rng = np.random.default_rng(3)
+    jcfg, params, conv, query, _ = _conv_case("embedding", "pna", rng, "transe")
+    seen = {}
+    real = layers.pna_features
+    monkeypatch.setattr(layers, "pna_features",
+                        lambda *a: seen.setdefault("sq_sum", a[1]) is None or real(*a))
+    x = rng.normal(size=(V, BATCH, D)).astype(np.float32)
+    with torch.no_grad():
+        conv(port, _t(x), _t(x), _t(query))
+    ei, et, w = (a.numpy() for a in (port.edge_index, port.edge_type, port.edge_weight))
+    rel = params["relation"][et][:, None, :]
+    want = np.zeros((V, BATCH, D), np.float64)
+    np.add.at(want, ei[0], w[:, None, None] * (rel ** 2 + x[ei[1]] ** 2))
+    np.testing.assert_allclose(seen["sq_sum"].numpy(), want, **TOL)
+    other = np.zeros_like(want)
+    np.add.at(other, ei[0], (w[:, None, None] * (rel + x[ei[1]])) ** 2)
+    assert not np.allclose(other, want, **TOL)

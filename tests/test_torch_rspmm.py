@@ -1,13 +1,20 @@
-"""The port's edge layouts and sum rspmm (``ultra_tpu_torch``) with its
+"""The port's edge layouts and rspmm (``ultra_tpu_torch``) with its
 gradients against the JAX package: the XLA backend (``jax.vjp``) and the
-Pallas kernels in interpret mode on the CPU: both forwards (v1, v2), the
-input gradient on the source plan, and the three relation-gradient kernels
-(``_rel_grad_kernel``, ``_drel_kernel``, ``_drel_add_kernel``). Inputs hold
-weight-0 edges, a runtime weight mask and rows with no edges.
+Pallas kernels in interpret mode on the CPU. Sum: both forwards (v1, v2),
+the input gradient on the source plan, and the three relation-gradient
+kernels (``_rel_grad_kernel``, ``_drel_kernel``, ``_drel_add_kernel``).
+Min/max: both forwards (``_minmax_kernel``, ``_minmax_kernel_v2``), both
+input-gradient and both relation-gradient kernels, and the custom VJPs of
+both generations. Inputs hold weight-0 edges, a runtime weight mask and
+rows with no edges; the min/max inputs are tie-heavy as well.
 
 Tolerance: f32, rtol 1e-5 and atol 1e-5, because the two packages sum each
-row's (or each type's) terms in different orders.
+row's (or each type's) terms in different orders. Min/max forwards are
+compared exactly: a min or a max is exact, and the tie-heavy inputs (small
+integers, weights of 0.5, 1 and 2) make every message exact too.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,12 +27,21 @@ from ultra_tpu.graph import pad_bucket as jax_pad_bucket
 from ultra_tpu.ops.rspmm import degree as jax_degree
 from ultra_tpu.ops.rspmm import generalized_rspmm as jax_generalized_rspmm
 from ultra_tpu.ops.rspmm import rspmm_from_graph as jax_rspmm_from_graph
-from ultra_tpu.ops.rspmm_pallas import attach_plans, rspmm_pallas_fwd, rspmm_pallas_rel_grad
-from ultra_tpu.ops.rspmm_pallas_v2 import rspmm_v2_drel, rspmm_v2_drel_add, rspmm_v2_fwd
+from ultra_tpu.ops.rspmm_pallas import (
+    _drel_call, _minmax_bwd_call, _minmax_drel_kernel, _minmax_dx_kernel, _prec,
+    attach_plans, rspmm_pallas_fwd, rspmm_pallas_minmax_fwd, rspmm_pallas_rel_grad,
+)
+from ultra_tpu.ops.rspmm_pallas_v2 import (
+    rspmm_v2_drel, rspmm_v2_drel_add, rspmm_v2_fwd, rspmm_v2_minmax, rspmm_v2_minmax_drel,
+    rspmm_v2_minmax_dx,
+)
 from ultra_tpu_torch.graph import SEGMENT_CHUNK, make_graph, pad_bucket
-from ultra_tpu_torch.ops import build, rspmm, rspmm_cuda
+from ultra_tpu_torch.ops import build, rspmm, rspmm_cuda, rspmm_minmax_cuda
 from ultra_tpu_torch.ops.rspmm import degree, generalized_rspmm, rspmm_from_graph
 from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_drel, rspmm_sum_dx, rspmm_sum_fwd
+from ultra_tpu_torch.ops.rspmm_minmax_cuda import (
+    rspmm_minmax_drel, rspmm_minmax_dx, rspmm_minmax_fwd,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 V, R, E, B, D, E_PAD = 70, 11, 300, 2, 16, 384
@@ -133,6 +149,36 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
     assert torch.equal(out, plain)
     assert rspmm_sum_fwd.launches == before == {}
 
+    w, k = graph.edge_weight, rspmm_minmax_cuda
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=(V, B * D)).astype(np.float32))
+    out = rspmm_minmax_fwd(graph.csr, w, rel_f, x_f, "add", True)
+    assert torch.equal(out, k.rspmm_minmax_fwd_plain(graph.csr, w, rel_f, x_f, "add", True))
+    assert torch.equal(rspmm_minmax_dx(graph.csr_src, w, rel_f, x_f, g, out, "add"),
+                       k.rspmm_minmax_dx_plain(graph.csr_src, w, rel_f, x_f, g, out, "add"))
+    assert torch.equal(rspmm_minmax_drel(graph.segments, w, rel_f, x_f, g, out, "add"),
+                       k.rspmm_minmax_drel_plain(graph.segments, w, rel_f, x_f, g, out, "add"))
+    assert rspmm_minmax_fwd.launches == rspmm_minmax_dx.launches == {}
+    assert rspmm_minmax_drel.launches == {}
+
+
+def _meta_calls(graph, feat, offset=0):
+    """Each kernel wrapper on meta tensors (a device other than the CPU) of
+    width ``feat`` whose rows start ``offset`` floats into their storage."""
+    csr, csr_src, seg = (l.to("meta") for l in (graph.csr, graph.csr_src, graph.segments))
+    x = torch.empty(V * feat + offset, device="meta")[offset:].view(V, feat)
+    w, rel_rows = torch.empty(E_PAD, device="meta"), torch.empty(R, feat, device="meta")
+    return (lambda: rspmm_sum_fwd(csr, w, rel_rows, x),
+            lambda: rspmm_sum_dx(csr_src, w, rel_rows, x),
+            lambda: rspmm_sum_drel(seg, w, x, x),
+            lambda: rspmm_minmax_fwd(csr, w, rel_rows, x, "mul", False),
+            lambda: rspmm_minmax_dx(csr_src, w, rel_rows, x, x, x),
+            lambda: rspmm_minmax_drel(seg, w, rel_rows, x, x, x))
+
+
+def _no_launches():
+    return all(not f.launches for f in (rspmm_sum_fwd, rspmm_sum_dx, rspmm_sum_drel,
+                                         rspmm_minmax_fwd, rspmm_minmax_dx, rspmm_minmax_drel))
+
 
 def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     """A tensor off the CPU never takes the plain version: with no built
@@ -143,58 +189,41 @@ def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_BUILD", tmp_path)
     monkeypatch.setattr(build, "_LIBS", {})
     monkeypatch.setattr(rspmm_cuda, "_KERNELS", {})
-    ei, et, ew, rel, x, _ = make_inputs()
-    graph = port_graph(ei, et, ew)
-    csr, csr_src, seg = (l.to("meta") for l in (graph.csr, graph.csr_src, graph.segments))
-    w, rows = torch.empty(E_PAD, device="meta"), torch.empty(V, B * D, device="meta")
-    rel_rows = torch.empty(R, B * D, device="meta")
-    for call in (lambda: rspmm_sum_fwd(csr, w, rel_rows, rows),
-                 lambda: rspmm_sum_dx(csr_src, w, rel_rows, rows),
-                 lambda: rspmm_sum_drel(seg, w, rows, rows)):
+    ei, et, ew, *_ = make_inputs()
+    for call in _meta_calls(port_graph(ei, et, ew), B * D):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert rspmm_sum_fwd.launches == rspmm_sum_dx.launches == rspmm_sum_drel.launches == {}
+    assert _no_launches()
 
 
 @pytest.mark.parametrize("feat, offset", [(30, 0), (32, 1)])
 def test_device_tensor_off_the_float4_layout_is_refused(monkeypatch, feat, offset):
     """The kernel loads float4 only: a width that is not a multiple of 4, or
     a row start that is not 16-byte aligned, raises before any launch."""
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    for module in (rspmm_cuda, rspmm_minmax_cuda):
+        monkeypatch.setattr(module, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
     ei, et, ew, *_ = make_inputs()
-    graph = port_graph(ei, et, ew)
-    csr, csr_src, seg = (l.to("meta") for l in (graph.csr, graph.csr_src, graph.segments))
-    x = torch.empty(V * feat + offset, device="meta")[offset:].view(V, feat)
-    w, rel_rows = torch.empty(E_PAD, device="meta"), torch.empty(R, feat, device="meta")
-    for call in (lambda: rspmm_sum_fwd(csr, w, rel_rows, x),
-                 lambda: rspmm_sum_dx(csr_src, w, rel_rows, x),
-                 lambda: rspmm_sum_drel(seg, w, x, x)):
+    for call in _meta_calls(port_graph(ei, et, ew), feat, offset):
         with pytest.raises(ValueError, match="F % 4|16-byte"):
             call()
-    assert rspmm_sum_fwd.launches == rspmm_sum_dx.launches == rspmm_sum_drel.launches == {}
-
-
-@pytest.mark.parametrize("sum_op", ["min", "max"])
-def test_min_max_are_not_ported(sum_op):
-    ei, et, ew, rel, x, _ = make_inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rspmm_from_graph(port_graph(ei, et, ew), torch.from_numpy(rel),
-                         torch.from_numpy(x), sum=sum_op)
+    assert _no_launches()
 
 
 def test_bf16_operands_and_gradients_are_refused():
     """bf16 operands raise (ROADMAP B1), and so does a gradient for the edge
-    weights (ROADMAP B6); gradients for the relation and x are ported."""
+    weights (ROADMAP B6), for every aggregator; gradients for the relation
+    and x are ported."""
     ei, et, ew, rel, x, _ = make_inputs()
     graph = port_graph(ei, et, ew)
     with pytest.raises(TypeError, match="bf16"):
         rspmm_from_graph(graph, torch.from_numpy(rel).bfloat16(),
                          torch.from_numpy(x).bfloat16())
     weighted = graph.replace_weights(graph.edge_weight.clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="B6"):
-        rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x))
-    with torch.no_grad():  # no gradient asked for: the weights may require one
-        rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x))
+    for sum_op in ("add", "max", "min"):
+        with pytest.raises(NotImplementedError, match="B6"):
+            rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op)
+        with torch.no_grad():  # no gradient asked for: the weights may require one
+            rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op)
 
 
 def test_transposed_csr_and_type_segments_hold_live_edge_multiset():
@@ -317,16 +346,181 @@ def test_gradient_wrappers_match_the_pallas_kernels(mul):
 
 def test_backward_computes_only_the_gradients_asked_for(monkeypatch):
     """x without a gradient skips the input-gradient wrapper; a relation
-    without one skips the relation-gradient wrapper."""
+    without one skips the relation-gradient wrapper (sum and max)."""
     ei, et, ew, rel, x, _ = make_inputs()
     graph = port_graph(ei, et, ew)
     calls = []
-    for name in ("rspmm_sum_dx", "rspmm_sum_drel"):
+    for name in ("rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_dx", "rspmm_minmax_drel"):
         real = getattr(rspmm, name)
         monkeypatch.setattr(rspmm, name, lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
-    for needs in ("relation", "x"):
-        rel_t = torch.from_numpy(rel).requires_grad_(needs == "relation")
-        x_t = torch.from_numpy(x).requires_grad_(needs == "x")
-        rspmm_from_graph(graph, rel_t, x_t).sum().backward()
-    assert calls == ["rspmm_sum_drel", "rspmm_sum_dx"]
-    assert rspmm_sum_dx.launches == rspmm_sum_drel.launches == {}  # CPU: plain versions
+    for sum_op in ("add", "max"):
+        for needs in ("relation", "x"):
+            rel_t = torch.from_numpy(rel).requires_grad_(needs == "relation")
+            x_t = torch.from_numpy(x).requires_grad_(needs == "x")
+            out = rspmm_from_graph(graph, rel_t, x_t, sum=sum_op)
+            out[out.isfinite()].sum().backward()
+    assert calls == ["rspmm_sum_drel", "rspmm_sum_dx", "rspmm_minmax_drel", "rspmm_minmax_dx"]
+    assert _no_launches()  # CPU: plain versions
+
+
+# ---------------------------------------------------------------------------
+# min/max
+
+
+MASKED_ROW = 1  # every edge into this row is masked at run time
+
+
+def make_tie_inputs(seed=0):
+    """Tie-heavy inputs: relation and x drawn from {-2..2}, a quarter of x's
+    rows 0 (every message from them is 0 for mul, rel for add), weights from
+    {0.5, 1, 2} with 10% 0 at build time, a runtime mask over 5% more and
+    over every edge into MASKED_ROW, and rows with no edges (every 7th)."""
+    ei, et, _, _, _, _ = make_inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    ew = rng.choice(np.array([0.5, 1.0, 2.0], np.float32), E)
+    ew[rng.random(E) < 0.1] = 0.0
+    rel = rng.integers(-2, 3, size=(R, B, D)).astype(np.float32)
+    x = rng.integers(-2, 3, size=(V, B, D)).astype(np.float32)
+    x[rng.random(V) < 0.25] = 0.0
+    mask = np.concatenate([ew, np.zeros(E_PAD - E, np.float32)])
+    mask[rng.choice(E, E // 20, replace=False)] = 0.0
+    mask[:E][ei[0] == MASKED_ROW] = 0.0
+    assert (ew[ei[0] == MASKED_ROW] != 0).any()  # masked at run time, not at build
+    return ei, et, ew, rel, x, mask
+
+
+def _w_ext(mask):
+    return jnp.concatenate([jnp.asarray(mask), jnp.zeros((1,), jnp.float32)])
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("sum_op", ["max", "min"])
+def test_min_max_forward_matches_xla_and_pallas(sum_op, mul):
+    """B3's plain version against the XLA backend and both Pallas forwards
+    (``_minmax_kernel``, ``_minmax_kernel_v2``), value for value, the +-inf
+    rows of rows with no live edge included."""
+    ei, et, ew, rel, x, mask = make_tie_inputs()
+    graph = port_graph(ei, et, ew).replace_weights(torch.from_numpy(mask))
+    with torch.no_grad():
+        out = rspmm_from_graph(graph, torch.from_numpy(rel), torch.from_numpy(x),
+                               sum=sum_op, mul=mul).numpy()
+    fill = np.inf if sum_op == "min" else -np.inf
+    assert np.all(out[::7] == fill) and np.all(out[MASKED_ROW] == fill)
+    assert np.isfinite(out).mean() > 0.7
+
+    want = jax_generalized_rspmm(
+        jnp.asarray(ei), jnp.asarray(et), jnp.asarray(mask[:E]), jnp.asarray(rel),
+        jnp.asarray(x), sum=sum_op, mul=mul, backend="xla",
+    )
+    np.testing.assert_array_equal(out, np.asarray(want))
+    plans = attach_plans(jax_make_graph(ei, et, V, R, edge_weight=ew, pad_to=E_PAD),
+                         rb=32, chunk=64).plans
+    rel_f, x_f = jnp.asarray(rel.reshape(R, -1)), jnp.asarray(x.reshape(V, -1))
+    kw = dict(mul=mul, is_min=sum_op == "min", out_rows=V)
+    for pallas in (rspmm_pallas_minmax_fwd(plans.dst, rel_f, x_f, _w_ext(mask), **kw),
+                   rspmm_v2_minmax(plans.v2, rel_f, x_f, _w_ext(mask), **kw)):
+        np.testing.assert_array_equal(out.reshape(V, -1), np.asarray(pallas)[:V])
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas_v1", "pallas_v2"])
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("sum_op", ["max", "min"])
+def test_min_max_gradients_match_jax(sum_op, mul, reference):
+    """d_rel and d_x of the port's min/max Function on tie-heavy inputs
+    against jax.vjp: of the XLA backend, and of the Pallas custom VJP with
+    v1 plans (``_minmax_dx_kernel``, ``_minmax_drel_kernel``) and with v2
+    plans (``_minmax_dx_kernel_v2``, ``_minmax_drel_kernel_v2``). Each
+    routes the gradient to every tying edge."""
+    ei, et, ew, rel, x, mask = make_tie_inputs(seed=1)
+    g = np.random.default_rng(5).normal(size=(V, B, D)).astype(np.float32)
+    graph = port_graph(ei, et, ew).replace_weights(torch.from_numpy(mask))
+    rel_t = torch.from_numpy(rel).requires_grad_()
+    x_t = torch.from_numpy(x).requires_grad_()
+    rspmm_from_graph(graph, rel_t, x_t, sum=sum_op, mul=mul).backward(torch.from_numpy(g))
+
+    if reference == "xla":
+        fn = lambda r, xx: jax_generalized_rspmm(
+            jnp.asarray(ei), jnp.asarray(et), jnp.asarray(mask[:E]), r, xx,
+            sum=sum_op, mul=mul, backend="xla")
+    else:
+        jgraph = attach_plans(jax_make_graph(ei, et, V, R, edge_weight=ew, pad_to=E_PAD),
+                              rb=32, chunk=64, v2=reference == "pallas_v2")
+        jgraph = jgraph.replace_weights(jnp.asarray(mask))
+        fn = lambda r, xx: jax_rspmm_from_graph(jgraph, r, xx, sum=sum_op, mul=mul)
+    want_rel, want_x = _jax_grads(fn, rel, x, g)
+    np.testing.assert_allclose(rel_t.grad.numpy(), want_rel, **TOL)
+    np.testing.assert_allclose(x_t.grad.numpy(), want_x, **TOL)
+
+
+def test_every_tying_edge_gets_the_whole_gradient():
+    """Two edges into one row with the same message: each gets all of g,
+    where scatter_reduce's own gradient would give each half."""
+    ei = np.array([[0, 0, 1], [1, 2, 2]])  # row 0 from nodes 1 and 2, row 1 from 2
+    graph = make_graph(ei, np.zeros(3, np.int64), 3, 1, device="cpu")
+    rel = torch.ones(1, 1, 4, requires_grad=True)
+    x = torch.tensor([[[0.0, 0, 0, 0]], [[3.0, 1, 2, 5]], [[3.0, 2, 2, 5]]],
+                     requires_grad=True)
+    out = rspmm_from_graph(graph, rel, x, sum="max")
+    out.backward(torch.tensor([[[1.0, 1, 1, 1]], [[10.0, 10, 10, 10]], [[7.0, 7, 7, 7]]]))
+    assert out[2].isinf().all()
+    torch.testing.assert_close(x.grad[1], torch.tensor([[1.0, 0, 1, 1]]), rtol=0, atol=0)
+    torch.testing.assert_close(x.grad[2], torch.tensor([[11.0, 11, 11, 11]]), rtol=0, atol=0)
+    torch.testing.assert_close(rel.grad, torch.tensor([[[36.0, 22, 24, 60]]]), rtol=0, atol=0)
+
+
+def _pallas_minmax_backward(ei, et, ew, rel_f, x_f, g, out, mask, mul, is_min):
+    """d_x and d_rel from the four TPU min/max backward kernels, called as
+    ``_minmax_vjp_bwd`` calls them: (v1 d_x, v1 d_rel, v2 d_x, v2 d_rel)."""
+    plans = attach_plans(jax_make_graph(ei, et, V, R, edge_weight=ew, pad_to=E_PAD),
+                         rb=32, chunk=64).plans
+    f = rel_f.shape[1]
+    f_blk, prec, w_ext = min(512, f), _prec(None), _w_ext(mask)
+    out2 = jnp.where(jnp.isinf(out), (-1.0 if not is_min else 1.0) * 1e38, out)
+    rel_j, x_j, g_j = jnp.asarray(rel_f), jnp.asarray(x_f), jnp.asarray(g)
+
+    def pad(a, rows):
+        return jnp.pad(a, ((0, rows - a.shape[0]), (0, 0)))
+
+    p = plans.src
+    kern = functools.partial(_minmax_dx_kernel, mul, p.chunk, p.rb_reduce, p.rb_gather,
+                             jnp.float32, prec)
+    d_x = _minmax_bwd_call(kern, p, pad(x_j, p.n_reduce_pad), pad(g_j, p.n_gather_pad),
+                           pad(out2, p.n_gather_pad), pad(rel_j, p.r_pad),
+                           jnp.take(w_ext, p.perm, axis=0), p.n_reduce_pad, V, f, f_blk)
+    d_x = jnp.where(jnp.repeat(p.covered, p.rb_reduce)[:, None] > 0, d_x, 0.0)[:V]
+    p = plans.dst
+    kern = functools.partial(_minmax_drel_kernel, mul, p.chunk, p.rb_reduce, p.rb_gather,
+                             jnp.float32, prec)
+    d_rel = _drel_call(kern, p, pad(x_j, p.n_gather_pad), pad(g_j, p.n_reduce_pad),
+                       pad(out2, p.n_reduce_pad), pad(rel_j, p.r_pad),
+                       jnp.take(w_ext, p.perm, axis=0), f, f_blk)[:R]
+    v2_dx = rspmm_v2_minmax_dx(plans.v2src, rel_j, g_j, out2, x_j, w_ext, mul=mul,
+                               out_rows=V)
+    v2_drel = rspmm_v2_minmax_drel(plans.v2, x_j, g_j, out2, w_ext, R, rel_j, mul=mul)
+    return [np.asarray(a)[:n] for a, n in ((d_x, V), (d_rel, R), (v2_dx, V), (v2_drel, R))]
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("sum_op", ["max", "min"])
+def test_min_max_gradient_wrappers_match_the_pallas_kernels(sum_op, mul):
+    """The B4 and B5 wrappers called directly, with the forward's saved
+    output, against the TPU kernels they replace: ``_minmax_dx_kernel``
+    through ``_minmax_bwd_call``, ``_minmax_drel_kernel`` through
+    ``_drel_call``, ``rspmm_v2_minmax_dx`` and ``rspmm_v2_minmax_drel``."""
+    ei, et, ew, rel, x, mask = make_tie_inputs(seed=2)
+    g = np.random.default_rng(7).normal(size=(V, B * D)).astype(np.float32)
+    graph = port_graph(ei, et, ew)
+    w = torch.from_numpy(mask)
+    rel_f, x_f, g_t = (torch.from_numpy(a) for a in (rel.reshape(R, -1), x.reshape(V, -1), g))
+    out = rspmm_minmax_fwd(graph.csr, w, rel_f, x_f, mul, sum_op == "min")
+    d_x = rspmm_minmax_dx(graph.csr_src, w, rel_f, x_f, g_t, out, mul).numpy()
+    d_rel = rspmm_minmax_drel(graph.segments, w, rel_f, x_f, g_t, out, mul).numpy()
+    assert np.abs(d_x).sum() > 0 and np.abs(d_rel).sum() > 0
+
+    v1_dx, v1_drel, v2_dx, v2_drel = _pallas_minmax_backward(
+        ei, et, ew, rel_f.numpy(), x_f.numpy(), g, jnp.asarray(out.numpy()), mask, mul,
+        sum_op == "min")
+    for want in (v1_dx, v2_dx):
+        np.testing.assert_allclose(d_x, want, **TOL)
+    for want in (v1_drel, v2_drel):
+        np.testing.assert_allclose(d_rel, want, **TOL)

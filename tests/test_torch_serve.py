@@ -37,9 +37,10 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 V, R_DIRECT, T, D = 30, 4, 120, 16
 
 
-def _configs():
+def _configs(message="distmult", aggregate="sum", dim=D):
     def nb(mod, **kw):
-        return mod(input_dim=D, hidden_dims=(D, D), **kw)
+        return mod(input_dim=dim, hidden_dims=(dim, dim), message_func=message,
+                   aggregate_func=aggregate, **kw)
 
     return (
         JUltraConfig(relation_model=nb(JNBFNetConfig, num_relation=4),
@@ -161,6 +162,53 @@ def test_from_checkpoint_serves_like_the_predictor(served, tmp_path):
     loaded = UltraPredictor.from_checkpoint(
         str(path), split, cfg=_configs()[1], batch_size=4, device="cpu")
     np.testing.assert_array_equal(loaded.score_all(H, R), pred.score_all(H, R))
+
+
+@pytest.mark.parametrize("message, aggregate", [
+    ("distmult", "max"), ("distmult", "pna"), ("transe", "pna"), ("rotate", "sum"),
+    ("rotate", "mean"), ("rotate", "max"), ("rotate", "pna")])
+def test_minmax_and_rotate_predictors_match_jax(message, aggregate):
+    """A max, PNA or rotate model served by both packages from the same
+    weights: every score, and the top-k of both directions."""
+    jcfg, pcfg = _configs(message, aggregate)
+    jgraph, ei, et = jsynthetic.synthetic_graph(V, R_DIRECT, T, seed=1)
+    params = jax.device_get(jax_init_ultra_params(jcfg, jax.random.key(2)))
+    model = Ultra(pcfg)
+    model.load_state_dict(params_from_jax(params))
+    split = KGSplit(ei, et, V, 2 * R_DIRECT, ei[:, :0], et[:0])
+    jpred = JUltraPredictor(params, jcfg, jgraph, batch_size=4)
+    pred = UltraPredictor(model, split_to_graph(split, device="cpu"), batch_size=4,
+                          device="cpu")
+    np.testing.assert_allclose(pred.score_all(H, R), jpred.score_all(H, R), **TOL)
+    for direction, r in (("tails", R), ("heads", R + R_DIRECT)):
+        want_s, want_i = getattr(jpred, f"predict_{direction}")(H, R, k=5)
+        got_s, got_i = getattr(pred, f"predict_{direction}")(H, R, k=5)
+        np.testing.assert_allclose(got_s, want_s, **TOL)
+        full = jpred.score_all(H, r)
+        distinct = (np.abs(full[:, None, :] - want_s[:, :, None]) <= 1e-4).sum(-1) == 1
+        np.testing.assert_array_equal(got_i[distinct], want_i[distinct])
+
+
+def test_pna_checkpoint_round_trip(tmp_path):
+    """A PNA model at width 64 in the reference .pth layout: each entity
+    layer's linear is (64, 13 * 64) in torch's (out, in) layout; the JAX
+    exporter's file loads into the port and the port's file reads back
+    through the JAX converter."""
+    jcfg, pcfg = _configs("distmult", "pna", dim=64)
+    params = jax.device_get(jax_init_ultra_params(jcfg, jax.random.key(0)))
+    path = tmp_path / "pna.pth"
+    export_ultra_checkpoint(params, str(path))
+    model = Ultra(pcfg)
+    model.load_state_dict(load_ultra_checkpoint(str(path)))
+    assert tuple(model.state_dict()["entity_model.layers.0.linear.weight"].shape) == (64, 832)
+    for k, v in params_from_jax(params).items():
+        torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0, msg=k)
+    init = init_ultra_params(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert {k: v.shape for k, v in init.state_dict().items()} == \
+        {k: v.shape for k, v in model.state_dict().items()}
+    torch.save({"model": model.state_dict()}, tmp_path / "port.pth")
+    back = convert_ultra_checkpoint(str(tmp_path / "port.pth"))
+    jax.tree.map(np.testing.assert_array_equal, back, jax.tree.map(np.asarray, params))
 
 
 def _imports(path: pathlib.Path):

@@ -43,16 +43,31 @@ V, R_DIRECT, T, D, E_PAD = 40, 4, 150, 16, 384
 NEG, BATCH = 6, 4
 
 
-def _cfgs(remat=False):
+# (message, aggregate) of the relation model and of the entity model
+VARIANTS = {"sum": (("distmult", "sum"),) * 2,
+            "max": (("distmult", "max"),) * 2,
+            "pna": (("distmult", "pna"),) * 2,
+            "pna-entity": (("distmult", "sum"), ("distmult", "pna")),
+            **{f"rotate-{a}": (("rotate", a),) * 2 for a in ("sum", "mean", "max", "pna")}}
+
+
+def _cfgs(remat=False, variant="sum"):
+    (rel_msg, rel_agg), (ent_msg, ent_agg) = VARIANTS[variant]
+
     def nb(mod, **kw):
         return mod.NBFNetConfig(input_dim=D, hidden_dims=(D, D), **kw)
 
     return (
-        jnbf.UltraConfig(relation_model=nb(jnbf, num_relation=4),
-                         entity_model=nb(jnbf, num_relation=1, project_relations=True)),
+        jnbf.UltraConfig(
+            relation_model=nb(jnbf, num_relation=4, message_func=rel_msg,
+                              aggregate_func=rel_agg),
+            entity_model=nb(jnbf, num_relation=1, project_relations=True,
+                            message_func=ent_msg, aggregate_func=ent_agg)),
         nbfnet.UltraConfig(
-            relation_model=nb(nbfnet, num_relation=4, remat=remat),
-            entity_model=nb(nbfnet, num_relation=1, project_relations=True, remat=remat)),
+            relation_model=nb(nbfnet, num_relation=4, remat=remat, message_func=rel_msg,
+                              aggregate_func=rel_agg),
+            entity_model=nb(nbfnet, num_relation=1, project_relations=True, remat=remat,
+                            message_func=ent_msg, aggregate_func=ent_agg)),
     )
 
 
@@ -157,6 +172,70 @@ def test_train_step_loss_and_gradients_match_jax(kg, plans):
     assert set(grads) == set(want_grads)
     for k, g in grads.items():
         np.testing.assert_allclose(g.numpy(), want_grads[k].numpy(), err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("plans", [False, True])
+@pytest.mark.parametrize("variant", ["max", "pna", "pna-entity", "rotate-sum", "rotate-mean",
+                                     "rotate-max", "rotate-pna"])
+def test_minmax_and_rotate_train_steps_match_jax(kg, plans, variant):
+    """One port step of a max, PNA or rotate model against
+    jax.value_and_grad of the JAX loss on the same batch and easy-edge mask
+    (every gradient), and the AdamW update it applied against optax's on
+    the same gradients (Adam's first step, g / (|g| + eps), is too steep at
+    g near 0 to take the two packages' gradients). The first layer's input
+    is mostly 0 rows, so the min/max gradients run through many ties."""
+    port, jgraphs = kg[3], kg[4]
+    jcfg, pcfg = _cfgs(variant=variant)
+    params = jax.device_get(jloop.init_ultra_params(jcfg, jax.random.key(0)))
+    batch, ew = _batch(kg)
+    state = loop.init_train_state(_model(pcfg, params), lr=1e-3)
+    loss = loop.make_train_step(adversarial_temperature=1.0, num_negative=NEG)(
+        state, port, torch.from_numpy(batch), torch.from_numpy(ew))
+
+    want_loss, want_grads = _jax_loss_and_grads(jcfg, params, jgraphs[plans], batch, ew)
+    np.testing.assert_allclose(float(loss), want_loss, **TOL)
+    grads = {k: p.grad for k, p in state.model.named_parameters()}
+    assert set(grads) == set(want_grads)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want_grads[k].numpy(), err_msg=k, **TOL)
+
+    opt = jloop.make_optimizer(lr=1e-3)
+    p0 = params_from_jax(params)
+    jp0 = {k: jnp.asarray(v.numpy()) for k, v in p0.items()}
+    updates, _ = opt.update({k: jnp.asarray(g.numpy()) for k, g in grads.items()},
+                            opt.init(jp0), jp0)
+    want_params = optax.apply_updates(jp0, updates)
+    for k, p in state.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(want_params[k]),
+                                   err_msg=k, rtol=1e-6, atol=1e-7)
+
+
+def test_pna_train_step_asks_each_rspmm_gradient_once_per_call(kg, monkeypatch):
+    """What autograd asks of the rspmm in one step of the PNA configuration
+    (a sum relation model and a PNA entity model, L layers each): per
+    relation layer a sum forward, a relation gradient and, but for the
+    first layer (whose input is a constant boundary), an input gradient;
+    per entity layer two sum forwards (the sum and the sum of squares), a
+    max and a min forward, and the input and relation gradients of all
+    four. The chip run asserts the same counts as kernel launches."""
+    port = kg[3]
+    jcfg, pcfg = _cfgs(variant="pna-entity")
+    params = jax.device_get(jloop.init_ultra_params(jcfg, jax.random.key(0)))
+    names = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
+             "rspmm_minmax_dx", "rspmm_minmax_drel")
+    calls = {}
+    for name in names:
+        real = getattr(rspmm, name)
+        monkeypatch.setattr(rspmm, name, lambda *a, _n=name, _f=real: (
+            calls.__setitem__(_n, calls.get(_n, 0) + 1), _f(*a))[1])
+    batch, ew = _batch(kg)
+    loop.make_train_step(num_negative=NEG)(
+        loop.init_train_state(_model(pcfg, params)), port,
+        torch.from_numpy(batch), torch.from_numpy(ew))
+    layers = len(pcfg.entity_model.hidden_dims)
+    assert calls == {"rspmm_sum_fwd": 3 * layers, "rspmm_sum_dx": 3 * layers - 1,
+                     "rspmm_sum_drel": 3 * layers, "rspmm_minmax_fwd": 2 * layers,
+                     "rspmm_minmax_dx": 2 * layers, "rspmm_minmax_drel": 2 * layers}
 
 
 def test_adamw_matches_optax_on_identical_gradients():

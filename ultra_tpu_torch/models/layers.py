@@ -6,13 +6,19 @@ the reference checkpoint's (``linear``, ``layer_norm``, ``relation``,
 ``relation_projection.{0,2}``, ``relation_linear``), so a reference
 ``state_dict`` loads as it is.
 
-The ``sum`` and ``mean`` aggregators are ported; ``max``, ``pna`` and the
-``rotate`` message are ROADMAP A8 and raise ``NotImplementedError``.
+Messages: ``distmult``, ``transe`` and ``rotate`` (complex rotation of
+``(re, im)`` halves). Aggregators: ``sum``, ``mean``, ``max`` and ``pna``
+(mean, max, min and std, each times 1, the log-degree scale and its
+inverse: a 12-wide update, so ``linear`` takes ``13 * input_dim``). Every
+combination runs on the rspmm kernels except ``rotate`` with ``max`` or
+``pna``, which does not decompose into them and materialises one message
+per edge in plain torch, as the JAX package does with plain XLA.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +27,13 @@ from torch import nn
 from ultra_tpu_torch.graph import Graph
 from ultra_tpu_torch.ops.rspmm import degree, rspmm_from_graph
 
+EPS = 1e-6  # PNA std clamp
+
+logger = logging.getLogger(__name__)
+
 _MESSAGE2MUL = {"transe": "add", "distmult": "mul"}
+_MESSAGES = ("distmult", "transe", "rotate")
+_AGGREGATES = ("sum", "mean", "max", "pna")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,12 +41,95 @@ class ConvConfig:
     input_dim: int = 64
     output_dim: int = 64
     num_relation: int = 4
-    message_func: str = "distmult"  # distmult | transe
-    aggregate_func: str = "sum"  # sum | mean
+    message_func: str = "distmult"  # distmult | transe | rotate
+    aggregate_func: str = "sum"  # sum | mean | max | pna
     layer_norm: bool = True
     activation: str = "relu"
     dependent: bool = False
     project_relations: bool = False
+
+
+def pna_features(sum_, sq_sum, max_, min_, boundary, deg):
+    """PNA's (V, B, 12*D) update: {mean, max, min, std} x {1, log-degree
+    scale, its inverse}, the boundary folded in as one more self-message.
+    ``deg`` (V, 1, 1) counts live in-edges plus that self-message.
+
+    The clips are ``torch.maximum`` against a constant, as ``jnp.clip`` is:
+    at a tie both split the gradient in half, where ``torch.clamp`` would
+    give all of it to the input. Ties are common: at the first layer most
+    rows of the input are 0, so ``max_``, ``min_`` and the boundary tie."""
+    mean = (sum_ + boundary) / deg
+    sq_mean = (sq_sum + boundary.square()) / deg
+    max_ = torch.maximum(max_, boundary)
+    min_ = torch.minimum(min_, boundary)
+    eps = torch.tensor(EPS, dtype=mean.dtype, device=mean.device)
+    std = torch.sqrt(torch.maximum(sq_mean - mean.square(), eps))
+    features = torch.stack([mean, max_, min_, std], dim=-1)  # (V, B, D, 4)
+    features = features.reshape(*features.shape[:-2], -1)  # (V, B, 4D)
+    scale = torch.log(deg)
+    scale = scale / scale.mean()
+    floor = torch.tensor(1e-2, dtype=scale.dtype, device=scale.device)
+    scales = torch.cat([torch.ones_like(scale), scale, 1.0 / torch.maximum(scale, floor)],
+                       dim=-1)  # (V, 1, 3)
+    return (features[..., None] * scales[..., None, :]).reshape(*features.shape[:-1], -1)
+
+
+def _rotate_sum_rspmm(graph: Graph, relation, input):
+    """The rotate message summed, as ONE distmult sum rspmm at twice the
+    width: the complex product is bilinear, so with
+    ``S(r, x)[v] = sum_e w_e * r[type_e] * x[src_e]``
+
+        out_re = S(r_re, x_re) - S(r_im, x_im)
+        out_im = S(r_im, x_re) + S(r_re, x_im)
+
+    and stacking ``[x_re | x_im | x_re | x_im]`` against
+    ``[r_re | r_im | r_im | r_re]`` gives all four terms in one call."""
+    d = input.shape[-1] // 2
+    x_re, x_im = input[..., :d], input[..., d:]
+    r_re, r_im = relation[..., :d], relation[..., d:]
+    x4 = torch.cat([x_re, x_im, x_re, x_im], dim=-1)
+    r4 = torch.cat([r_re, r_im, r_im, r_re], dim=-1)
+    out4 = rspmm_from_graph(graph, r4, x4, sum="add", mul="mul")
+    return torch.cat([out4[..., :d] - out4[..., d:2 * d],
+                      out4[..., 2 * d:3 * d] + out4[..., 3 * d:]], dim=-1)
+
+
+def _rotate_per_edge_update(aggregate: str, graph: Graph, input, boundary, relation):
+    """The rotate message with ``max`` or ``pna``: one (E, B, D) message per
+    padded edge, reduced with index_add and scatter_reduce (whose gradient
+    shares a tie between the tying edges, as the JAX package's XLA segment
+    reductions do). Meant for small graphs: it warns past 2^28 elements."""
+    n_elem = graph.edge_index.shape[1] * input.shape[1] * input.shape[2]
+    if n_elem > 1 << 28:
+        logger.warning(
+            "rotate + %s uses the per-edge fallback: materializes %.2g message "
+            "elements (O(E*B*D)); use sum/mean aggregation for the fused kernel "
+            "path.", aggregate, float(n_elem),
+        )
+    dst, w = graph.edge_index[0], graph.edge_weight[:, None, None]
+    x_e = input.index_select(0, graph.edge_index[1])
+    r_e = relation.index_select(0, graph.edge_type)
+    d = x_e.shape[-1] // 2
+    x_re, x_im = x_e[..., :d], x_e[..., d:]
+    r_re, r_im = r_e[..., :d], r_e[..., d:]
+    msg = torch.cat([x_re * r_re - x_im * r_im, x_re * r_im + x_im * r_re], dim=-1)
+    shape = (graph.num_nodes,) + tuple(msg.shape[1:])
+
+    def seg_sum(m):
+        return torch.zeros(shape, dtype=m.dtype, device=m.device).index_add(0, dst, m * w)
+
+    def seg_ext(m, is_min):
+        fill = float("inf") if is_min else float("-inf")
+        m = torch.where(w != 0.0, m * w, torch.full((), fill, dtype=m.dtype, device=m.device))
+        out = torch.full(shape, fill, dtype=m.dtype, device=m.device)
+        return out.scatter_reduce(0, dst.view(-1, 1, 1).expand_as(m), m,
+                                  "amin" if is_min else "amax", include_self=True)
+
+    if aggregate == "max":
+        return torch.maximum(seg_ext(msg, is_min=False), boundary)
+    deg = degree(graph, include_self_loop=False)[:, None, None] + 1.0
+    return pna_features(seg_sum(msg), seg_sum(msg.square()), seg_ext(msg, is_min=False),
+                        seg_ext(msg, is_min=True), boundary, deg)
 
 
 class GeneralizedRelationalConv(nn.Module):
@@ -42,17 +137,19 @@ class GeneralizedRelationalConv(nn.Module):
 
     def __init__(self, cfg: ConvConfig):
         super().__init__()
-        if cfg.message_func not in _MESSAGE2MUL:
-            raise NotImplementedError(
-                f"message_func {cfg.message_func!r} is not ported yet (ROADMAP A8)"
-            )
-        if cfg.aggregate_func not in ("sum", "mean"):
-            raise NotImplementedError(
-                f"aggregate_func {cfg.aggregate_func!r} is not ported yet (ROADMAP A8)"
-            )
+        if cfg.message_func not in _MESSAGES:
+            raise ValueError(f"message_func must be one of {_MESSAGES}, got "
+                             f"{cfg.message_func!r}")
+        if cfg.aggregate_func not in _AGGREGATES:
+            raise ValueError(f"aggregate_func must be one of {_AGGREGATES}, got "
+                             f"{cfg.aggregate_func!r}")
+        if cfg.message_func == "rotate" and cfg.input_dim % 2:
+            raise ValueError(f"rotate needs an even input_dim (complex pairs), got "
+                             f"{cfg.input_dim}")
         self.cfg = cfg
         d_in, d_out = cfg.input_dim, cfg.output_dim
-        self.linear = nn.Linear(2 * d_in, d_out)
+        # [input | update]: the update is d_in wide, or 12 * d_in for pna
+        self.linear = nn.Linear((13 if cfg.aggregate_func == "pna" else 2) * d_in, d_out)
         if cfg.layer_norm:
             self.layer_norm = nn.LayerNorm(d_out, eps=1e-5)
         if cfg.dependent:
@@ -93,15 +190,43 @@ class GeneralizedRelationalConv(nn.Module):
         """One message-passing round; returns (V, B, output_dim)."""
         cfg = self.cfg
         relation = self.layer_relation(query, relation_input)
-        update = rspmm_from_graph(
-            graph, relation, input, sum="add", mul=_MESSAGE2MUL[cfg.message_func]
-        )
-        update = update + boundary
-        if cfg.aggregate_func == "mean":
-            update = update / (degree(graph, include_self_loop=False)[:, None, None] + 1.0)
+        aggregate = cfg.aggregate_func
+        if cfg.message_func == "rotate" and aggregate in ("max", "pna"):
+            update = _rotate_per_edge_update(aggregate, graph, input, boundary, relation)
+        else:
+            update = self._update(graph, input, boundary, relation)
         output = self.linear(torch.cat([input, update], dim=-1))
         if cfg.layer_norm:
             output = self.layer_norm(output)
         if cfg.activation:
             output = getattr(F, cfg.activation)(output)
         return output
+
+    def _update(self, graph: Graph, input, boundary, relation):
+        """The aggregated update on the rspmm kernels, boundary folded in."""
+        cfg = self.cfg
+        aggregate = cfg.aggregate_func
+        if aggregate in ("sum", "mean"):
+            if cfg.message_func == "rotate":
+                update = _rotate_sum_rspmm(graph, relation, input)
+            else:
+                update = rspmm_from_graph(graph, relation, input, sum="add",
+                                          mul=_MESSAGE2MUL[cfg.message_func])
+            update = update + boundary
+            if aggregate == "mean":
+                update = update / (degree(graph, include_self_loop=False)[:, None, None] + 1.0)
+            return update
+        mul = _MESSAGE2MUL[cfg.message_func]
+        max_ = rspmm_from_graph(graph, relation, input, sum="max", mul=mul)
+        if aggregate == "max":
+            return torch.maximum(max_, boundary)
+        # pna. Its sum of squares is rspmm(rel^2, x^2), as the reference
+        # computes it: for transe that is sum w (r^2 + x^2), not sum (w m)^2.
+        return pna_features(
+            rspmm_from_graph(graph, relation, input, sum="add", mul=mul),
+            rspmm_from_graph(graph, relation.square(), input.square(), sum="add", mul=mul),
+            max_,
+            rspmm_from_graph(graph, relation, input, sum="min", mul=mul),
+            boundary,
+            degree(graph, include_self_loop=False)[:, None, None] + 1.0,
+        )

@@ -10,11 +10,20 @@ transe). Output rows are ``edge_index[0]``, inputs are gathered from
 the node-major ``(V, B, D)`` layout and reach the kernel flattened to
 ``(V, B*D)`` rows.
 
-Only ``sum="add"`` is ported, as a ``torch.autograd.Function``: the
-forward is kernel B1 on the destination-major CSR, the input gradient B1 on
-the source-major CSR and the relation gradient kernel B2 on the type
-segments (``ops/rspmm_cuda.py``). The edge-weight gradient (ROADMAP B6) and
-the min/max aggregators (ROADMAP A8 with B3-B5) are later slices and raise.
+``sum="min"`` and ``"max"`` take the minimum or the maximum over the live
+edges of ``w[e] * op(rel, x)`` instead (an edge of weight 0 is left out,
+not counted as 0), and a row with no live edge is +inf (min) or -inf (max).
+Their gradient goes to every live edge whose message equals the output,
+the whole of it to each tying edge (``ultra_tpu/ops/rspmm.py:206-222``).
+
+Each aggregator is a ``torch.autograd.Function``. Sum: the forward is
+kernel B1 on the destination-major CSR, the input gradient B1 on the
+source-major CSR and the relation gradient kernel B2 on the type segments
+(``ops/rspmm_cuda.py``). Min/max: the forward is kernel B3, the input
+gradient B4 and the relation gradient B5 on the same three layouts
+(``ops/rspmm_minmax_cuda.py``); the backward routes against the forward's
+own saved output. The edge-weight gradient (ROADMAP B6) is a later slice
+and raises.
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ import torch
 
 from ultra_tpu_torch.graph import Graph, build_layouts
 from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_drel, rspmm_sum_dx, rspmm_sum_fwd
+from ultra_tpu_torch.ops.rspmm_minmax_cuda import (
+    rspmm_minmax_drel, rspmm_minmax_dx, rspmm_minmax_fwd,
+)
 
 _SUM_OPS = ("add", "min", "max")
 
@@ -51,14 +63,35 @@ class _SumRspmm(torch.autograd.Function):
         return None, None, d_rel, d_x, None
 
 
+class _MinMaxRspmm(torch.autograd.Function):
+    """Min/max rspmm over (R, F) relation and (N, F) x rows. The forward's
+    output is saved: the backward routes the gradient to the edges whose
+    recomputed message equals it, and computes each gradient only when
+    autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, layouts, edge_weight, relation, x, mul: str, is_min: bool):
+        ctx.layouts, ctx.mul = layouts, mul
+        out = rspmm_minmax_fwd(layouts[0], edge_weight, relation, x, mul, is_min)
+        ctx.save_for_backward(edge_weight, relation, x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        edge_weight, relation, x, out = ctx.saved_tensors
+        (_, csr_src, segments), mul = ctx.layouts, ctx.mul
+        g = g.contiguous()
+        d_rel = d_x = None
+        if ctx.needs_input_grad[2]:
+            d_rel = rspmm_minmax_drel(segments, edge_weight, relation, x, g, out, mul)
+        if ctx.needs_input_grad[3]:
+            d_x = rspmm_minmax_dx(csr_src, edge_weight, relation, x, g, out, mul)
+        return None, None, d_rel, d_x, None, None
+
+
 def _rspmm(layouts, edge_weight, relation, x, sum: str, mul: str):
     if sum not in _SUM_OPS:
         raise ValueError(f"sum must be one of {_SUM_OPS}, got {sum!r}")
-    if sum != "add":
-        raise NotImplementedError(
-            f"sum={sum!r} rspmm is not ported yet (ROADMAP A8 / B3-B5: min/max "
-            "forward and gradients)"
-        )
     if torch.is_grad_enabled() and edge_weight.requires_grad:
         raise NotImplementedError(
             "the rspmm edge-weight gradient is not ported yet (ROADMAP B6); "
@@ -70,13 +103,12 @@ def _rspmm(layouts, edge_weight, relation, x, sum: str, mul: str):
     # The Function sees the materialised rows, so autograd sums their
     # gradient back over the broadcast axis.
     relation = relation.expand((relation.shape[0],) + feat)
-    out = _SumRspmm.apply(
-        layouts,
-        edge_weight,
-        relation.reshape(relation.shape[0], -1).contiguous(),
-        x.reshape(x.shape[0], -1).contiguous(),
-        mul,
-    )
+    rows = (relation.reshape(relation.shape[0], -1).contiguous(),
+            x.reshape(x.shape[0], -1).contiguous())
+    if sum == "add":
+        out = _SumRspmm.apply(layouts, edge_weight, *rows, mul)
+    else:
+        out = _MinMaxRspmm.apply(layouts, edge_weight, *rows, mul, sum == "min")
     return out.reshape((out.shape[0],) + feat)
 
 

@@ -35,11 +35,23 @@ from ultra_tpu_torch.ops import build
 
 _MUL_CODE = {"mul": 0, "add": 1}
 _KERNELS = {}  # name -> the bound C entry point, set at first launch
+# the C signatures of every kernel in csrc/ (the min/max ones are launched
+# from ops/rspmm_minmax_cuda.py)
 _ARGTYPES = {
     "rspmm_sum_fwd": [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ],
     "rspmm_sum_drel": [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p,
+    ],
+    "rspmm_minmax_fwd": [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ],
+    "rspmm_minmax_dx": [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ],
+    "rspmm_minmax_drel": [ctypes.c_void_p] * 13 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ],

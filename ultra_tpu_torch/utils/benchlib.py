@@ -1,8 +1,9 @@
-"""Device timing and the benchmark graph for measurements on the card.
+"""Device timing, the benchmark graph and the PNA configuration for
+measurements on the card.
 
 Counterpart of ``ultra_tpu/utils/benchlib.py`` and of the graph construction in
-the root ``bench.py``. Used by ``chip_smoke.py`` and
-``scripts/torch_serve_profile.py``; nothing on the serving path imports it.
+the root ``bench.py``. Used by ``chip_smoke.py`` and ``scripts/torch_*_profile.py``;
+nothing on the serving path imports it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from ultra_tpu_torch.data.kg import KGSplit
 from ultra_tpu_torch.data.synthetic import random_kg_triples, with_inverses
+from ultra_tpu_torch.models.nbfnet import NBFNetConfig, UltraConfig
 
 # FB15k-237 shape: 14,541 entities; 272,115 train triples (544,230 edges with
 # inverses); 237 direct relations, 474 with inverses.
@@ -37,6 +39,19 @@ def fb15k237_split(kind: str = "realistic", seed: int = 0) -> KGSplit:
     edge_index, edge_type = with_inverses(trip, FB15K237_DIRECT_REL)
     return KGSplit(edge_index, edge_type, FB15K237_NODES, 2 * FB15K237_DIRECT_REL,
                    np.ascontiguousarray(trip[:, :2].T), trip[:, 2].copy())
+
+
+def pna_config() -> UltraConfig:
+    """The PNA configuration at ``ultra_3g`` widths
+    (``scripts/exp_pna_train.py:81-88``): a 6x64 sum RelNBFNet and a 6x64
+    EntityNBFNet with projected relations, distmult messages and PNA
+    aggregation, whose layers' ``linear`` takes 13 * 64 features."""
+    dims = (64,) * 6
+    return UltraConfig(
+        relation_model=NBFNetConfig(input_dim=64, hidden_dims=dims, num_relation=4),
+        entity_model=NBFNetConfig(input_dim=64, hidden_dims=dims, num_relation=1,
+                                  project_relations=True, aggregate_func="pna"),
+    )
 
 
 def device_ms(fn, samples: int = 20, inner: int = 10) -> float:
