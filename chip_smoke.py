@@ -9,14 +9,20 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    ``nvcc``, one process per source, all started together;
 3. turns TF32 off for matrix products and convolutions;
 4. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving, training and validation paths give it, and times
-   both with CUDA events: the sum forward B1 (entity graph F=512 and
-   F=1024, relation graph F=512 and F=4096), B1 on the source-major CSR for
-   the input gradient and B2 for the relation gradient (both graphs, F=512;
-   B2 timed for ``mul`` and ``add``), for ``mul`` and ``add`` with 10% of
+   shapes the serving, training, validation and attribution paths give it,
+   and times both with CUDA events: the sum forward B1 (entity graph F=512
+   and F=1024, relation graph F=512 and F=4096, both graphs at
+   attribution's F=64), B1 on the source-major CSR for the input gradient
+   (both graphs at F=512, the entity graph at F=64) and B2 for the relation
+   gradient (both graphs, F=512; B2 timed for ``mul`` and ``add``), for
+   ``mul`` and ``add`` with 10% of
    the weights zeroed; and the min/max kernels B3 (forward), B4 (input
    gradient) and B5 (relation gradient) on both graphs at F=512, for each
    ``mul`` and each of min and max, on tie-heavy inputs and on normal ones;
+   the edge-weight gradient B6 on the entity graph at F=64 (attribution)
+   and F=512, for the sum and for min and max, on those inputs; and B1
+   (forward on both graphs, input gradient) and B6 at F=64 on the repo's
+   rule-KG, which ``[visualize]`` explains a prediction on;
 5. serves zero-shot link prediction at the full ``ultra_3g`` width (6x64
    RelNBFNet + 6x64 EntityNBFNet, distmult, sum) with random weights from a
    seed, on the FB15k-237-shaped synthetic graph, through
@@ -40,7 +46,22 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    bound on the median over the tensors (see MINMAX_GRAD_MEDIAN);
 8. holds a ``max`` conv and a ``rotate`` conv (its sum runs B1 at twice the
    width) on the card against the same conv on the CPU;
-9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+9. explains predictions (``[visualize]``): the edge gradients of the
+   ``ultra_3g`` model for 4 queries on the FB15k-237-shaped graph, held
+   against the same call on the CPU (and a TF32 control that must fail that
+   check), with the launches of each call asserted, and one call of the PNA
+   model the same way, with its peak memory; then the full ``visualize``
+   through the function ``scripts/torch_visualize.py`` runs, on the repo's
+   rule-KG ``kg-datasets/synthrule-v5000-b12-c6-e45000-s3``, from a
+   ``.pth``, against the CPU; and the command line itself where PyYAML is
+   installed, in its own process while this one runs the CPU references;
+10. runs the gather probe (``[gather-probe]``,
+   ``utils/benchlib.py::gather_probe``, the function
+   ``scripts/torch_gather_probe.py`` runs): G1 and G2 at the TPU probes'
+   shapes and G1 over the entity graph's edge sources, each equal to its
+   plain version, timed beside it and the PyTorch call that computes the
+   same function;
+11. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises before the last line is printed.
@@ -53,6 +74,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -63,6 +85,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ultra_tpu_torch.utils.benchlib import bound_ms, live_edges, rspmm_bound_ms
+
 ROOT = Path(__file__).resolve().parent
 
 BATCH = 8  # config/transductive/inference.yaml train.batch_size
@@ -72,11 +96,12 @@ TIMED_PRECOMPUTES = 5
 PRECOMPUTE_CHUNK = 64  # train/eval.py precompute_relation_representations
 # the sources in ultra_tpu_torch/csrc
 KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx",
-           "rspmm_minmax_drel")
+           "rspmm_minmax_drel", "rspmm_dw", "gather")
 # the kernel wrappers, each with its launch counter
 WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
-            "rspmm_minmax_dx", "rspmm_minmax_drel")
-PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv")
+            "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
+PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv",
+          "visualize", "gather-probe")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -98,6 +123,9 @@ RUNNER_STEPS, RUNNER_VALID = 4, 64
 # plain version would add its own rounding: index_add_ adds a type's up to
 # 23,200 terms one by one into one f32 value.)
 KERNEL_REL_TO_ABS_SUM, KERNEL_ATOL = 1e-5, 1e-6
+# A plain version's time is the reference a kernel is read against, not a
+# result: the median of 5 runs of 10 calls, where a kernel's takes 20
+PLAIN_SAMPLES = 5
 # Served scores, card vs CPU: 12 layers of f32 with cuBLAS and the CPU's
 # matrix products and sums in different orders.
 SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-4
@@ -125,8 +153,34 @@ LOSS_RTOL, GRAD_REL_TO_MAX, GRAD_ATOL = 1e-5, 1e-4, 1e-7
 MINMAX_GRAD_MEDIAN, MINMAX_GRAD_WORST = 5e-3, 0.5
 # B3 against its plain version in f32: equal, value for value (a min or a
 # max is exact, and both compute each message with the same two roundings);
-# B4 and B5 against plain versions that route in f32 exactly as the forward
-# did and add in f64, within KERNEL_REL_TO_ABS_SUM * sum|terms| + KERNEL_ATOL.
+# B4, B5 and B6 against plain versions that route in f32 exactly as the
+# forward did and add in f64, within KERNEL_REL_TO_ABS_SUM * sum|terms| +
+# KERNEL_ATOL. G1 and G2 copy values: equal to their plain versions.
+# Attribution (models/visualize.py::edge_gradients), card vs CPU, same
+# weights and query: per layer, over the live edges, max|err| <= 1e-4 of
+# that layer's largest |gradient|, the bound of a train step's gradients
+# (the gradient runs back through the same 12 layers); the same call with
+# TF32 matrix products must fall outside it. The paths of a full visualize:
+# the top path equal, its importance (an average of at most 6 such
+# gradients) within rtol 1e-3.
+VIS_GRAD_REL_TO_MAX, VIS_WEIGHT_RTOL = 1e-4, 1e-3
+# The PNA model's attribution (max and min per edge, whose gradient shares a
+# tie between the tying edges) has no such bound on its worst edge: where
+# two messages nearly tie, rounding decides which edge takes the gradient.
+# On an H100 (PERF.md) the card against the CPU moved 53 of 544,230 live
+# edges of one layer past VIS_GRAD_REL_TO_MAX of the layer's largest (up to
+# 0.0061 of it), the same call on the card from weights moved by one unit in
+# the last place 8 (up to 0.0059): rounding alone sets the worst edge. With
+# TF32 matrix products 956 edges of that layer moved. So per layer at most
+# VIS_MINMAX_EDGES_OFF of the live edges may be past VIS_GRAD_REL_TO_MAX,
+# and the TF32 control must not pass.
+VIS_MINMAX_EDGES_OFF = 4e-4
+VIS_QUERIES = 4
+# the in-repo rule-KG that [visualize] explains predictions on, and its
+# constructor keys (kg-datasets/synthrule-v5000-b12-c6-e45000-s3: 4,326
+# entities in a triple, 136,010 train triples, 272,020 message edges)
+SYNTHRULE = dict(num_nodes=5000, num_base_rel=12, num_comp_rel=6, num_base_triples=45000,
+                 seed=3)
 
 
 class SmokeFailure(RuntimeError):
@@ -138,28 +192,19 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def _bound(nbytes, flops):
-    """(ms, "bytes" | "operations"): the larger of the bytes over the card's
-    memory rate and the f32 operations over its peak f32 rate."""
-    from ultra_tpu_torch.utils.benchlib import H100_BYTES_PER_S, H100_F32_FLOPS
-
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def _live(edge_weight, eid):
-    return int((edge_weight[eid.long()] != 0).sum())
-
-
-def rspmm_bound_ms(csr, edge_weight, relation, x, mul="mul"):
-    """Least time for one sum (or min/max) rspmm on these inputs: each input
-    read once (x, relation, the CSR and the weight of each CSR edge), the
-    output written once, and 3 f32 operations per feature of each edge whose
-    weight is not 0. Returns (ms, "bytes" | "operations")."""
-    num_rows, feat = csr.rowptr.numel() - 1, x.shape[1]
-    nbytes = 4 * (x.numel() + relation.numel() + num_rows * feat)
-    nbytes += 8 * (num_rows + 1) + (4 + 4 + 4 + 4) * csr.col.numel()
-    return _bound(nbytes, 3 * _live(edge_weight, csr.eid) * feat)
+def dw_bound_ms(csr, edge_weight, relation, x, g, out=None):
+    """Least time for one edge-weight gradient on these inputs: x, g, the
+    saved output (min/max only), the relation rows and the CSR (16 bytes an
+    edge, the weight included) read once, d_w written once; 3 f32
+    operations per feature of each CSR edge for the sum (a runtime-masked
+    edge gets its derivative too), 5 per feature of each live edge for
+    min/max (the weighted message and its compare)."""
+    feat = x.shape[1]
+    nbytes = 4 * (x.numel() + g.numel() + relation.numel() + edge_weight.numel())
+    nbytes += 4 * (0 if out is None else out.numel())
+    nbytes += 8 * csr.rowptr.numel() + 16 * csr.col.numel()
+    flops = (3 * csr.col.numel() if out is None else 5 * live_edges(edge_weight, csr.eid)) * feat
+    return bound_ms(nbytes, flops)
 
 
 def drel_bound_ms(seg, edge_weight, x, g, mul="mul"):
@@ -170,7 +215,7 @@ def drel_bound_ms(seg, edge_weight, x, g, mul="mul"):
     feat, num_edges = g.shape[1], seg.src.numel()
     nbytes = 4 * ((x.numel() if mul == "mul" else 0) + g.numel() + seg.num_types * feat)
     nbytes += 16 * num_edges + 8 * (seg.chunkptr.numel() + seg.type_chunkptr.numel())
-    return _bound(nbytes, (3 if mul == "mul" else 2) * _live(edge_weight, seg.eid) * feat)
+    return bound_ms(nbytes, (3 if mul == "mul" else 2) * live_edges(edge_weight, seg.eid) * feat)
 
 
 def minmax_dx_bound_ms(csr_src, edge_weight, relation, x, g):
@@ -180,7 +225,7 @@ def minmax_dx_bound_ms(csr_src, edge_weight, relation, x, g):
     is not 0 (the message, its compare, the routed product and the sum)."""
     nbytes = 4 * (2 * x.numel() + 2 * g.numel() + relation.numel())
     nbytes += 8 * csr_src.rowptr.numel() + 16 * csr_src.col.numel()
-    return _bound(nbytes, 6 * _live(edge_weight, csr_src.eid) * x.shape[1])
+    return bound_ms(nbytes, 6 * live_edges(edge_weight, csr_src.eid) * x.shape[1])
 
 
 def minmax_drel_bound_ms(seg, edge_weight, relation, x, g):
@@ -192,20 +237,20 @@ def minmax_drel_bound_ms(seg, edge_weight, relation, x, g):
     nbytes = 4 * (x.numel() + 2 * g.numel() + 2 * relation.numel())
     nbytes += 4 * 2 * (seg.chunkptr.numel() - 1) * feat
     nbytes += 16 * seg.src.numel() + 8 * (seg.chunkptr.numel() + seg.type_chunkptr.numel())
-    return _bound(nbytes, 6 * _live(edge_weight, seg.eid) * feat)
+    return bound_ms(nbytes, 6 * live_edges(edge_weight, seg.eid) * feat)
 
 
 def kernel_row(name, source, replaces, out_shape, ms, plain_ms, bound, max_abs_err,
                tolerance, on_path=True, **extra):
     """One entry of the kernels line; ``launches`` is filled in at the end
     from the main path's counts at ``out_shape``."""
-    bound_ms, bound_by = bound
-    print(f"[kernel] {name}: ms={ms!r} plain_ms={plain_ms!r} bound_ms={bound_ms!r} "
+    least_ms, bound_by = bound
+    print(f"[kernel] {name}: ms={ms!r} plain_ms={plain_ms!r} bound_ms={least_ms!r} "
           f"({bound_by})", flush=True)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes this function
+            "bound_ms": least_ms, "bound_by": bound_by,
+            "library_ms": None,  # unless ``extra`` names the PyTorch call that computes it
             "out_shape": list(out_shape), "on_path": on_path, "tolerance": tolerance,
             **extra}
 
@@ -245,7 +290,7 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
         rows.append(kernel_row(
             row_name, source, replaces, got.shape,
             device_ms(lambda: kernel(layout, weight, a, b, mul)),
-            device_ms(lambda: plain(layout, weight, a, b, mul)),
+            device_ms(lambda: plain(layout, weight, a, b, mul), samples=PLAIN_SAMPLES),
             bound(layout, weight, a, b, mul), errs[mul],
             f"|err| <= {KERNEL_REL_TO_ABS_SUM} * sum|terms| + {KERNEL_ATOL} against the "
             "plain version in f64", on_path=mul == "mul", mul=mul,
@@ -330,34 +375,117 @@ def hold_minmax(tag, g_, feat, gen, replaces):
             f"rspmm_minmax_fwd/{tag}/F{feat}", "ultra_tpu_torch/csrc/rspmm_minmax_fwd.cu",
             replaces["fwd"], out.shape,
             device_ms(lambda: k.rspmm_minmax_fwd(g_.csr, w, rel, x, "mul", False)),
-            device_ms(lambda: k.rspmm_minmax_fwd_plain(g_.csr, w, rel, x, "mul", False)),
+            device_ms(lambda: k.rspmm_minmax_fwd_plain(g_.csr, w, rel, x, "mul", False),
+                      samples=PLAIN_SAMPLES),
             rspmm_bound_ms(g_.csr, w, rel, x), errs["fwd"],
             "equal to the plain version in f32, value for value", on_path=tag == "entity"),
         kernel_row(
             f"rspmm_minmax_dx/{tag}/F{feat}", "ultra_tpu_torch/csrc/rspmm_minmax_dx.cu",
             replaces["dx"], x.shape,
             device_ms(lambda: k.rspmm_minmax_dx(g_.csr_src, w, rel, x, g, out, "mul")),
-            device_ms(lambda: k.rspmm_minmax_dx_plain(g_.csr_src, w, rel, x, g, out, "mul")),
+            device_ms(lambda: k.rspmm_minmax_dx_plain(g_.csr_src, w, rel, x, g, out, "mul"),
+                      samples=PLAIN_SAMPLES),
             minmax_dx_bound_ms(g_.csr_src, w, rel, x, g), errs["dx"], grad_tol,
             on_path=tag == "entity"),
         kernel_row(
             f"rspmm_minmax_drel/{tag}/F{feat}", "ultra_tpu_torch/csrc/rspmm_minmax_drel.cu",
             replaces["drel"], rel.shape,
             device_ms(lambda: k.rspmm_minmax_drel(g_.segments, w, rel, x, g, out, "mul")),
-            device_ms(lambda: k.rspmm_minmax_drel_plain(g_.segments, w, rel, x, g, out, "mul")),
+            device_ms(lambda: k.rspmm_minmax_drel_plain(g_.segments, w, rel, x, g, out, "mul"),
+                      samples=PLAIN_SAMPLES),
             minmax_drel_bound_ms(g_.segments, w, rel, x, g), errs["drel"], grad_tol,
             on_path=tag == "entity"),
     ]
     return {row["name"]: row for row in rows}, ok
 
 
-def check_kernels(graph, num_rel, cfg, gen):
+def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
+    """B6 against its plain version on the entity graph ``g_`` (named
+    ``tag``), at each of ``feats``: F=64 is an attribution call's width (one
+    query of D=64), F=512 a batch's. With weights
+    from ``minmax_weights`` (10% masked at run time, and every edge into one
+    row): the sum's gradient for mul and add on normal inputs, and min/max's
+    (given B3's output) for mul and add, min and max, on tie-heavy and
+    normal inputs. The plain version routes in f32 as the forward did and
+    adds in f64. Times the sum (mul) at each width and min/max (mul, max)
+    at F=512 beside the plain version in f32. Returns ({row name: row}, ok)."""
+    from ultra_tpu_torch.ops import rspmm_cuda as k
+    from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd
+    from ultra_tpu_torch.utils.benchlib import device_ms
+
+    w, masked_row = minmax_weights(g_, gen)
+    n, r, csr = g_.num_nodes, g_.num_relations, g_.csr
+    masked = csr.eid[csr.rowptr[masked_row]:csr.rowptr[masked_row + 1]].long()
+    ok, rows, tol = True, {}, (f"|err| <= {KERNEL_REL_TO_ABS_SUM} * sum|terms| + {KERNEL_ATOL} "
+                               "against the plain version routed in f32 and added in f64")
+    replaces = "ultra_tpu/ops/rspmm_pallas.py:465"
+    for feat in feats:
+        ties_x = torch.randint(-3, 4, (n, feat), generator=gen).float()
+        ties_x[torch.rand(n, generator=gen) < 0.25] = 0.0
+        inputs = {"ties": (torch.randint(-3, 4, (r, feat), generator=gen).float().cuda(),
+                           ties_x.cuda()),
+                  "normal": (torch.randn(r, feat, generator=gen).cuda(),
+                             torch.randn(n, feat, generator=gen).cuda())}
+        g = torch.randn(n, feat, generator=gen).cuda()
+        errs = {"sum": 0.0, "minmax": 0.0}
+        cases = [("sum", "normal", mul, None) for mul in ("mul", "add")] + [
+            ("minmax", kind, mul, is_min) for kind in ("ties", "normal")
+            for mul in ("mul", "add") for is_min in (False, True)]
+        for agg, kind, mul, is_min in cases:
+            rel, x = inputs[kind]
+            out = None if agg == "sum" else rspmm_minmax_fwd(csr, w, rel, x, mul, is_min)
+            got = k.rspmm_dw(csr, w, rel, x, g, mul, out)
+            if agg == "sum":  # every input in f64
+                terms = k.rspmm_dw_terms(csr, w.double(), rel.double(), x.double(), g.double(),
+                                         mul)
+            else:
+                terms = k.rspmm_dw_terms(csr, w, rel, x, g.double(), mul, out)
+            eid = csr.eid.long()
+            want = torch.zeros(w.shape, dtype=torch.float64, device="cuda")
+            abs_sum = want.clone().index_put_((eid,), terms.abs().sum(1))
+            want.index_put_((eid,), terms.sum(1))
+            routed = int((terms != 0).sum())
+            del terms
+            torch.cuda.synchronize()
+            err = (got.double() - want).abs()
+            within = float((err / (KERNEL_REL_TO_ABS_SUM * abs_sum + KERNEL_ATOL)).max())
+            case_ok = bool(torch.isfinite(got).all()) and within <= 1
+            # the masked row: the sum's derivative, 0 for min/max
+            case_ok &= bool((got[masked] != 0).any() if agg == "sum"
+                            else (got[masked] == 0).all())
+            ok &= case_ok
+            errs[agg] = max(errs[agg], float(err.max()))
+            name = "sum" if agg == "sum" else ("min" if is_min else "max")
+            print(f"[kernel] rspmm_dw {tag} F={feat} {kind} mul={mul} {name}: ok={case_ok} "
+                  f"max_abs_err={float(err.max())!r} worst_err_over_tolerance={within!r} "
+                  f"routed_terms={routed}", flush=True)
+        rel, x = inputs["normal"]
+        timed = [(f"rspmm_dw/{tag}/F{feat}", None, feat == 64)]
+        if feat == 512:
+            timed.append((f"rspmm_dw_minmax/{tag}/F{feat}",
+                          rspmm_minmax_fwd(csr, w, rel, x, "mul", False), False))
+        for name, out, on_path in timed:
+            agg = "sum" if out is None else "minmax"
+            rows[name] = kernel_row(
+                name, "ultra_tpu_torch/csrc/rspmm_dw.cu", replaces, (n, feat),
+                device_ms(lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", out)),
+                device_ms(lambda: k.rspmm_dw_plain(csr, w, rel, x, g, "mul", out),
+                          samples=PLAIN_SAMPLES),
+                dw_bound_ms(csr, w, rel, x, g, out), errs[agg], tol, on_path=on_path,
+                aggregate=agg)
+    return rows, ok
+
+
+def check_kernels(graph, rule_graph, cfg, gen):
     """Every kernel wrapper against its plain version at each shape the
-    serving, training and validation paths give it: F = 512 (a batch of 8,
-    D = 64) for training and serving, 1024 for validation's two directions
-    on the entity graph, 4096 for the precompute's 64 relations on the
-    relation graph. Returns ({row name: row}, ok); a row's ``out_shape`` is
-    the launch-count key of its launches."""
+    serving, training, validation and attribution paths give it: F = 512
+    (a batch of 8, D = 64) for training and serving, 1024 for validation's
+    two directions on the entity graph, 4096 for the precompute's 64
+    relations on the relation graph, 64 (one query) for attribution's
+    forwards on both graphs and its input and edge-weight gradients on the
+    entity graph, on ``graph`` and on ``rule_graph`` (the rule-KG that
+    ``[visualize]`` explains a prediction on). Returns ({row name: row},
+    ok); a row's ``out_shape`` is the launch-count key of its launches."""
     from ultra_tpu_torch.ops import rspmm_cuda as k
 
     fwd_src, drel_src = (f"ultra_tpu_torch/csrc/{n}.cu" for n in KERNELS[:2])
@@ -368,50 +496,62 @@ def check_kernels(graph, num_rel, cfg, gen):
     # is the forward kernel on the source plan (rspmm_pallas.py:1341-1374)
     # and the relation gradient the v2 or the v1 kernel (:1375-1392); the
     # min/max gradients run the v2 kernels with v2 plans, else the v1 ones
-    # (rspmm_pallas.py:852-963)
-    for tag, g_, rel_rows, fwd_feats, fwd_replaces, drel_replaces, minmax_replaces in (
-        ("entity", graph, num_rel, (train_feat, 2 * train_feat),
-         "ultra_tpu/ops/rspmm_pallas_v2.py:508", "ultra_tpu/ops/rspmm_pallas_v2.py:1054",
+    # (rspmm_pallas.py:852-963). The rule-KG's graphs run attribution only.
+    entity_fwd, relation_fwd = ("ultra_tpu/ops/rspmm_pallas_v2.py:508",
+                                "ultra_tpu/ops/rspmm_pallas.py:283")
+    for tag, g_, fwd_feats, dx_feats, drel_replaces, minmax_replaces, fwd_replaces in (
+        ("entity", graph, (train_feat, 2 * train_feat, dim), (train_feat, dim),
+         "ultra_tpu/ops/rspmm_pallas_v2.py:1054",
          {"fwd": "ultra_tpu/ops/rspmm_pallas_v2.py:704",
           "dx": "ultra_tpu/ops/rspmm_pallas_v2.py:927",
-          "drel": "ultra_tpu/ops/rspmm_pallas_v2.py:982"}),
-        ("relation", graph.relation_graph, graph.relation_graph.num_relations,
-         (train_feat, PRECOMPUTE_CHUNK * dim), "ultra_tpu/ops/rspmm_pallas.py:283",
-         "ultra_tpu/ops/rspmm_pallas.py:381",
+          "drel": "ultra_tpu/ops/rspmm_pallas_v2.py:982"}, entity_fwd),
+        ("relation", graph.relation_graph, (train_feat, PRECOMPUTE_CHUNK * dim, dim),
+         (train_feat,), "ultra_tpu/ops/rspmm_pallas.py:381",
          {"fwd": "ultra_tpu/ops/rspmm_pallas.py:574",
           "dx": "ultra_tpu/ops/rspmm_pallas.py:704",
-          "drel": "ultra_tpu/ops/rspmm_pallas.py:745"}),
+          "drel": "ultra_tpu/ops/rspmm_pallas.py:745"}, relation_fwd),
+        ("rulekg", rule_graph, (dim,), (dim,), None, None, entity_fwd),
+        ("rulekg-relation", rule_graph.relation_graph, (dim,), (), None, None, relation_fwd),
     ):
         keep = torch.rand(g_.edge_weight.shape, generator=gen) >= 0.1
         w = (g_.edge_weight.cpu() * keep).cuda()
         rand = lambda *shape: torch.randn(*shape, generator=gen).cuda()
-        # B2 for add is _drel_add_kernel's function, off the path (distmult)
-        # and timed for its row on the entity graph
-        drel_timed = {"mul": drel_replaces}
-        if tag == "entity":
-            drel_timed["add"] = "ultra_tpu/ops/rspmm_pallas_v2.py:1022"
         cases = [
             (f"rspmm_sum_fwd/{tag}/F{feat}", fwd_src, {"mul": fwd_replaces}, k.rspmm_sum_fwd,
-             k.rspmm_sum_fwd_plain, g_.csr, rand(rel_rows, feat),
+             k.rspmm_sum_fwd_plain, g_.csr, rand(g_.num_relations, feat),
              rand(g_.num_nodes, feat), rspmm_bound_ms)
             for feat in fwd_feats
         ] + [
-            (f"rspmm_sum_dx/{tag}/F{train_feat}", fwd_src, {"mul": fwd_replaces},
-             k.rspmm_sum_dx, k.rspmm_sum_dx_plain, g_.csr_src, rand(rel_rows, train_feat),
-             rand(g_.num_nodes, train_feat), rspmm_bound_ms),
-            (f"rspmm_sum_drel/{tag}/F{train_feat}", drel_src, drel_timed,
-             k.rspmm_sum_drel, k.rspmm_sum_drel_plain, g_.segments,
-             rand(g_.num_nodes, train_feat), rand(g_.num_nodes, train_feat), drel_bound_ms),
+            (f"rspmm_sum_dx/{tag}/F{feat}", fwd_src, {"mul": fwd_replaces},
+             k.rspmm_sum_dx, k.rspmm_sum_dx_plain, g_.csr_src, rand(g_.num_relations, feat),
+             rand(g_.num_nodes, feat), rspmm_bound_ms)
+            for feat in dx_feats
         ]
+        if drel_replaces:
+            # B2 for add is _drel_add_kernel's function, off the path
+            # (distmult) and timed for its row on the entity graph
+            drel_timed = {"mul": drel_replaces}
+            if tag == "entity":
+                drel_timed["add"] = "ultra_tpu/ops/rspmm_pallas_v2.py:1022"
+            cases.append(
+                (f"rspmm_sum_drel/{tag}/F{train_feat}", drel_src, drel_timed,
+                 k.rspmm_sum_drel, k.rspmm_sum_drel_plain, g_.segments,
+                 rand(g_.num_nodes, train_feat), rand(g_.num_nodes, train_feat),
+                 drel_bound_ms))
         for name, source, timed, kernel, plain, layout, a, b, bound in cases:
             case_rows, case_ok = hold(name, source, timed, kernel, plain, layout, w, a, b,
                                       bound)
             rows.update((row["name"], row) for row in case_rows)
             ok &= case_ok
-        minmax_rows, minmax_ok = hold_minmax(tag, g_, train_feat, gen, minmax_replaces)
-        rows.update(minmax_rows)
-        ok &= minmax_ok
+        if minmax_replaces:
+            minmax_rows, minmax_ok = hold_minmax(tag, g_, train_feat, gen, minmax_replaces)
+            rows.update(minmax_rows)
+            ok &= minmax_ok
         torch.cuda.empty_cache()
+    for g_, tag, feats in ((graph, "entity", (dim, train_feat)), (rule_graph, "rulekg", (dim,))):
+        dw_rows, dw_ok = hold_dw(g_, gen, tag, feats)
+        rows.update(dw_rows)
+        ok &= dw_ok
     return rows, ok
 
 
@@ -423,14 +563,17 @@ def serve(split, ckpt, device):
 
 
 def wrappers():
-    from ultra_tpu_torch.ops import rspmm_cuda, rspmm_minmax_cuda
+    from ultra_tpu_torch.ops import gather_cuda, rspmm_cuda, rspmm_minmax_cuda
 
-    return [getattr(rspmm_cuda if name.startswith("rspmm_sum") else rspmm_minmax_cuda, name)
+    return [getattr(gather_cuda if name.startswith("gather")
+                    else rspmm_minmax_cuda if name.startswith("rspmm_minmax") else rspmm_cuda,
+                    name)
             for name in WRAPPERS]
 
 
 def launch_counts():
-    """{wrapper: {output shape (rows, F): launches}} since the last reset."""
+    """{wrapper: {output shape (rows, F), for the gathers with the element
+    type: launches}} since the last reset."""
     return {f.__name__: dict(f.launches) for f in wrappers()}
 
 
@@ -444,7 +587,7 @@ def fwd_launches(counts):
 
 
 def as_json(counts):
-    return {name: {f"{r}x{f}": n for (r, f), n in sorted(by_shape.items())}
+    return {name: {"x".join(map(str, key)): n for key, n in sorted(by_shape.items())}
             for name, by_shape in counts.items()}
 
 
@@ -522,6 +665,18 @@ def validation_launches(cfg, num_nodes, num_rel, num_triples):
     return times(plus(forward_launches(cfg.relation_model, num_rel, BATCH * dim),
                       forward_launches(cfg.entity_model, num_nodes, BATCH * dim)),
                  2 * batches)
+
+
+def moved_by_one_ulp(model, seed=5):
+    """A copy of ``model`` with each weight moved by one unit in the last
+    place, up or down at random."""
+    moved = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in moved.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=gen).float() * 2 - 1
+            p.mul_(1 + sign.to(p.device) * 2.0**-23)
+    return moved
 
 
 def train_steps(split, graph, cfg, tag="training"):
@@ -614,11 +769,7 @@ def train_steps(split, graph, cfg, tag="training"):
     # one unit in the last place, each up or down at random
     ulp_model = Ultra(cfg)
     ulp_model.load_state_dict(init)
-    ulp_gen = torch.Generator().manual_seed(5)
-    with torch.no_grad():
-        for p in ulp_model.parameters():
-            sign = torch.randint(0, 2, p.shape, generator=ulp_gen).float() * 2 - 1
-            p.mul_(1 + sign * 2.0**-23)
+    ulp_model = moved_by_one_ulp(ulp_model)
     ulp_state = init_train_state(ulp_model.cuda(), lr=LR, weight_decay=WEIGHT_DECAY)
     step(ulp_state, graph, *on_card[0])
     ulp_ratio, _ = grad_errors(
@@ -867,6 +1018,282 @@ def conv_checks(graph, num_rel):
     return record
 
 
+def attribution_launches(cfg, num_nodes, num_rel):
+    """What one ``edge_gradients`` call of a sum model launches (one query,
+    F = D): every layer's forward on both graphs; on the entity graph the
+    edge-weight gradient of every layer and the input gradient of every
+    layer but the first (whose input, the boundary, needs none); no
+    relation gradient, since the parameters are frozen."""
+    feat = cfg.entity_model.input_dim
+    layers = len(cfg.entity_model.hidden_dims)
+    counts = plus(forward_launches(cfg.relation_model, num_rel, feat),
+                  forward_launches(cfg.entity_model, num_nodes, feat))
+    add_launches(counts, "rspmm_sum_dx", (num_nodes, feat), layers - 1)
+    add_launches(counts, "rspmm_dw", (num_nodes, feat), layers)
+    return counts
+
+
+def gradient_errors(got, want, live):
+    """Per layer, max|err| over the live edges over that layer's largest
+    |gradient| on the CPU."""
+    return [float(np.abs(g[live] - w[live]).max() / max(np.abs(w[live]).max(), 1e-30))
+            for g, w in zip(got, want)]
+
+
+def gradient_offs(got, want, live):
+    """Per layer, how many live edges' gradients differ by more than
+    VIS_GRAD_REL_TO_MAX of that layer's largest |gradient| in ``want``."""
+    return [int((np.abs(g[live] - w[live])
+                 > VIS_GRAD_REL_TO_MAX * np.abs(w[live]).max()).sum())
+            for g, w in zip(got, want)]
+
+
+def contiguous(path, head, tail):
+    return (path[0][0] == head and path[-1][1] == tail
+            and all(a[1] == b[0] for a, b in zip(path[:-1], path[1:])))
+
+
+def rule_kg(device):
+    """The repo's rule-KG (SYNTHRULE), read from its cache, and its test
+    split's graph on ``device``, built as ``visualize_from_config`` builds
+    it. Returns (the dataset, the graph)."""
+    from ultra_tpu_torch.data import kg
+    from ultra_tpu_torch.train.runner import prepare_graph
+
+    dataset = kg.build_dataset("SyntheticRuleKG", str(ROOT / "kg-datasets"), **SYNTHRULE).load()
+    return dataset, prepare_graph(dataset.test, device=device)
+
+
+def visualize_run(split, graph, cfg, rule_dataset):
+    """Edge-importance attribution at full ``ultra_3g`` width (random weights
+    from seed 0). On the card: ``edge_gradients`` for VIS_QUERIES target
+    triples of the FB15k-237-shaped graph, each call's launches asserted,
+    then the same calls with TF32 matrix products (a control that must fail
+    the card-vs-CPU check); one call of the PNA model (max and min
+    aggregation, which runs per edge in plain torch), its time, launches
+    and peak memory read around it, and the same call with TF32 and from
+    weights moved by one unit in the last place (VIS_MINMAX_EDGES_OFF); then
+    ``visualize_from_config``, the function the command line runs once it
+    has read its YAML, on the repo's rule-KG ``rule_dataset`` from a
+    ``.pth``. Then the same calls on the CPU, each gradient and the
+    explanation's top path held against the card's; and the command line
+    itself, where PyYAML is installed. Returns (the ``[visualize]`` record,
+    the launches of the card calls)."""
+    from ultra_tpu_torch.models.visualize import (
+        edge_gradients, format_paths, visualize_from_config,
+    )
+    from ultra_tpu_torch.train.loop import init_ultra_params
+    from ultra_tpu_torch.utils.benchlib import pna_config
+
+    pna_cfg = pna_config()
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+    pna_model = init_ultra_params(pna_cfg, torch.Generator().manual_seed(0), device="cuda")
+    live = (graph.edge_weight != 0).cpu().numpy()
+    rng = np.random.default_rng(4)
+    picks = rng.choice(split.target_edge_index.shape[1], VIS_QUERIES, replace=False)
+    queries = [(int(split.target_edge_index[0, i]), int(split.target_edge_index[1, i]),
+                int(split.target_edge_type[i])) for i in picks]
+    want_counts = attribution_launches(cfg, graph.num_nodes, split.num_relations)
+    pna_want = forward_launches(pna_cfg.relation_model, split.num_relations,
+                                pna_cfg.entity_model.input_dim)
+
+    edge_gradients(model, graph, *queries[0])  # warm-up
+    counts, card, lat = [], [], []
+    for h, t, r in queries:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.append(edge_gradients(model, graph, h, t, r))  # copies to the host
+        lat.append(1e3 * (time.perf_counter() - t0))
+        counts.append(launch_counts())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = [edge_gradients(model, graph, h, t, r) for h, t, r in queries]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    edge_gradients(pna_model, graph, *queries[0])  # warm-up
+    torch.cuda.synchronize()
+    resident_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pna_card = edge_gradients(pna_model, graph, *queries[0])
+    pna_ms = 1e3 * (time.perf_counter() - t0)
+    pna_counts = launch_counts()
+    pna_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pna_tf32 = edge_gradients(pna_model, graph, *queries[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    pna_ulp = edge_gradients(moved_by_one_ulp(pna_model), graph, *queries[0])
+
+    # the full visualize on the repo's rule-KG, from a .pth, as the command
+    # line runs it
+    ckpt = ROOT / "build" / "chip_smoke" / "ultra_3g_seed0_visualize.pth"
+    torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+    cpu_model, pna_cpu_model = copy.deepcopy(model).cpu(), copy.deepcopy(pna_model).cpu()
+    del model, pna_model
+    torch.cuda.empty_cache()
+    test = rule_dataset.test
+    i = int(rng.integers(test.target_edge_index.shape[1]))
+    h, t, r = (int(test.target_edge_index[0, i]), int(test.target_edge_index[1, i]),
+               int(test.target_edge_type[i]))
+    layer = {"input_dim": 64, "hidden_dims": [64] * 6, "message_func": "distmult",
+             "aggregate_func": "sum"}
+    run_cfg = {"dataset": {"class": "SyntheticRuleKG", "root": str(ROOT / "kg-datasets"),
+                           **SYNTHRULE},
+               "model": {"class": "Ultra",
+                         "relation_model": dict(layer, **{"class": "RelNBFNet"}),
+                         "entity_model": dict(layer, **{"class": "EntityNBFNet"})},
+               "checkpoint": str(ckpt)}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    name, explained = visualize_from_config(run_cfg, h, r, t, device="cuda")
+    vis_s = time.perf_counter() - t0
+    vis_counts = launch_counts()
+    vis_want = attribution_launches(cfg, test.num_nodes, test.num_relations)
+    lines = format_paths(explained, name, h, r, t)
+
+    # the CPU references
+    cpu_graph = graph.to("cpu")
+    t0 = time.perf_counter()
+    cpu = [edge_gradients(cpu_model, cpu_graph, h_, t_, r_) for h_, t_, r_ in queries]
+    cpu_s = (time.perf_counter() - t0) / len(queries)
+    t0 = time.perf_counter()
+    pna_cpu = edge_gradients(pna_cpu_model, cpu_graph, *queries[0])
+    pna_cpu_s = time.perf_counter() - t0
+    del cpu_graph, cpu_model, pna_cpu_model
+    t0 = time.perf_counter()
+    _, cpu_explained = visualize_from_config(run_cfg, h, r, t, device="cpu")
+    cpu_vis_s = time.perf_counter() - t0
+
+    cli = None
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    if yaml is not None:
+        cfg_file = ROOT / "build" / "chip_smoke" / "visualize.yaml"
+        cfg_file.write_text(yaml.safe_dump(run_cfg))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_visualize.py"), "-c", str(cfg_file),
+             "--head", str(h), "--relation", str(r), "--tail", str(t)],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        cli = {"returncode": proc.returncode, "wall_s": time.perf_counter() - t0,
+               "lines": proc.stdout.strip().splitlines(), "stderr": proc.stderr[-2000:]}
+
+    errs = [gradient_errors(g, w, live) for g, w in zip(card, cpu)]
+    tf32_errs = [gradient_errors(g, w, live) for g, w in zip(tf32, cpu)]
+    pna_errs = gradient_errors(pna_card, pna_cpu, live)
+    pna_offs = gradient_offs(pna_card, pna_cpu, live)
+    pna_controls = {
+        "tf32": {"grad_err_over_max": gradient_errors(pna_tf32, pna_cpu, live),
+                 "edges_off": gradient_offs(pna_tf32, pna_cpu, live)},
+        "ulp": {"grad_err_over_max": gradient_errors(pna_ulp, pna_card, live),
+                "edges_off": gradient_offs(pna_ulp, pna_card, live)}}
+    worst, tf32_worst = max(map(max, errs)), max(map(max, tf32_errs))
+    finite = all(np.isfinite(g).all() for grads in card + [pna_card] for g in grads)
+    nonzero = all(any(np.abs(g[live]).max() > 0 for g in grads) for grads in card + [pna_card])
+
+    top = lambda e: (e.paths[0], e.weights[0]) if e.paths else (None, 0.0)
+    (path, weight), (cpu_path, cpu_weight) = top(explained), top(cpu_explained)
+    # the CPU's top path, or one that ties with it within the tolerance
+    near_top = [p for p, w in zip(cpu_explained.paths, cpu_explained.weights)
+                if abs(w - cpu_weight) <= VIS_WEIGHT_RTOL * abs(cpu_weight)]
+    record = {
+        "queries": queries, "ms_per_call": lat, "ms_per_call_median": statistics.median(lat),
+        "cpu_s_per_call": cpu_s, "launches_per_call": as_json(counts[0]),
+        "grad_err_over_max": {"worst": worst, "per_query_layer": errs},
+        "tf32_control": {"worst": tf32_worst, "per_query_layer": tf32_errs,
+                         "within_tolerance": tf32_worst <= VIS_GRAD_REL_TO_MAX},
+        "pna": {"query": queries[0], "ms": pna_ms, "peak_mem_mib": pna_peak_mib,
+                "resident_mib_before": resident_mib, "cpu_s": pna_cpu_s,
+                "grad_err_over_max": pna_errs, "edges_off": pna_offs,
+                "live_edges": int(live.sum()), "controls": pna_controls,
+                "launches": as_json(pna_counts)},
+        "tolerance": f"per layer, max|err| over live edges <= {VIS_GRAD_REL_TO_MAX} of the "
+                     f"layer's largest |CPU gradient| (PNA: at most {VIS_MINMAX_EDGES_OFF} of "
+                     f"the live edges past it); the top path's importance within rtol "
+                     f"{VIS_WEIGHT_RTOL} of the CPU's",
+        "rule_kg": {"dataset": name, "V": test.num_nodes, "E": int(test.edge_index.shape[1]),
+                    "R": test.num_relations, "query": [h, r, t], "wall_s": vis_s,
+                    "gradient_s": explained.gradient_s, "beam_search_s": explained.search_s,
+                    "cpu_wall_s": cpu_vis_s, "cpu_gradient_s": cpu_explained.gradient_s,
+                    "cpu_beam_search_s": cpu_explained.search_s, "paths": len(explained.paths),
+                    "top_path": path, "top_weight": weight, "cpu_top_path": cpu_path,
+                    "cpu_top_weight": cpu_weight, "launches": as_json(vis_counts),
+                    "lines": lines},
+        "cli": None if cli is None else {k: v for k, v in cli.items() if k != "stderr"},
+        "pyyaml": yaml is not None,
+    }
+    print("[visualize] " + json.dumps(record), flush=True)
+    check(all(c == want_counts for c in counts),
+          f"edge_gradients launched {[as_json(c) for c in counts]}, want {as_json(want_counts)}")
+    check(pna_counts == pna_want,
+          f"the PNA edge_gradients launched {as_json(pna_counts)}, want {as_json(pna_want)}")
+    check(finite and nonzero, "an edge gradient is not finite, or a query's are all 0")
+    check(worst <= VIS_GRAD_REL_TO_MAX,
+          f"card and CPU edge gradients differ by {worst!r} of a layer's largest")
+    edges_off = VIS_MINMAX_EDGES_OFF * int(live.sum())
+    check(max(pna_offs) <= edges_off,
+          f"card and CPU PNA edge gradients differ by more than {VIS_GRAD_REL_TO_MAX} of a "
+          f"layer's largest on {pna_offs} live edges, more than {edges_off:.0f}")
+    check(max(pna_controls["tf32"]["edges_off"]) > edges_off,
+          f"the PNA TF32 control passed the edge-gradient check "
+          f"({pna_controls['tf32']['edges_off']})")
+    check(tf32_worst > VIS_GRAD_REL_TO_MAX,
+          f"the TF32 control passed the edge-gradient check ({tf32_worst!r}): the check "
+          "cannot tell a TF32 call from an f32 one")
+    check(vis_counts == vis_want, f"visualize launched {as_json(vis_counts)}, "
+                                  f"want {as_json(vis_want)}")
+    check(bool(explained.paths) and all(contiguous(p, h, t) for p in explained.paths),
+          f"visualize printed no path, or one that is not contiguous from {h} to {t}")
+    check(path in near_top and abs(weight - cpu_weight) <= VIS_WEIGHT_RTOL * abs(cpu_weight),
+          f"the top path {path} ({weight!r}) is not the CPU's {cpu_path} ({cpu_weight!r})")
+    if cli is not None:
+        check(cli["returncode"] == 0,
+              f"torch_visualize.py exited {cli['returncode']}: {cli['stderr']}")
+        strip = lambda ls: [l.split("(importance")[0] for l in ls]
+        check(strip(cli["lines"]) == strip(lines),
+              f"torch_visualize.py printed {cli['lines']}, want {lines}")
+    total = plus(vis_counts, pna_counts)
+    for c in counts:
+        total = plus(total, c)
+    return record, total
+
+
+def gather_probe_run(graph):
+    """The gather probe (``utils/benchlib.py::gather_probe``, what
+    ``scripts/torch_gather_probe.py`` runs) on the entity graph: G1 at the
+    TPU probes' shape (616,448 rows of a (14,541, 512) table) in bf16 and
+    f32 and over the graph's 544,230 edge sources in f32, G2 at (512, 128)
+    in f32 and bf16, each equal to its plain version, value for value; its
+    G1 and G2 launches read around it. Returns (the kernels line's rows of
+    G1 and G2, those launches)."""
+    from ultra_tpu_torch.utils.benchlib import gather_probe
+
+    reset_launch_counts()
+    record = gather_probe(graph)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print("[gather-probe] " + json.dumps(record), flush=True)
+    rows = {}
+    for name, g in record["gathers"].items():
+        print(f"[kernel] {name}: equal={g['equal']}", flush=True)
+        rows[name] = kernel_row(
+            name, "ultra_tpu_torch/csrc/gather.cu", g["replaces"], g["out_key"], g["ms"],
+            g["plain_ms"], (g["bound_ms"], g["bound_by"]), g["max_abs_err"],
+            "equal to the plain version", library_ms=g["library_ms"],
+            library_call=g["library_call"])
+    check(record["equal"], "a gather differs from its plain version (see [gather-probe])")
+    check(all(counts[name] for name in ("gather_rows", "gather_lanes")),
+          f"the gather probe launched {as_json(counts)}")
+    return rows, {name: counts[name] for name in ("gather_rows", "gather_lanes")}
+
+
 def sum_serving(split, cfg):
     """The serving path at full width: ultra_3g, random weights from a seed,
     written in the reference .pth layout and served from it. Returns (the
@@ -1011,7 +1438,9 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+          f"cpus {len(os.sched_getaffinity(0))} torch_threads {torch.get_num_threads()}",
+          flush=True)
 
     t0 = time.perf_counter()
     logs = build.build_all(KERNELS)
@@ -1035,6 +1464,14 @@ def main() -> int:
           f"relation graph: V={rel_graph.num_nodes} E={rel_graph.csr.col.numel()} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     (ROOT / "build" / "chip_smoke").mkdir(parents=True, exist_ok=True)
+    if {"kernels", "visualize"} & set(phases):
+        t0 = time.perf_counter()
+        rule_dataset, rule_graph = rule_kg("cuda")
+        print(f"[graph] rule-KG V={rule_graph.num_nodes} E={rule_graph.csr.col.numel()} "
+              f"R={rule_graph.num_relations} relation graph: "
+              f"V={rule_graph.relation_graph.num_nodes} "
+              f"E={rule_graph.relation_graph.csr.col.numel()} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     cfg, pna_cfg = UltraConfig(), pna_config()  # ultra_3g, and its PNA variant
     kernels, phase_counts, failures = {}, {}, []
@@ -1053,7 +1490,7 @@ def main() -> int:
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def kernel_phase():
-        rows, ok = check_kernels(graph, num_rel, cfg, torch.Generator().manual_seed(0))
+        rows, ok = check_kernels(graph, rule_graph, cfg, torch.Generator().manual_seed(0))
         kernels.update(rows)
         check(ok, "a kernel disagrees with its plain version (see the [kernel] lines)")
 
@@ -1081,6 +1518,16 @@ def main() -> int:
     run("pna-serving", pna_serving_phase)
     run("pna-training", pna_training_phase)
     run("conv", lambda: conv_checks(graph, num_rel))
+
+    def visualize_phase():
+        _, phase_counts["visualize"] = visualize_run(split, graph, cfg, rule_dataset)
+
+    def gather_probe_phase():
+        rows, phase_counts["gather-probe"] = gather_probe_run(graph)
+        kernels.update(rows)
+
+    run("visualize", visualize_phase)
+    run("gather-probe", gather_probe_phase)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke failed:\n" + "\n".join(failures), file=sys.stderr)

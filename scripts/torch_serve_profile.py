@@ -11,10 +11,14 @@ measures:
    precompute and in 10 warm batches of 8 tail requests, and the device's busy
    share of the wall time;
 2. the sum and the max rspmm kernels (B1, B3) at the entity width
-   (F = 8 x 64) on the graph and on a graph with the same sources, types and
-   edge count whose destinations are drawn uniformly. Each kernel walks a
-   row's edges in one block, one edge after another, so the gap between the
-   two is what the graph's longest rows cost.
+   (F = 8 x 64) and the edge-weight gradient (B6) at an attribution call's
+   width (F = 64) on the graph and on a graph with the same sources, types
+   and edge count whose destinations are drawn uniformly. Each kernel walks
+   a row's edges in one block, one edge after another, so the gap between
+   the two is what the graph's longest rows cost;
+3. with ``torch.profiler``, one edge-importance attribution call
+   (``models/visualize.py::edge_gradients``, one query) of the same model,
+   over 10 queries.
 
 Prints one JSON object and writes it to ``--out``.
 """
@@ -87,7 +91,8 @@ def main() -> int:
     from ultra_tpu_torch.graph import make_graph
     from ultra_tpu_torch.models.nbfnet import UltraConfig
     from ultra_tpu_torch.ops import build
-    from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd
+    from ultra_tpu_torch.models.visualize import edge_gradients
+    from ultra_tpu_torch.ops.rspmm_cuda import rspmm_dw, rspmm_sum_fwd
     from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd
     from ultra_tpu_torch.serve import UltraPredictor
     from ultra_tpu_torch.train.eval import precompute_relation_representations
@@ -98,7 +103,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    build.build_all(("rspmm_sum_fwd", "rspmm_minmax_fwd"))
+    build.build_all(("rspmm_sum_fwd", "rspmm_minmax_fwd", "rspmm_dw"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -132,13 +137,24 @@ def main() -> int:
     edge_index[0] = np.random.default_rng(1).integers(0, split.num_nodes, edge_index.shape[1])
     balanced = make_graph(edge_index, split.edge_type, split.num_nodes,
                           split.num_relations, device="cuda")
+    dim = UltraConfig().entity_model.input_dim
+    x1, rel1, g1 = x[:, :dim].contiguous(), rel[:, :dim].contiguous(), x[:, dim:2 * dim] + 0
     result["rspmm_by_degree"] = {
         name: {"max_in_degree": max_in_degree(g),
                "ms": device_ms(lambda g=g: rspmm_sum_fwd(g.csr, g.edge_weight, rel, x, "mul")),
                "max_ms": device_ms(
-                   lambda g=g: rspmm_minmax_fwd(g.csr, g.edge_weight, rel, x, "mul", False))}
+                   lambda g=g: rspmm_minmax_fwd(g.csr, g.edge_weight, rel, x, "mul", False)),
+               "dw_f64_ms": device_ms(
+                   lambda g=g: rspmm_dw(g.csr, g.edge_weight, rel1, x1, g1, "mul"))}
         for name, g in (("graph", graph), ("uniform_destinations", balanced))
     }
+
+    queries = np.stack([rng.integers(0, split.num_nodes, PROFILED_BATCHES),
+                        rng.integers(0, split.num_nodes, PROFILED_BATCHES),
+                        rng.integers(0, split.num_relations // 2, PROFILED_BATCHES)], 1)
+    calls = iter(np.concatenate([queries[:1], queries]))  # the warm-up call, then 10
+    result["attribution"] = profile(
+        lambda: edge_gradients(model, graph, *(int(a) for a in next(calls))), PROFILED_BATCHES)
 
     text = json.dumps(result, indent=1)
     print(text)

@@ -5,8 +5,11 @@ the input gradient on the source plan, and the three relation-gradient
 kernels (``_rel_grad_kernel``, ``_drel_kernel``, ``_drel_add_kernel``).
 Min/max: both forwards (``_minmax_kernel``, ``_minmax_kernel_v2``), both
 input-gradient and both relation-gradient kernels, and the custom VJPs of
-both generations. Inputs hold weight-0 edges, a runtime weight mask and
-rows with no edges; the min/max inputs are tie-heavy as well.
+both generations. The edge-weight gradient (B6) of every aggregator against
+the XLA VJP and the Pallas VJPs (``_dw_kernel``), compared over the edges
+live when the graph was built: XLA gives the padding its derivative where
+the port and Pallas give 0. Inputs hold weight-0 edges, a runtime weight
+mask and rows with no edges; the min/max inputs are tie-heavy as well.
 
 Tolerance: f32, rtol 1e-5 and atol 1e-5, because the two packages sum each
 row's (or each type's) terms in different orders. Min/max forwards are
@@ -38,7 +41,7 @@ from ultra_tpu.ops.rspmm_pallas_v2 import (
 from ultra_tpu_torch.graph import SEGMENT_CHUNK, make_graph, pad_bucket
 from ultra_tpu_torch.ops import build, rspmm, rspmm_cuda, rspmm_minmax_cuda
 from ultra_tpu_torch.ops.rspmm import degree, generalized_rspmm, rspmm_from_graph
-from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_drel, rspmm_sum_dx, rspmm_sum_fwd
+from ultra_tpu_torch.ops.rspmm_cuda import rspmm_dw, rspmm_sum_drel, rspmm_sum_dx, rspmm_sum_fwd
 from ultra_tpu_torch.ops.rspmm_minmax_cuda import (
     rspmm_minmax_drel, rspmm_minmax_dx, rspmm_minmax_fwd,
 )
@@ -159,6 +162,11 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
                        k.rspmm_minmax_drel_plain(graph.segments, w, rel_f, x_f, g, out, "add"))
     assert rspmm_minmax_fwd.launches == rspmm_minmax_dx.launches == {}
     assert rspmm_minmax_drel.launches == {}
+    for minmax_out in (None, out):
+        assert torch.equal(rspmm_dw(graph.csr, w, rel_f, x_f, g, "add", minmax_out),
+                           rspmm_cuda.rspmm_dw_plain(graph.csr, w, rel_f, x_f, g, "add",
+                                                     minmax_out))
+    assert rspmm_dw.launches == {}
 
 
 def _meta_calls(graph, feat, offset=0):
@@ -172,12 +180,15 @@ def _meta_calls(graph, feat, offset=0):
             lambda: rspmm_sum_drel(seg, w, x, x),
             lambda: rspmm_minmax_fwd(csr, w, rel_rows, x, "mul", False),
             lambda: rspmm_minmax_dx(csr_src, w, rel_rows, x, x, x),
-            lambda: rspmm_minmax_drel(seg, w, rel_rows, x, x, x))
+            lambda: rspmm_minmax_drel(seg, w, rel_rows, x, x, x),
+            lambda: rspmm_dw(csr, w, rel_rows, x, x),
+            lambda: rspmm_dw(csr, w, rel_rows, x, x, "mul", x))
 
 
 def _no_launches():
     return all(not f.launches for f in (rspmm_sum_fwd, rspmm_sum_dx, rspmm_sum_drel,
-                                         rspmm_minmax_fwd, rspmm_minmax_dx, rspmm_minmax_drel))
+                                         rspmm_minmax_fwd, rspmm_minmax_dx, rspmm_minmax_drel,
+                                         rspmm_dw))
 
 
 def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
@@ -210,18 +221,27 @@ def test_device_tensor_off_the_float4_layout_is_refused(monkeypatch, feat, offse
 
 
 def test_bf16_operands_and_gradients_are_refused():
-    """bf16 operands raise (ROADMAP B1), and so does a gradient for the edge
-    weights (ROADMAP B6), for every aggregator; gradients for the relation
-    and x are ported."""
+    """bf16 operands raise (ROADMAP B1), and so do bf16 gradients at every
+    backward wrapper; an f32 gradient for the edge weights is given (B6),
+    for every aggregator."""
     ei, et, ew, rel, x, _ = make_inputs()
     graph = port_graph(ei, et, ew)
     with pytest.raises(TypeError, match="bf16"):
         rspmm_from_graph(graph, torch.from_numpy(rel).bfloat16(),
                          torch.from_numpy(x).bfloat16())
+    rel_f, x_f = torch.from_numpy(rel.reshape(R, -1)), torch.from_numpy(x.reshape(V, -1))
+    g16 = x_f.bfloat16()
+    for call in (lambda: rspmm_sum_dx(graph.csr_src, graph.edge_weight, rel_f, g16),
+                 lambda: rspmm_dw(graph.csr, graph.edge_weight, rel_f, x_f, g16),
+                 lambda: rspmm_minmax_dx(graph.csr_src, graph.edge_weight, rel_f, x_f, g16,
+                                         x_f)):
+        with pytest.raises(TypeError, match="float32"):
+            call()
     weighted = graph.replace_weights(graph.edge_weight.clone().requires_grad_())
     for sum_op in ("add", "max", "min"):
-        with pytest.raises(NotImplementedError, match="B6"):
-            rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op)
+        out = rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op)
+        (d_w,) = torch.autograd.grad(out[out.isfinite()].sum(), weighted.edge_weight)
+        assert d_w.dtype == torch.float32 and d_w.shape == (E_PAD,) and d_w.abs().sum() > 0
         with torch.no_grad():  # no gradient asked for: the weights may require one
             rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op)
 
@@ -524,3 +544,97 @@ def test_min_max_gradient_wrappers_match_the_pallas_kernels(sum_op, mul):
         np.testing.assert_allclose(d_x, want, **TOL)
     for want in (v1_drel, v2_drel):
         np.testing.assert_allclose(d_rel, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# edge-weight gradient (B6)
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas_v1", "pallas_v2"])
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("sum_op", ["add", "max", "min"])
+def test_edge_weight_gradient_matches_jax(sum_op, mul, reference):
+    """d_w of the port's Function (B6's plain version) against jax.vjp with
+    respect to the weights: of the XLA backend, and of the Pallas custom
+    VJPs with precision "highest" (``rspmm_pallas_sum`` and
+    ``rspmm_pallas_minmax``, both reaching ``_dw_kernel``) with v1 and with
+    v2 plans. Over the edges live when the graph was built: there all three
+    give a runtime-masked edge its derivative for sum and 0 for min/max; on
+    the padding the port and Pallas give 0 where XLA gives the derivative.
+    Min/max inputs are tie-heavy: every tying edge gets its whole term."""
+    make = make_inputs if sum_op == "add" else make_tie_inputs
+    ei, et, ew, rel, x, mask = make(seed=3)
+    g = np.random.default_rng(8).normal(size=(V, B, D)).astype(np.float32)
+    w = torch.from_numpy(mask).requires_grad_()
+    graph = port_graph(ei, et, ew).replace_weights(w)
+    out = rspmm_from_graph(graph, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op,
+                           mul=mul)
+    (d_w,) = torch.autograd.grad(out, w, torch.from_numpy(g))
+    d_w = d_w.numpy()
+    built = np.concatenate([ew != 0, np.zeros(E_PAD - E, bool)])
+    assert np.all(d_w[~built] == 0)
+    if sum_op != "add":
+        assert np.all(d_w[built & (mask == 0)] == 0)  # the route asks for a live edge
+
+    rel_j, x_j = jnp.asarray(rel), jnp.asarray(x)
+    if reference == "xla":
+        fn = lambda ww: jax_generalized_rspmm(
+            jnp.asarray(ei), jnp.asarray(et), ww, rel_j, x_j, sum=sum_op, mul=mul,
+            backend="xla")
+        w_j = jnp.asarray(mask[:E])
+    else:
+        jgraph = attach_plans(jax_make_graph(ei, et, V, R, edge_weight=ew, pad_to=E_PAD),
+                              rb=32, chunk=64, v2=reference == "pallas_v2")
+        fn = lambda ww: jax_rspmm_from_graph(jgraph.replace_weights(ww), rel_j, x_j,
+                                             sum=sum_op, mul=mul, precision="highest")
+        w_j = jnp.asarray(mask)
+    _, vjp = jax.vjp(fn, w_j)
+    (want,) = vjp(jnp.asarray(g))
+    want = np.asarray(want)
+    live = built[:len(want)]
+    np.testing.assert_allclose(d_w[:len(want)][live], want[live], **TOL)
+    assert np.abs(want[live]).sum() > 0
+    if reference != "xla":  # Pallas: plan-dead slots are 0, as the port's
+        np.testing.assert_array_equal(want[~live], 0)
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+def test_edge_weight_gradient_gives_each_tying_edge_its_whole_term(mul):
+    """Three edges into one row, two of them with equal messages that tie
+    for the max at every feature: each tying edge gets its whole term
+    m * g, the third none of it; a runtime-masked tying edge gets 0."""
+    ei = np.array([[0, 0, 0], [1, 2, 3]])
+    graph = make_graph(ei, np.zeros(3, np.int64), 4, 1, device="cpu")
+    rel = torch.ones(1, 1, 4)
+    x = torch.tensor([[[0.0] * 4], [[2.0, 1, 3, 4]], [[2.0, 1, 3, 4]], [[1.0, 0, 2, 3]]])
+    g = torch.tensor([[[1.0, 2, 3, 4]], [[0.0] * 4], [[0.0] * 4], [[0.0] * 4]])
+    m = (x + 1) if mul == "add" else x
+    term = float((m[1] * g[0]).sum())
+    for weights, want in (([1.0, 1.0, 1.0], [term, term, 0.0]),
+                          ([1.0, 0.0, 1.0], [term, 0.0, 0.0])):
+        w = torch.tensor(weights, requires_grad=True)
+        out = rspmm_from_graph(graph.replace_weights(w), rel, x, sum="max", mul=mul)
+        (d_w,) = torch.autograd.grad(out[:1], w, g[:1])
+        assert d_w.tolist() == want
+
+
+def test_weight_gradient_only_when_asked(monkeypatch):
+    """The edge-weight gradient runs only for weights that need one, and
+    then alone when nothing else does."""
+    ei, et, ew, rel, x, _ = make_inputs()
+    graph = port_graph(ei, et, ew)
+    calls = []
+    for name in ("rspmm_dw", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_dx",
+                 "rspmm_minmax_drel"):
+        real = getattr(rspmm, name)
+        monkeypatch.setattr(rspmm, name,
+                            lambda *a, _n=name, _f=real, **k: calls.append(_n) or _f(*a, **k))
+    for sum_op in ("add", "max"):
+        x_t = torch.from_numpy(x).requires_grad_()
+        out = rspmm_from_graph(graph, torch.from_numpy(rel), x_t, sum=sum_op)
+        out[out.isfinite()].sum().backward()
+        w = graph.edge_weight.clone().requires_grad_()
+        out = rspmm_from_graph(graph.replace_weights(w), torch.from_numpy(rel),
+                               torch.from_numpy(x), sum=sum_op)
+        out[out.isfinite()].sum().backward()
+    assert calls == ["rspmm_sum_dx", "rspmm_dw", "rspmm_minmax_dx", "rspmm_dw"]

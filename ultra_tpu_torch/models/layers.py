@@ -12,7 +12,11 @@ Messages: ``distmult``, ``transe`` and ``rotate`` (complex rotation of
 inverse: a 12-wide update, so ``linear`` takes ``13 * input_dim``). Every
 combination runs on the rspmm kernels except ``rotate`` with ``max`` or
 ``pna``, which does not decompose into them and materialises one message
-per edge in plain torch, as the JAX package does with plain XLA.
+per edge in plain torch, as the JAX package does with plain XLA. Edge-
+importance attribution asks the same of every message with ``max`` or
+``pna`` (``per_edge=True``): its gradient must share a tie between the
+tying edges, as XLA's segment reductions do, where the min/max rspmm gives
+each of them the whole of it.
 """
 
 from __future__ import annotations
@@ -94,25 +98,38 @@ def _rotate_sum_rspmm(graph: Graph, relation, input):
                       out4[..., 2 * d:3 * d] + out4[..., 3 * d:]], dim=-1)
 
 
-def _rotate_per_edge_update(aggregate: str, graph: Graph, input, boundary, relation):
-    """The rotate message with ``max`` or ``pna``: one (E, B, D) message per
-    padded edge, reduced with index_add and scatter_reduce (whose gradient
-    shares a tie between the tying edges, as the JAX package's XLA segment
-    reductions do). Meant for small graphs: it warns past 2^28 elements."""
+def _per_edge_messages(message_func: str, graph: Graph, input, relation):
+    """Unweighted (E, B, D) messages of every padded edge, and the messages
+    PNA's second moment sums: ``msg ** 2`` for rotate, ``op(rel ** 2, x ** 2)``
+    for distmult and transe (the rspmm of squares, as ``_update`` takes it)."""
+    x_e = input.index_select(0, graph.edge_index[1])
+    r_e = relation.index_select(0, graph.edge_type)
+    if message_func == "rotate":
+        d = x_e.shape[-1] // 2
+        x_re, x_im = x_e[..., :d], x_e[..., d:]
+        r_re, r_im = r_e[..., :d], r_e[..., d:]
+        msg = torch.cat([x_re * r_re - x_im * r_im, x_re * r_im + x_im * r_re], dim=-1)
+        return msg, lambda: msg.square()
+    if message_func == "distmult":
+        return r_e * x_e, lambda: r_e.square() * x_e.square()
+    return r_e + x_e, lambda: r_e.square() + x_e.square()
+
+
+def _per_edge_update(aggregate: str, message_func: str, graph: Graph, input, boundary,
+                     relation):
+    """``max`` or ``pna`` over one (E, B, D) message per padded edge, reduced
+    with index_add and scatter_reduce (whose gradient shares a tie between
+    the tying edges, as the JAX package's XLA segment reductions do). Meant
+    for small graphs: it warns past 2^28 elements."""
     n_elem = graph.edge_index.shape[1] * input.shape[1] * input.shape[2]
     if n_elem > 1 << 28:
         logger.warning(
-            "rotate + %s uses the per-edge fallback: materializes %.2g message "
+            "%s + %s uses the per-edge path: materializes %.2g message "
             "elements (O(E*B*D)); use sum/mean aggregation for the fused kernel "
-            "path.", aggregate, float(n_elem),
+            "path.", message_func, aggregate, float(n_elem),
         )
     dst, w = graph.edge_index[0], graph.edge_weight[:, None, None]
-    x_e = input.index_select(0, graph.edge_index[1])
-    r_e = relation.index_select(0, graph.edge_type)
-    d = x_e.shape[-1] // 2
-    x_re, x_im = x_e[..., :d], x_e[..., d:]
-    r_re, r_im = r_e[..., :d], r_e[..., d:]
-    msg = torch.cat([x_re * r_re - x_im * r_im, x_re * r_im + x_im * r_re], dim=-1)
+    msg, squares = _per_edge_messages(message_func, graph, input, relation)
     shape = (graph.num_nodes,) + tuple(msg.shape[1:])
 
     def seg_sum(m):
@@ -128,7 +145,7 @@ def _rotate_per_edge_update(aggregate: str, graph: Graph, input, boundary, relat
     if aggregate == "max":
         return torch.maximum(seg_ext(msg, is_min=False), boundary)
     deg = degree(graph, include_self_loop=False)[:, None, None] + 1.0
-    return pna_features(seg_sum(msg), seg_sum(msg.square()), seg_ext(msg, is_min=False),
+    return pna_features(seg_sum(msg), seg_sum(squares()), seg_ext(msg, is_min=False),
                         seg_ext(msg, is_min=True), boundary, deg)
 
 
@@ -186,13 +203,17 @@ class GeneralizedRelationalConv(nn.Module):
         boundary: torch.Tensor,  # (V, B, D) layer-0 boundary condition
         query: torch.Tensor = None,  # (B, D) query embeddings
         relation_input: torch.Tensor = None,  # (B, R, D) injected relation reprs
+        per_edge: bool = False,
     ) -> torch.Tensor:
-        """One message-passing round; returns (V, B, output_dim)."""
+        """One message-passing round; returns (V, B, output_dim). With
+        ``per_edge``, ``max`` and ``pna`` reduce one message per edge in
+        plain torch (see the module note) for every message function."""
         cfg = self.cfg
         relation = self.layer_relation(query, relation_input)
         aggregate = cfg.aggregate_func
-        if cfg.message_func == "rotate" and aggregate in ("max", "pna"):
-            update = _rotate_per_edge_update(aggregate, graph, input, boundary, relation)
+        if aggregate in ("max", "pna") and (per_edge or cfg.message_func == "rotate"):
+            update = _per_edge_update(aggregate, cfg.message_func, graph, input, boundary,
+                                      relation)
         else:
             update = self._update(graph, input, boundary, relation)
         output = self.linear(torch.cat([input, update], dim=-1))

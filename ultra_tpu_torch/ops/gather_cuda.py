@@ -1,0 +1,119 @@
+"""The gather kernels for Hopper, their launch counters, and their plain
+PyTorch versions.
+
+- G1, :func:`gather_rows` (``csrc/gather.cu``): ``out[i] = x[idx[i]]``,
+  the row gather that the TPU probes under ``scripts/`` built in Pallas
+  (``aot_compile_probe.py``, ``exp_dma_gather.py``, ``exp_dma_gather3.py``,
+  ``exp_vmem_gather.py``, ``exp_vmem_gather2.py``, and the gather stage of
+  ``exp_v2proto.py`` / ``exp_v2_stages.py``). Any element type whose row is
+  a multiple of 16 bytes (bf16 and f32 at F=512).
+- G2, :func:`gather_lanes`: ``out[i, j] = x[i, idx[i, j]]``, the lane gather
+  of ``aot_compile_probe.py::make_lane_gather`` and
+  ``exp_dma_gather.py::probe_lane``. 2- and 4-byte elements.
+
+Indices are int32, as the probes' are. As in ``rspmm_cuda``, a wrapper takes
+the plain version for a tensor on the CPU and launches the kernel for one on
+a CUDA device, never falling back from one to the other; ``launches`` counts
+each wrapper's kernel launches by output shape and element type since the
+last ``clear()``.
+``scripts/torch_gather_probe.py`` times them on the card; nothing on a model
+path calls them.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from ultra_tpu_torch.ops.rspmm_cuda import _kernel
+
+
+def _check_index(op: str, x, idx, dims: int):
+    if idx.dtype != torch.int32 or idx.dim() != dims or x.dim() != 2:
+        raise TypeError(f"{op}: want x 2-D and idx {dims}-D int32, got x {tuple(x.shape)} "
+                        f"and idx {idx.dtype} {tuple(idx.shape)}")
+
+
+def _check_cuda(op: str, device, **tensors):
+    for name, t in tensors.items():
+        if t.device != device or not t.is_cuda:
+            raise ValueError(f"{op}: {name} is on {t.device}, want the CUDA device {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def _key(out):
+    """A launch counter's key: the output's rows, columns and element type,
+    as in ``(616448, 512, "bfloat16")``."""
+    return (*out.shape, str(out.dtype).removeprefix("torch."))
+
+
+def gather_rows_plain(x, idx):
+    """``x.index_select(0, idx)``."""
+    return x.index_select(0, idx)
+
+
+def gather_rows(x, idx):
+    """(N, F) rows ``x[idx]`` of ``x`` (V, F), ``idx`` (N,) int32 in [0, V).
+    On a CPU tensor this runs :func:`gather_rows_plain`; on a CUDA tensor it
+    launches G1, building it first if needed, and raises if it cannot: the
+    kernel copies 16-byte vectors, so a row must be a multiple of 16 bytes
+    and ``x`` 16-byte aligned."""
+    _check_index("gather_rows", x, idx, 1)
+    if x.device.type == "cpu":
+        return gather_rows_plain(x, idx)
+    kernel = _kernel("gather_rows")
+    row_bytes = x.shape[1] * x.element_size()
+    if row_bytes % 16 or x.data_ptr() % 16:
+        raise ValueError(f"gather_rows: the kernel copies 16-byte vectors; a row of "
+                         f"{row_bytes} bytes or an unaligned x is refused")
+    _check_cuda("gather_rows", x.device, x=x, idx=idx)
+    out = torch.empty(idx.shape[0], x.shape[1], dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        status = kernel(x.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], row_bytes,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"gather_rows launch failed with CUDA error {status}")
+    gather_rows.launches[_key(out)] += 1
+    return out
+
+
+gather_rows.launches = collections.Counter()  # launches by _key of the output
+
+
+def gather_lanes_plain(x, idx):
+    """``torch.gather(x, 1, idx)``."""
+    return torch.gather(x, 1, idx.long())
+
+
+def gather_lanes(x, idx):
+    """(M, K) ``out[i, j] = x[i, idx[i, j]]`` of ``x`` (M, W) with 2- or
+    4-byte elements, ``idx`` (M, K) int32 in [0, W). On a CPU tensor this
+    runs :func:`gather_lanes_plain`; on a CUDA tensor it launches G2,
+    building it first if needed, and raises if it cannot."""
+    _check_index("gather_lanes", x, idx, 2)
+    if idx.shape[0] != x.shape[0]:
+        raise ValueError(f"gather_lanes: idx has {idx.shape[0]} rows, x {x.shape[0]}")
+    if x.device.type == "cpu":
+        return gather_lanes_plain(x, idx)
+    kernel = _kernel("gather_lanes")
+    if x.element_size() not in (2, 4):
+        raise TypeError(f"gather_lanes: the kernel copies 2- or 4-byte elements, got {x.dtype}")
+    _check_cuda("gather_lanes", x.device, x=x, idx=idx)
+    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        status = kernel(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+                        idx.shape[1], x.element_size(),
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"gather_lanes launch failed with CUDA error {status}")
+    gather_lanes.launches[_key(out)] += 1
+    return out
+
+
+gather_lanes.launches = collections.Counter()

@@ -22,8 +22,12 @@ source-major CSR and the relation gradient kernel B2 on the type segments
 (``ops/rspmm_cuda.py``). Min/max: the forward is kernel B3, the input
 gradient B4 and the relation gradient B5 on the same three layouts
 (``ops/rspmm_minmax_cuda.py``); the backward routes against the forward's
-own saved output. The edge-weight gradient (ROADMAP B6) is a later slice
-and raises.
+own saved output. The edge-weight gradient of both is kernel B6 on the
+destination-major CSR (``ops/rspmm_cuda.py::rspmm_dw``): for sum an edge
+masked to weight 0 at run time gets its true derivative, for min/max 0 (the
+route asks for a live edge), and a slot left out of the CSR when the graph
+was built (weight 0 then: the padding) gets 0, as the Pallas backend gives
+(``rspmm_pallas.py:561-567``; the XLA backend gives padding its derivative).
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from __future__ import annotations
 import torch
 
 from ultra_tpu_torch.graph import Graph, build_layouts
-from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_drel, rspmm_sum_dx, rspmm_sum_fwd
+from ultra_tpu_torch.ops.rspmm_cuda import (
+    rspmm_dw, rspmm_sum_drel, rspmm_sum_dx, rspmm_sum_fwd,
+)
 from ultra_tpu_torch.ops.rspmm_minmax_cuda import (
     rspmm_minmax_drel, rspmm_minmax_dx, rspmm_minmax_fwd,
 )
@@ -53,14 +59,16 @@ class _SumRspmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         edge_weight, relation, x = ctx.saved_tensors
-        (_, csr_src, segments), mul = ctx.layouts, ctx.mul
+        (csr, csr_src, segments), mul = ctx.layouts, ctx.mul
         g = g.contiguous()
-        d_rel = d_x = None
+        d_w = d_rel = d_x = None
+        if ctx.needs_input_grad[1]:
+            d_w = rspmm_dw(csr, edge_weight, relation, x, g, mul)
         if ctx.needs_input_grad[2]:
             d_rel = rspmm_sum_drel(segments, edge_weight, x if mul == "mul" else g, g, mul)
         if ctx.needs_input_grad[3]:
             d_x = rspmm_sum_dx(csr_src, edge_weight, relation, g, mul)
-        return None, None, d_rel, d_x, None
+        return None, d_w, d_rel, d_x, None
 
 
 class _MinMaxRspmm(torch.autograd.Function):
@@ -79,24 +87,21 @@ class _MinMaxRspmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         edge_weight, relation, x, out = ctx.saved_tensors
-        (_, csr_src, segments), mul = ctx.layouts, ctx.mul
+        (csr, csr_src, segments), mul = ctx.layouts, ctx.mul
         g = g.contiguous()
-        d_rel = d_x = None
+        d_w = d_rel = d_x = None
+        if ctx.needs_input_grad[1]:
+            d_w = rspmm_dw(csr, edge_weight, relation, x, g, mul, out=out)
         if ctx.needs_input_grad[2]:
             d_rel = rspmm_minmax_drel(segments, edge_weight, relation, x, g, out, mul)
         if ctx.needs_input_grad[3]:
             d_x = rspmm_minmax_dx(csr_src, edge_weight, relation, x, g, out, mul)
-        return None, None, d_rel, d_x, None, None
+        return None, d_w, d_rel, d_x, None, None
 
 
 def _rspmm(layouts, edge_weight, relation, x, sum: str, mul: str):
     if sum not in _SUM_OPS:
         raise ValueError(f"sum must be one of {_SUM_OPS}, got {sum!r}")
-    if torch.is_grad_enabled() and edge_weight.requires_grad:
-        raise NotImplementedError(
-            "the rspmm edge-weight gradient is not ported yet (ROADMAP B6); "
-            "pass the weights detached"
-        )
     feat = tuple(x.shape[1:])
     # the relation operand may broadcast over the batch (e.g. a (R, 1, D)
     # view); the kernel takes it materialised as contiguous (R, B*D) rows.

@@ -12,8 +12,12 @@ launch counters, and their plain PyTorch versions.
   segments (:func:`rspmm_sum_drel`). It replaces
   ``rspmm_pallas.py::_rel_grad_kernel``, ``rspmm_pallas_v2.py::_drel_kernel``
   and ``rspmm_pallas_v2.py::_drel_add_kernel``.
+- B6, ``csrc/rspmm_dw.cu``: the edge-weight gradient over the
+  destination-major CSR, for the sum and (given the forward's output) the
+  min/max aggregators (:func:`rspmm_dw`). It replaces
+  ``rspmm_pallas.py::_dw_kernel``.
 
-Both kernels are bound by memory traffic on the card; each source says what
+The kernels are bound by memory traffic on the card; each source says what
 its design does about that. A wrapper takes the plain version for a tensor
 on the CPU and launches the kernel for one on a CUDA device; it never falls
 back from one to the other.
@@ -36,7 +40,7 @@ from ultra_tpu_torch.ops import build
 _MUL_CODE = {"mul": 0, "add": 1}
 _KERNELS = {}  # name -> the bound C entry point, set at first launch
 # the C signatures of every kernel in csrc/ (the min/max ones are launched
-# from ops/rspmm_minmax_cuda.py)
+# from ops/rspmm_minmax_cuda.py, the gathers from ops/gather_cuda.py)
 _ARGTYPES = {
     "rspmm_sum_fwd": [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -55,13 +59,24 @@ _ARGTYPES = {
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ],
+    "rspmm_dw": [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ],
+    "gather_rows": [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ],
+    "gather_lanes": [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ],
 }
+# the source of each C entry point that is not named after its own source
+_SOURCE = {"gather_rows": "gather", "gather_lanes": "gather"}
 
 
 def _kernel(name: str):
     fn = _KERNELS.get(name)
     if fn is None:
-        fn = getattr(build.load(name), name)
+        fn = getattr(build.load(_SOURCE.get(name, name)), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _KERNELS[name] = fn
@@ -142,15 +157,21 @@ def _launch_fwd(op: str, csr: CSR, edge_weight, relation, x, mul):
     return out
 
 
+def _csr_rows(csr: CSR):
+    """The row of each CSR edge, (E,) int64."""
+    num_rows = csr.rowptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(num_rows, device=csr.rowptr.device), csr.rowptr.diff(),
+        output_size=csr.col.numel(),
+    )
+
+
 def rspmm_sum_fwd_plain(csr: CSR, edge_weight, relation, x, mul: str = "mul"):
     """``out[v] = sum_{e in row v} w[eid_e] * op(rel[etype_e], x[col_e])``
     with index_select, the elementwise op and index_add_, in the operands'
     type (f32 on the path; f64 gives a reference for the kernel's rounding)."""
     num_rows = csr.rowptr.numel() - 1
-    dst = torch.repeat_interleave(
-        torch.arange(num_rows, device=x.device), csr.rowptr.diff(),
-        output_size=csr.col.numel(),
-    )
+    dst = _csr_rows(csr)
     rel_e = relation.index_select(0, csr.etype)
     x_e = x.index_select(0, csr.col)
     msg = rel_e * x_e if mul == "mul" else rel_e + x_e
@@ -262,3 +283,78 @@ def rspmm_sum_drel(seg: TypeSegments, edge_weight, x, g, mul: str = "mul"):
 
 
 rspmm_sum_drel.launches = collections.Counter()
+
+
+def rspmm_dw_terms(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):
+    """The edge-weight gradient's terms, one row per CSR edge: ``terms[e] =
+    route_e * (rel[type_e] op x[src_e]) * g[dst_e]`` in ``g``'s type. Without
+    ``out`` (sum) the route is 1; with the forward's saved ``out`` (min/max)
+    it is 1 where the edge is live and ``(rel op x) * w == out[dst]``,
+    compared in the type of ``relation``, ``x`` and ``out``, so an f64 ``g``
+    gives a reference that routes as the f32 forward did. d_w[eid] is each
+    row's sum."""
+    rows = _csr_rows(csr)
+    m = relation.index_select(0, csr.etype)
+    m = m * x.index_select(0, csr.col) if mul == "mul" else m + x.index_select(0, csr.col)
+    terms = m.to(g.dtype) * g.index_select(0, rows)
+    if out is None:
+        return terms
+    w_e = edge_weight.index_select(0, csr.eid).unsqueeze(1)
+    route = (m * w_e == out.index_select(0, rows)) & (w_e != 0)
+    return torch.where(route, terms, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def rspmm_dw_plain(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):
+    """(E_pad,) edge-weight gradient: each CSR edge's :func:`rspmm_dw_terms`
+    summed over the features and put at its ``eid``; a slot not in the CSR
+    (the padding) is 0. In ``g``'s type."""
+    d_w = torch.zeros(edge_weight.shape, dtype=g.dtype, device=g.device)
+    return d_w.index_put_((csr.eid.long(),),
+                          rspmm_dw_terms(csr, edge_weight, relation, x, g, mul, out).sum(1))
+
+
+def rspmm_dw(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):
+    """Edge-weight gradient of the rspmm: (E_pad,) f32 from the forward's
+    inputs (``relation`` (R, F), ``x`` (N, F)) and the output gradient ``g``
+    (V, F), walking the destination-major CSR ``csr``. ``out``, the min/max
+    forward's saved output, switches the tie routing on; without it this is
+    the sum's gradient, which a runtime-masked edge gets in full. A slot not
+    in the CSR is 0. On a CPU tensor this runs :func:`rspmm_dw_plain`; on a
+    CUDA tensor it launches B6, building it first if needed, and raises if it
+    cannot."""
+    _check_dtypes(edge_weight, relation, x, mul, op="rspmm_dw")
+    _check_f32("rspmm_dw", g=g, **({} if out is None else {"out": out}))
+    num_rows = csr.rowptr.numel() - 1
+    if g.shape != (num_rows, x.shape[1]) or (out is not None and out.shape != g.shape):
+        raise ValueError(f"rspmm_dw: want g (and out) ({num_rows}, {x.shape[1]}), got "
+                         f"{tuple(g.shape)}" + ("" if out is None else f", {tuple(out.shape)}"))
+    if g.device.type == "cpu":
+        return rspmm_dw_plain(csr, edge_weight, relation, x, g, mul, out)
+    kernel = _kernel("rspmm_dw")
+    rows = {"relation": relation, "x": x, "g": g, **({} if out is None else {"out": out})}
+    _check_device_tensors(
+        "rspmm_dw", g.device, rows=rows, ptrs={"rowptr": csr.rowptr},
+        ints={"col": csr.col, "etype": csr.etype, "eid": csr.eid},
+        floats={"edge_weight": edge_weight},
+    )
+    if 4 * x.shape[1] * (1 if out is None else 2) > 48 * 1024:
+        raise ValueError(f"rspmm_dw: the kernel keeps a row of g (and out) in 48 KB of "
+                         f"shared memory, too little for F={x.shape[1]}")
+    d_w = torch.zeros(edge_weight.shape, dtype=torch.float32, device=g.device)
+    if num_rows == 0 or x.shape[1] == 0:
+        return d_w
+    with torch.cuda.device(g.device):
+        status = kernel(
+            csr.rowptr.data_ptr(), csr.col.data_ptr(), csr.etype.data_ptr(),
+            csr.eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
+            g.data_ptr(), 0 if out is None else out.data_ptr(), d_w.data_ptr(), num_rows,
+            x.shape[1], _MUL_CODE[mul], int(out is not None),
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"rspmm_dw launch failed with CUDA error {status}")
+    rspmm_dw.launches[(num_rows, x.shape[1])] += 1
+    return d_w
+
+
+rspmm_dw.launches = collections.Counter()  # launches by (rows of the CSR, F)

@@ -35,17 +35,8 @@ import torch
 
 from ultra_tpu_torch.graph import CSR, TypeSegments
 from ultra_tpu_torch.ops.rspmm_cuda import (
-    _MUL_CODE, _check_device_tensors, _check_dtypes, _check_f32, _kernel,
+    _MUL_CODE, _check_device_tensors, _check_dtypes, _check_f32, _csr_rows, _kernel,
 )
-
-
-def _csr_rows(csr: CSR):
-    """The row of each CSR edge, (E,) int64."""
-    num_rows = csr.rowptr.numel() - 1
-    return torch.repeat_interleave(
-        torch.arange(num_rows, device=csr.rowptr.device), csr.rowptr.diff(),
-        output_size=csr.col.numel(),
-    )
 
 
 def _message(rel_e, x_e, w_e, mul):

@@ -1,13 +1,13 @@
-"""Fine-tuning with validation: the training loop over one dataset.
+"""Fine-tuning with validation, and the helpers the command lines share.
 
-Counterpart of ``ultra_tpu/train/runner.py::train_and_validate``. The host
-samples negatives and builds each batch's easy-edge mask
-(``tasks.py``); the model's device runs the step
-(``train/loop.py::make_train_step``); after every block of epochs a
-filtered validation (``train/eval.py``) scores the model and a checkpoint is
-kept, and the best one's weights are loaded at the end
-(``utils/ckpt.py``). The dataset loaders and the command line are ROADMAP
-A6.
+Counterpart of ``ultra_tpu/train/runner.py``: ``model_config_from_dict``,
+``prepare_graph`` and ``train_and_validate``. The host samples negatives
+and builds each batch's easy-edge mask (``tasks.py``); the model's device
+runs the step (``train/loop.py::make_train_step``); after every block of
+epochs a filtered validation (``train/eval.py``) scores the model and a
+checkpoint is kept, and the best one's weights are loaded at the end
+(``utils/ckpt.py``). ``run_link_prediction`` and its command line are
+ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -22,14 +22,62 @@ import numpy as np
 import torch
 
 from ultra_tpu_torch import tasks
-from ultra_tpu_torch.data.kg import KGDataset, KGSplit
-from ultra_tpu_torch.graph import Graph
-from ultra_tpu_torch.models.nbfnet import Ultra
+from ultra_tpu_torch.data.kg import KGDataset, KGSplit, split_to_graph
+from ultra_tpu_torch.graph import Graph, pad_bucket
+from ultra_tpu_torch.models.nbfnet import NBFNetConfig, Ultra, UltraConfig
 from ultra_tpu_torch.train import eval as eval_lib
 from ultra_tpu_torch.train.loop import init_train_state, make_train_step
 from ultra_tpu_torch.utils import ckpt as ckpt_lib
 
 logger = logging.getLogger("ultra_tpu_torch")
+
+
+def model_config_from_dict(model_cfg: dict) -> UltraConfig:
+    """The YAML's ``model`` section -> :class:`UltraConfig` (the reference's
+    class dispatch, ``models.py:14-15``).
+
+    Two of the JAX package's keys are not carried: ``precision`` (the TPU
+    matrix units' pass count; the port's kernels are exact f32) and
+    ``remove_one_hop`` (read by the JAX runner's training loop, whose port
+    is ROADMAP A6). ``compute_dtype: bfloat16`` raises: bf16 operands are
+    ROADMAP B1."""
+
+    def nbf(cfg: dict, project_relations: bool) -> NBFNetConfig:
+        cfg = dict(cfg)
+        cfg.pop("class", None)
+        if cfg.get("compute_dtype") not in (None, "float32"):
+            raise NotImplementedError(
+                f"compute_dtype {cfg['compute_dtype']!r}: bf16 operands are ROADMAP B1")
+        return NBFNetConfig(
+            input_dim=cfg.get("input_dim", 64),
+            hidden_dims=tuple(cfg.get("hidden_dims", (64,) * 6)),
+            num_relation=4 if not project_relations else 1,
+            message_func=cfg.get("message_func", "distmult"),
+            aggregate_func=cfg.get("aggregate_func", "sum"),
+            short_cut=bool(cfg.get("short_cut", True)),
+            layer_norm=bool(cfg.get("layer_norm", True)),
+            activation=cfg.get("activation", "relu"),
+            concat_hidden=bool(cfg.get("concat_hidden", False)),
+            num_mlp_layer=int(cfg.get("num_mlp_layer", 2)),
+            remat=bool(cfg.get("remat", False)),
+            project_relations=project_relations,
+        )
+
+    return UltraConfig(
+        relation_model=nbf(model_cfg["relation_model"], project_relations=False),
+        entity_model=nbf(model_cfg["entity_model"], project_relations=True),
+    )
+
+
+def prepare_graph(split: KGSplit, device="cuda") -> Graph:
+    """The split's graph on ``device``, padded as the JAX package pads it:
+    the message edges to a multiple of 2048 and the relation graph's
+    (data-dependent, up to 4*R^2) edges to a multiple of 1024. The padding
+    is weight-0 edges, left out of the edge layouts; the host beam search of
+    ``models/visualize.py`` sees it as the JAX package's does."""
+    return split_to_graph(split, device=device,
+                          pad_edges_to=pad_bucket(split.edge_index.shape[1], 2048),
+                          pad_rel_edges_bucket=1024)
 
 
 def triples_of(split: KGSplit) -> np.ndarray:

@@ -1,8 +1,8 @@
-"""Device timing, the benchmark graph and the PNA configuration for
-measurements on the card.
+"""Device timing, kernel bounds, the benchmark graph, the PNA configuration
+and the gather probe, for measurements on the card.
 
 Counterpart of ``ultra_tpu/utils/benchlib.py`` and of the graph construction in
-the root ``bench.py``. Used by ``chip_smoke.py`` and ``scripts/torch_*_profile.py``;
+the root ``bench.py``. Used by ``chip_smoke.py`` and ``scripts/torch_*.py``;
 nothing on the serving path imports it.
 """
 
@@ -76,3 +76,104 @@ def device_ms(fn, samples: int = 20, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def bound_ms(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time of a kernel that moves
+    ``nbytes`` and does ``flops`` f32 operations, the larger of the bytes
+    over the card's memory rate and the operations over its f32 rate."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def live_edges(edge_weight, eid):
+    """How many of the edges ``eid`` have a weight other than 0."""
+    return int((edge_weight[eid.long()] != 0).sum())
+
+
+def rspmm_bound_ms(csr, edge_weight, relation, x, mul="mul"):
+    """Least time for one sum (or min/max) rspmm on these inputs: each input
+    read once (x, relation, the CSR and the weight of each CSR edge), the
+    output written once, and 3 f32 operations per feature of each edge whose
+    weight is not 0."""
+    num_rows, feat = csr.rowptr.numel() - 1, x.shape[1]
+    nbytes = 4 * (x.numel() + relation.numel() + num_rows * feat)
+    nbytes += 8 * (num_rows + 1) + (4 + 4 + 4 + 4) * csr.col.numel()
+    return bound_ms(nbytes, 3 * live_edges(edge_weight, csr.eid) * feat)
+
+
+def gather_bound_ms(x, idx):
+    """Least time for one gather of ``x`` by ``idx`` (one output element per
+    index for the lane gather, one row per index for the row gather): x and
+    the indices read once, the output written once; no arithmetic."""
+    out_numel = idx.numel() * (x.shape[1] if idx.dim() == 1 else 1)
+    return bound_ms((x.numel() + out_numel) * x.element_size() + 4 * idx.numel(), 0)
+
+
+# the shapes of the TPU gather probes (scripts/exp_dma_gather.py and
+# aot_compile_probe.py): FB15k-237's entities at F=512, padded edges, bf16;
+# the lane gather's (512, 128)
+PROBE_V, PROBE_F, PROBE_E, LANE_SHAPE = 14541, 512, 616448, (512, 128)
+
+
+def gather_probe(graph, seed=0):
+    """The TPU gather probes' questions answered on the card: G1 (the row
+    gather) at the probes' shape in bf16 and f32, G2 (the lane gather) at
+    (512, 128) in f32 and bf16, and the share of a sum rspmm (B1 at F=512 on
+    ``graph``, the FB15k-237-shaped entity graph) that gathering its source
+    rows would take: G1 over the CSR's sources in f32 against B1.
+
+    Each gather's output must equal its plain version's (``gather_cuda``),
+    value for value. Each time (median device ms, :func:`device_ms`) stands
+    beside its bound, its plain version's and that of the PyTorch call that
+    computes the same function with int64 indices (``index_select``,
+    ``gather``), which nothing in the package calls. Returns the record:
+    ``"gathers"`` maps a name to its row (``out_key``, the launch counter's
+    key of its output), ``"equal"`` says whether every output equalled its
+    plain version's."""
+    from ultra_tpu_torch.ops.gather_cuda import (
+        _key, gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain,
+    )
+    from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd
+
+    gen = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    rows = {}
+
+    def row(name, replaces, kernel, plain, library, x, idx, dim):
+        got, want = kernel(x, idx), plain(x, idx)
+        equal = got.shape == want.shape and bool(torch.equal(got, want))
+        long_idx = idx.long()
+        least_ms, bound_by = gather_bound_ms(x, idx)
+        rows[name] = {
+            "replaces": replaces, "out_key": list(_key(got)), "equal": equal,
+            "max_abs_err": 0.0 if equal else None,
+            "ms": device_ms(lambda: kernel(x, idx)), "plain_ms": device_ms(lambda: plain(x, idx)),
+            "library_ms": device_ms(lambda: library(x, dim, long_idx)),
+            "library_call": f"torch.{library.__name__} (int64 indices)",
+            "bound_ms": least_ms, "bound_by": bound_by,
+        }
+        return rows[name]["ms"]
+
+    idx = torch.randint(0, PROBE_V, (PROBE_E,), generator=gen, dtype=torch.int32).cuda()
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        row(f"gather_rows/{tag}/V{PROBE_V}xF{PROBE_F}/E{PROBE_E}",
+            "scripts/exp_dma_gather.py:94", gather_rows, gather_rows_plain, torch.index_select,
+            rand(PROBE_V, PROBE_F).to(dtype), idx, 0)
+    lane_idx = torch.randint(0, LANE_SHAPE[1], LANE_SHAPE, generator=gen,
+                             dtype=torch.int32).cuda()
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        row(f"gather_lanes/{tag}/{LANE_SHAPE[0]}x{LANE_SHAPE[1]}",
+            "scripts/aot_compile_probe.py:126", gather_lanes, gather_lanes_plain, torch.gather,
+            rand(*LANE_SHAPE).to(dtype), lane_idx, 1)
+
+    feat, csr = PROBE_F, graph.csr
+    rel, x = rand(graph.num_relations, feat), rand(graph.num_nodes, feat)
+    b1_ms = device_ms(lambda: rspmm_sum_fwd(csr, graph.edge_weight, rel, x, "mul"))
+    b1_bound = rspmm_bound_ms(csr, graph.edge_weight, rel, x)
+    src_ms = row(f"gather_rows/f32/sources/E{csr.col.numel()}", "scripts/exp_v2proto.py:69",
+                 gather_rows, gather_rows_plain, torch.index_select, x, csr.col, 0)
+    return {"gathers": rows, "equal": all(r["equal"] for r in rows.values()),
+            f"rspmm_sum_fwd/entity/F{feat}": {"ms": b1_ms, "bound_ms": b1_bound[0],
+                                              "bound_by": b1_bound[1]},
+            "source_gather_share_of_rspmm": src_ms / b1_ms}

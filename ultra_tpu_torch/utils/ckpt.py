@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from ultra_tpu_torch.train.loop import TrainState
+from ultra_tpu_torch.utils.torch_ckpt import load_ultra_checkpoint
 
 
 def save_train_state(path: str, state: TrainState) -> str:
@@ -38,6 +39,20 @@ def load_train_state(path: str, state: TrainState) -> TrainState:
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     return state
+
+
+def load_model_checkpoint(path: str):
+    """The model ``state_dict`` of a reference-layout ``.pth`` (a
+    reference checkpoint, or one this package wrote), on the CPU, through
+    ``utils/torch_ckpt.py::load_ultra_checkpoint``. The JAX package also
+    reads its orbax directories; that is a JAX format, and the port raises
+    for it: convert it with the JAX package's ``export_ultra_checkpoint``."""
+    if os.path.isdir(path) or not path.endswith(".pth"):
+        raise ValueError(
+            f"{path!r} is not a .pth checkpoint: the port reads the reference .pth layout; "
+            "an orbax directory is the JAX package's format (export it with "
+            "ultra_tpu/utils/torch_ckpt.py::export_ultra_checkpoint)")
+    return load_ultra_checkpoint(path)
 
 
 class BestModelTracker:
