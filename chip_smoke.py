@@ -22,7 +22,11 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    the edge-weight gradient B6 on the entity graph at F=64 (attribution)
    and F=512, for the sum and for min and max, on those inputs; and B1
    (forward on both graphs, input gradient) and B6 at F=64 on the repo's
-   rule-KG, which ``[visualize]`` explains a prediction on;
+   rule-KG, which ``[visualize]`` explains a prediction on. B1 and B3 walk
+   their CSR's piece table (``graph.ROW_PIECE``): they are also timed on a
+   graph with uniformly drawn destinations (``uniform_ms``), held against
+   their plain versions on a graph whose rows sit on each side of a piece's
+   length, and two B1 launches must give the same bits;
 5. serves zero-shot link prediction at the full ``ultra_3g`` width (6x64
    RelNBFNet + 6x64 EntityNBFNet, distmult, sum) with random weights from a
    seed, on the FB15k-237-shaped synthetic graph, through
@@ -255,33 +259,39 @@ def kernel_row(name, source, replaces, out_shape, ms, plain_ms, bound, max_abs_e
             **extra}
 
 
+def sum_kernel_error(got, plain, layout, weight, a, b, mul):
+    """A sum kernel's output ``got`` against ``plain`` on the same inputs in
+    f64, within KERNEL_REL_TO_ABS_SUM of the sum of the absolute terms
+    (``plain`` on absolute inputs) plus KERNEL_ATOL: (max |err|, max |err|
+    over the largest |output|, worst |err| over its tolerance, ok)."""
+    w64, a64, b64 = weight.double(), a.double(), b.double()
+    want = plain(layout, w64, a64, b64, mul)
+    abs_sum = plain(layout, w64.abs(), a64.abs(), b64.abs(), mul)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs()
+    within = float((err / (KERNEL_REL_TO_ABS_SUM * abs_sum + KERNEL_ATOL)).max())
+    ok = bool(torch.isfinite(got).all()) and got.shape == want.shape and within <= 1
+    rel = float(err.max() / want.abs().max().clamp_min(1e-30))
+    return float(err.max()), rel, within, ok
+
+
 def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
-    """``kernel(layout, weight, a, b, mul)`` against ``plain`` on the same
-    inputs in f64, for mul and add, within KERNEL_REL_TO_ABS_SUM of the sum
-    of the absolute terms (``plain`` on absolute inputs) plus KERNEL_ATOL;
-    times both (``plain`` in f32, as the path would run it) for each ``mul``
-    of ``timed``, which maps it to the TPU kernel it replaces. Returns (rows
-    of the kernels line, ok); the row of "add" is named ``name`` with
-    ``_add`` after the wrapper's name and is not on the path (distmult)."""
+    """``kernel(layout, weight, a, b, mul)`` against ``plain`` for mul and
+    add (:func:`sum_kernel_error`); times both (``plain`` in f32, as the
+    path would run it) for each ``mul`` of ``timed``, which maps it to the
+    TPU kernel it replaces. Returns (rows of the kernels line, ok); the row
+    of "add" is named ``name`` with ``_add`` after the wrapper's name and is
+    not on the path (distmult)."""
     from ultra_tpu_torch.utils.benchlib import device_ms
 
-    w64, a64, b64 = weight.double(), a.double(), b.double()
     errs, ok = {}, True
     for mul in ("mul", "add"):
         got = kernel(layout, weight, a, b, mul)
-        want = plain(layout, w64, a64, b64, mul)
-        abs_sum = plain(layout, w64.abs(), a64.abs(), b64.abs(), mul)
-        torch.cuda.synchronize()
-        err = (got.double() - want).abs()
-        within = err / (KERNEL_REL_TO_ABS_SUM * abs_sum + KERNEL_ATOL)
-        case_ok = bool(torch.isfinite(got).all()) and got.shape == want.shape
-        case_ok &= bool((within <= 1).all())
+        errs[mul], rel, within, case_ok = sum_kernel_error(got, plain, layout, weight, a, b, mul)
         ok &= case_ok
-        rel = float(err.max() / want.abs().max().clamp_min(1e-30))
-        errs[mul] = float(err.max())
         print(f"[kernel] {name} mul={mul} {tuple(got.shape)}: ok={case_ok} "
-              f"max_abs_err={float(err.max())!r} max_rel_err={rel!r} "
-              f"worst_err_over_tolerance={float(within.max())!r}", flush=True)
+              f"max_abs_err={errs[mul]!r} max_rel_err={rel!r} "
+              f"worst_err_over_tolerance={within!r}", flush=True)
 
     rows = []
     for mul, replaces in timed.items():
@@ -476,7 +486,107 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
     return rows, ok
 
 
-def check_kernels(graph, rule_graph, cfg, gen):
+def piece_checks(graph, uniform, rows, feat, dim, gen):
+    """B1 and B3 beside their graph's piece table (``graph.ROW_PIECE``), at
+    ``feat`` (a batch's width) and ``dim`` (attribution's):
+
+    - the kernels-line rows of the entity graph's B1 forward at both
+      widths, its d_x and B3 at ``feat`` get ``uniform_ms``, the same launch
+      on ``uniform`` (the graph's sources, types and edge count, uniformly
+      drawn destinations) walking its destination-major CSR, whose rows are
+      all short (for d_x too: it stands for the CSR by source of uniformly
+      drawn sources), and ``max_in_degree`` (and ``uniform_max_in_degree``),
+      the longest row the launch walks on each graph;
+    - B1 (mul and add, forward and d_x, both widths) and B3 (min and max,
+      mul and add, tie-heavy and normal inputs, ``feat``) against their
+      plain versions on a graph whose rows have 0, 1, ROW_PIECE - 1,
+      ROW_PIECE, ROW_PIECE + 1, 2 ROW_PIECE, 3,031 and 2 ROW_PIECE edges,
+      the last row's all masked at run time; its sources are a permutation
+      of its destinations, so the CSR by source has the same rows. B1 within
+      its tolerance, B3 equal, the masked row -inf/+inf;
+    - two B1 launches on ``graph`` at each width give the same bits.
+    Returns ok."""
+    from ultra_tpu_torch import graph as graph_module
+    from ultra_tpu_torch.graph import make_graph
+    from ultra_tpu_torch.ops import rspmm_cuda as k
+    from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd, rspmm_minmax_fwd_plain
+    from ultra_tpu_torch.utils.benchlib import device_ms
+
+    rand = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    longest = lambda csr: int(csr.rowptr.diff().max())
+    w_u = uniform.edge_weight * (torch.rand(uniform.edge_weight.shape, generator=gen) >= 0.1).cuda()
+    n, r = graph.num_nodes, graph.num_relations
+    for name, fn, walked in (
+        (f"rspmm_sum_fwd/entity/F{feat}", k.rspmm_sum_fwd, graph.csr),
+        (f"rspmm_sum_fwd/entity/F{dim}", k.rspmm_sum_fwd, graph.csr),
+        (f"rspmm_sum_dx/entity/F{feat}", k.rspmm_sum_dx, graph.csr_src),
+        (f"rspmm_minmax_fwd/entity/F{feat}", rspmm_minmax_fwd, graph.csr),
+    ):
+        f = rows[name]["out_shape"][1]
+        rel, x = rand(r, f), rand(n, f)
+        rows[name].update(uniform_ms=device_ms(lambda: fn(uniform.csr, w_u, rel, x, "mul")),
+                          max_in_degree=longest(walked),
+                          uniform_max_in_degree=longest(uniform.csr))
+        print(f"[kernel] {name}: ms={rows[name]['ms']!r} uniform_ms="
+              f"{rows[name]['uniform_ms']!r} max_in_degree {longest(walked)} against "
+              f"{longest(uniform.csr)}", flush=True)
+
+    piece = graph_module.ROW_PIECE
+    degrees = [0, 1, piece - 1, piece, piece + 1, 2 * piece, 3031, 2 * piece]
+    masked_row, num_types = len(degrees) - 1, 7
+    rng = np.random.default_rng(7)
+    dst = np.repeat(np.arange(len(degrees)), degrees)
+    edges = np.stack([dst, rng.permutation(dst)])
+    g_ = make_graph(edges, rng.integers(0, num_types, dst.size), len(degrees), num_types,
+                    device="cuda")
+    w = g_.edge_weight.cpu() * torch.tensor([0.5, 1.0, 2.0])[
+        torch.randint(0, 3, (dst.size,), generator=gen)]
+    w[torch.rand(w.shape, generator=gen) < 0.1] = 0.0
+    w[torch.from_numpy(dst == masked_row)] = 0.0
+    w = w.cuda()
+    ok = True
+    for f in (dim, feat):
+        rel, x = rand(num_types, f), rand(len(degrees), f)
+        for name, fn, plain, csr in (
+            ("rspmm_sum_fwd", k.rspmm_sum_fwd, k.rspmm_sum_fwd_plain, g_.csr),
+            ("rspmm_sum_dx", k.rspmm_sum_dx, k.rspmm_sum_dx_plain, g_.csr_src),
+        ):
+            for mul in ("mul", "add"):
+                err, _, within, case_ok = sum_kernel_error(fn(csr, w, rel, x, mul), plain, csr,
+                                                           w, rel, x, mul)
+                ok &= case_ok
+                print(f"[kernel] {name} piece boundaries F={f} mul={mul}: ok={case_ok} "
+                      f"max_abs_err={err!r} worst_err_over_tolerance={within!r}", flush=True)
+    ties_x = torch.randint(-3, 4, (len(degrees), feat), generator=gen).float()
+    ties_x[torch.rand(len(degrees), generator=gen) < 0.25] = 0.0
+    for kind, (rel, x) in {
+        "ties": (torch.randint(-3, 4, (num_types, feat), generator=gen).float().cuda(),
+                 ties_x.cuda()),
+        "normal": (rand(num_types, feat), rand(len(degrees), feat)),
+    }.items():
+        for mul in ("mul", "add"):
+            for is_min in (False, True):
+                got = rspmm_minmax_fwd(g_.csr, w, rel, x, mul, is_min)
+                want = rspmm_minmax_fwd_plain(g_.csr, w, rel, x, mul, is_min)
+                differ = int((got != want).sum())
+                case_ok = differ == 0 and bool(torch.isinf(got[masked_row]).all())
+                ok &= case_ok
+                print(f"[kernel] rspmm_minmax_fwd piece boundaries {kind} mul={mul} "
+                      f"{'min' if is_min else 'max'}: ok={case_ok} differing={differ}",
+                      flush=True)
+
+    for f in (feat, dim):
+        rel, x = rand(r, f), rand(n, f)
+        w_g = graph.edge_weight
+        same = torch.equal(k.rspmm_sum_fwd(graph.csr, w_g, rel, x),
+                           k.rspmm_sum_fwd(graph.csr, w_g, rel, x))
+        ok &= same
+        print(f"[kernel] rspmm_sum_fwd/entity/F{f} two launches bitwise equal: {same}",
+              flush=True)
+    return ok
+
+
+def check_kernels(graph, rule_graph, cfg, gen, uniform):
     """Every kernel wrapper against its plain version at each shape the
     serving, training, validation and attribution paths give it: F = 512
     (a batch of 8, D = 64) for training and serving, 1024 for validation's
@@ -484,8 +594,10 @@ def check_kernels(graph, rule_graph, cfg, gen):
     relations on the relation graph, 64 (one query) for attribution's
     forwards on both graphs and its input and edge-weight gradients on the
     entity graph, on ``graph`` and on ``rule_graph`` (the rule-KG that
-    ``[visualize]`` explains a prediction on). Returns ({row name: row},
-    ok); a row's ``out_shape`` is the launch-count key of its launches."""
+    ``[visualize]`` explains a prediction on); then :func:`piece_checks`
+    with ``uniform``, the graph with uniformly drawn destinations. Returns
+    ({row name: row}, ok); a row's ``out_shape`` is the launch-count key of
+    its launches."""
     from ultra_tpu_torch.ops import rspmm_cuda as k
 
     fwd_src, drel_src = (f"ultra_tpu_torch/csrc/{n}.cu" for n in KERNELS[:2])
@@ -552,6 +664,10 @@ def check_kernels(graph, rule_graph, cfg, gen):
         dw_rows, dw_ok = hold_dw(g_, gen, tag, feats)
         rows.update(dw_rows)
         ok &= dw_ok
+    t0 = time.perf_counter()
+    ok &= piece_checks(graph, uniform, rows, train_feat, dim, gen)
+    print(f"[kernel] piece checks (uniform graph, piece boundaries, determinism): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rows, ok
 
 
@@ -1427,9 +1543,12 @@ def main() -> int:
         return 1
 
     from ultra_tpu_torch.data.kg import split_to_graph
+    from ultra_tpu_torch.graph import ROW_PIECE
     from ultra_tpu_torch.models.nbfnet import UltraConfig
     from ultra_tpu_torch.ops import build
-    from ultra_tpu_torch.utils.benchlib import fb15k237_split, pna_config
+    from ultra_tpu_torch.utils.benchlib import (
+        fb15k237_split, pna_config, uniform_destination_graph,
+    )
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1461,7 +1580,11 @@ def main() -> int:
     graph = split_to_graph(split, device="cuda")
     rel_graph = graph.relation_graph
     print(f"[graph] V={graph.num_nodes} E={graph.csr.col.numel()} R={num_rel} "
-          f"relation graph: V={rel_graph.num_nodes} E={rel_graph.csr.col.numel()} "
+          f"relation graph: V={rel_graph.num_nodes} E={rel_graph.csr.col.numel()}; "
+          f"ROW_PIECE {ROW_PIECE}: {graph.csr.piece_row.numel()} pieces, "
+          f"{graph.csr.long_rows.numel()} long rows ({graph.csr_src.piece_row.numel()} and "
+          f"{graph.csr_src.long_rows.numel()} by source; relation graph "
+          f"{rel_graph.csr.piece_row.numel()} and {rel_graph.csr.long_rows.numel()}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     (ROOT / "build" / "chip_smoke").mkdir(parents=True, exist_ok=True)
     if {"kernels", "visualize"} & set(phases):
@@ -1490,7 +1613,13 @@ def main() -> int:
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def kernel_phase():
-        rows, ok = check_kernels(graph, rule_graph, cfg, torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        uniform = uniform_destination_graph(split)
+        print(f"[graph] uniform destinations: max in-degree "
+              f"{int(uniform.csr.rowptr.diff().max())} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        rows, ok = check_kernels(graph, rule_graph, cfg, torch.Generator().manual_seed(0),
+                                 uniform)
         kernels.update(rows)
         check(ok, "a kernel disagrees with its plain version (see the [kernel] lines)")
 

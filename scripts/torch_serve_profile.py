@@ -13,9 +13,12 @@ measures:
 2. the sum and the max rspmm kernels (B1, B3) at the entity width
    (F = 8 x 64) and the edge-weight gradient (B6) at an attribution call's
    width (F = 64) on the graph and on a graph with the same sources, types
-   and edge count whose destinations are drawn uniformly. Each kernel walks
-   a row's edges in one block, one edge after another, so the gap between
-   the two is what the graph's longest rows cost;
+   and edge count whose destinations are drawn uniformly
+   (``benchlib.uniform_destination_graph``). B1 and B3 cut each row into
+   pieces of at most ``graph.ROW_PIECE`` edges, one group of threads a
+   piece, so the gap between the two graphs is what the hub rows still
+   cost them; B6 walks a row's edges in one block, so for it the gap is
+   what the graph's longest rows cost;
 3. with ``torch.profiler``, one edge-importance attribution call
    (``models/visualize.py::edge_gradients``, one query) of the same model,
    over 10 queries.
@@ -88,7 +91,7 @@ def main() -> int:
         return 1
 
     from ultra_tpu_torch.data.kg import split_to_graph
-    from ultra_tpu_torch.graph import make_graph
+    from ultra_tpu_torch.graph import ROW_PIECE
     from ultra_tpu_torch.models.nbfnet import UltraConfig
     from ultra_tpu_torch.ops import build
     from ultra_tpu_torch.models.visualize import edge_gradients
@@ -97,7 +100,9 @@ def main() -> int:
     from ultra_tpu_torch.serve import UltraPredictor
     from ultra_tpu_torch.train.eval import precompute_relation_representations
     from ultra_tpu_torch.train.loop import init_ultra_params
-    from ultra_tpu_torch.utils.benchlib import device_ms, fb15k237_split, pna_config
+    from ultra_tpu_torch.utils.benchlib import (
+        device_ms, fb15k237_split, pna_config, uniform_destination_graph,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -119,6 +124,8 @@ def main() -> int:
     result = {"card": card, "model": "pna" if args.pna else "ultra_3g", "graph": {
         "V": graph.num_nodes, "E": int(graph.csr.col.numel()), "R": graph.num_relations,
         "max_in_degree": max_in_degree(graph),
+        "row_piece": ROW_PIECE, "pieces": graph.csr.piece_row.numel(),
+        "long_rows": graph.csr.long_rows.numel(),
         "mean_in_degree": graph.csr.col.numel() / graph.num_nodes,
         "rel_graph_E": int(graph.relation_graph.csr.col.numel()),
         "rel_graph_max_in_degree": max_in_degree(graph.relation_graph)}}
@@ -133,10 +140,7 @@ def main() -> int:
     feat = BATCH * UltraConfig().entity_model.input_dim
     x = torch.randn(graph.num_nodes, feat, generator=gen).cuda()
     rel = torch.randn(graph.num_relations, feat, generator=gen).cuda()
-    edge_index = split.edge_index.copy()
-    edge_index[0] = np.random.default_rng(1).integers(0, split.num_nodes, edge_index.shape[1])
-    balanced = make_graph(edge_index, split.edge_type, split.num_nodes,
-                          split.num_relations, device="cuda")
+    balanced = uniform_destination_graph(split)
     dim = UltraConfig().entity_model.input_dim
     x1, rel1, g1 = x[:, :dim].contiguous(), rel[:, :dim].contiguous(), x[:, dim:2 * dim] + 0
     result["rspmm_by_degree"] = {

@@ -19,24 +19,26 @@
 // the same two roundings as the plain version and the backward kernels, and
 // nothing nvcc may contract or reorder.
 //
-// What bounds it on an H100: bytes. Per edge and feature it does 3
-// operations on two gathered 4-byte operands, far below the card's f32
-// flops-per-byte balance, so the floor is each input read once (x, rel, w,
-// the CSR) and out written once. The design is B1's (rspmm_sum_fwd.cu):
-// - one block per (destination row, feature tile) walks the row's edges in
-//   CSR order with the running extreme in registers: no atomics, and min and
-//   max are exact, so the result does not depend on the order;
+// What bounds it on an H100. The floor is bytes, as for B1 (3 operations
+// per edge and feature on two gathered 4-byte operands, no dense product,
+// no part for the tensor cores): each input read once (x, rel, w, the CSR)
+// and out written once. In practice the gathers' latency bounds it, and the
+// design is B1's (rspmm_pieces.cuh, rspmm_sum_fwd.cu):
+// - every row is cut into pieces of at most ROW_PIECE edges (graph.py),
+//   each walked by its own group of threads, so the rows with thousands of
+//   edges no longer set the launch's length; a second pass takes the
+//   extreme of a long row's partial rows. A min or a max is exact, so the
+//   output does not depend on how the row was cut: it equals the plain
+//   version value for value, a row whose edges are all masked included;
+// - the weights are staged in shared memory with the edges' indices, and
+//   the x and rel loads of 4 edges go out before any edge's weight test, so
+//   a masked edge (the runtime easy-edge mask zeroes weights of edges that
+//   are in the CSR) no longer holds up the next edge's loads: its rows are
+//   loaded and left out;
 // - each thread owns 4 contiguous features and loads float4 (F % 4 == 0 and
-//   16-byte aligned rel, x and out; anything else is refused);
-// - an edge of weight 0 is skipped before its rows are loaded: the runtime
-//   easy-edge mask zeroes weights of edges that are in the CSR;
-// - as in B1, the rows with thousands of edges set the launch's length on
-//   power-law graphs; splitting them is left to a later version.
-// Offsets row*F are 64-bit.
+//   16-byte aligned rel, x, out and partial rows; anything else is refused).
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "rspmm_pieces.cuh"
 
 namespace {
 
@@ -50,91 +52,57 @@ __device__ __forceinline__ float extreme(float a, float b) {
   return IS_MIN ? fminf(a, b) : fmaxf(a, b);
 }
 
-// `width` is the row length in float4s (F / 4).
 template <int OP, bool IS_MIN>
-__global__ void rspmm_minmax_fwd_kernel(const int64_t* __restrict__ rowptr,
-                                        const int32_t* __restrict__ col,
-                                        const int32_t* __restrict__ etype,
-                                        const int32_t* __restrict__ eid,
-                                        const float* __restrict__ weight,
-                                        const float4* __restrict__ rel,
-                                        const float4* __restrict__ x,
-                                        float4* __restrict__ out,
-                                        int64_t width) {
-  const int64_t row = blockIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  const int64_t begin = rowptr[row];
-  const int64_t end = rowptr[row + 1];
-  const float fill = IS_MIN ? __int_as_float(0x7f800000) : __int_as_float(0xff800000);
-  float4 acc = make_float4(fill, fill, fill, fill);
-  for (int64_t e = begin; e < end; ++e) {
-    const float w = __ldg(weight + __ldg(eid + e));
-    if (w == 0.f) continue;
-    const int64_t src = __ldg(col + e);
-    const int64_t type = __ldg(etype + e);
-    const float4 xv = __ldg(x + src * width + j);
-    const float4 rv = __ldg(rel + type * width + j);
-    acc.x = extreme<IS_MIN>(acc.x, message<OP>(rv.x, xv.x, w));
-    acc.y = extreme<IS_MIN>(acc.y, message<OP>(rv.y, xv.y, w));
-    acc.z = extreme<IS_MIN>(acc.z, message<OP>(rv.z, xv.z, w));
-    acc.w = extreme<IS_MIN>(acc.w, message<OP>(rv.w, xv.w, w));
+struct Extreme {
+  __device__ static float4 init() {
+    const float fill = IS_MIN ? __int_as_float(0x7f800000) : __int_as_float(0xff800000);
+    return make_float4(fill, fill, fill, fill);
   }
-  out[row * width + j] = acc;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-template <int OP, bool IS_MIN>
-void launch(dim3 grid, int threads, cudaStream_t s, const int64_t* rp, const int32_t* c,
-            const int32_t* t, const int32_t* id, const float* w, const float4* r,
-            const float4* xs, float4* o, int64_t width) {
-  rspmm_minmax_fwd_kernel<OP, IS_MIN><<<grid, threads, 0, s>>>(rp, c, t, id, w, r, xs, o,
-                                                               width);
-}
+  __device__ static void add(float4& acc, float w, const float4& r, const float4& x) {
+    if (w == 0.f) return;
+    acc.x = extreme<IS_MIN>(acc.x, message<OP>(r.x, x.x, w));
+    acc.y = extreme<IS_MIN>(acc.y, message<OP>(r.y, x.y, w));
+    acc.z = extreme<IS_MIN>(acc.z, message<OP>(r.z, x.z, w));
+    acc.w = extreme<IS_MIN>(acc.w, message<OP>(r.w, x.w, w));
+  }
+  __device__ static void merge(float4& acc, const float4& p) {
+    acc.x = extreme<IS_MIN>(acc.x, p.x);
+    acc.y = extreme<IS_MIN>(acc.y, p.y);
+    acc.z = extreme<IS_MIN>(acc.z, p.z);
+    acc.w = extreme<IS_MIN>(acc.w, p.w);
+  }
+};
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// rowptr: (num_rows+1) int64; col, etype, eid: (E) int32; weight: f32 indexed
-// by eid; rel: (R, num_feat) f32; x: (N, num_feat) f32; out: (num_rows,
-// num_feat) f32. is_min 1 takes the minimum, 0 the maximum. All contiguous on
-// one device; indices are trusted to be in range. num_feat % 4 != 0 or a rel,
-// x or out not 16-byte aligned returns cudaErrorInvalidValue and launches
-// nothing.
-extern "C" int rspmm_minmax_fwd(const void* rowptr, const void* col, const void* etype,
+// Launches both passes on `stream` and returns cudaGetLastError() (0 on
+// success). The operands are rspmm_sum_fwd's (rspmm_sum_fwd.cu); is_min 1
+// takes the minimum, 0 the maximum. num_feat % 4 != 0 or a misaligned rel,
+// x, out or partial returns cudaErrorInvalidValue and launches nothing.
+extern "C" int rspmm_minmax_fwd(const void* piece_ptr, const void* piece_row,
+                                const void* piece_slot, const void* piece_order,
+                                const void* long_rows,
+                                const void* long_slot_ptr, const void* col, const void* etype,
                                 const void* eid, const void* weight, const void* rel,
-                                const void* x, void* out, long long num_rows,
-                                long long num_feat, int mul_op, int is_min, void* stream) {
+                                const void* x, void* partial, void* out, long long num_pieces,
+                                long long num_long, long long num_feat, int mul_op, int is_min,
+                                void* stream) {
   if ((mul_op != 0 && mul_op != 1) || (is_min != 0 && is_min != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_rows <= 0 || num_feat <= 0 || num_feat % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (!aligned16(rel) || !aligned16(x) || !aligned16(out)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long width = num_feat / 4;
-  const long long warps = (width + 31) / 32;
-  const int threads = static_cast<int>(warps < 8 ? warps * 32 : 256);
-  const dim3 grid(static_cast<unsigned>(num_rows),
-                  static_cast<unsigned>((width + threads - 1) / threads));
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* rp = static_cast<const int64_t*>(rowptr);
-  const auto* c = static_cast<const int32_t*>(col);
-  const auto* t = static_cast<const int32_t*>(etype);
-  const auto* id = static_cast<const int32_t*>(eid);
-  const auto* w = static_cast<const float*>(weight);
-  const auto* r = static_cast<const float4*>(rel);
-  const auto* xs = static_cast<const float4*>(x);
-  auto* o = static_cast<float4*>(out);
+  const pieces::Operands a{
+      static_cast<const int64_t*>(piece_ptr), static_cast<const int32_t*>(piece_row),
+      static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
+      static_cast<const int32_t*>(long_rows),
+      static_cast<const int64_t*>(long_slot_ptr), static_cast<const int32_t*>(col),
+      static_cast<const int32_t*>(etype), static_cast<const int32_t*>(eid),
+      static_cast<const float*>(weight), static_cast<const float4*>(rel),
+      static_cast<const float4*>(x), static_cast<float4*>(partial), static_cast<float4*>(out),
+      num_pieces, num_long, 0};
   if (mul_op == 0) {
-    if (is_min) launch<0, true>(grid, threads, s, rp, c, t, id, w, r, xs, o, width);
-    else launch<0, false>(grid, threads, s, rp, c, t, id, w, r, xs, o, width);
-  } else {
-    if (is_min) launch<1, true>(grid, threads, s, rp, c, t, id, w, r, xs, o, width);
-    else launch<1, false>(grid, threads, s, rp, c, t, id, w, r, xs, o, width);
+    return is_min ? pieces::launch<Extreme<0, true>>(a, num_feat, stream)
+                  : pieces::launch<Extreme<0, false>>(a, num_feat, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return is_min ? pieces::launch<Extreme<1, true>>(a, num_feat, stream)
+                : pieces::launch<Extreme<1, false>>(a, num_feat, stream);
 }

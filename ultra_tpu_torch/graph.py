@@ -19,6 +19,13 @@ a runtime weight mask reaches every kernel with no rebuild:
   forward walks it.
 - ``csr_src``: the transpose, rows are sources and ``col`` holds
   destinations. The input gradient walks it.
+
+  Each CSR also cuts its rows into pieces of at most :data:`ROW_PIECE`
+  edges (the piece table, see :class:`CSR`). The sum and min/max forwards
+  (B1, B3) give each piece to its own group of threads, so a hub row (in
+  FB15k-237's shape, 3,031 edges against a mean of 37) spreads over many
+  groups instead of setting the launch's length, and a second pass combines
+  the pieces of each long row in a fixed order.
 - ``segments`` (:class:`TypeSegments`): edges sorted by type, cut into
   chunks of at most :data:`SEGMENT_CHUNK` edges. The relation gradient
   walks it.
@@ -46,22 +53,69 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class CSR:
-    """Edges grouped by destination row.
+    """Edges grouped by destination row, with the rows' piece table.
 
     ``rowptr`` (V+1,) int64; ``col`` (source), ``etype`` and ``eid`` (index
     into the graph's edge-weight vector) are (E_live,) int32.
+
+    Piece ``p`` holds edges ``piece_ptr[p]:piece_ptr[p+1]`` (``piece_ptr``
+    (P+1,) int64) of row ``piece_row[p]`` ((P,) int32). Pieces follow CSR
+    order and hold at most :data:`ROW_PIECE` edges; a row has
+    ``max(1, ceil(degree / ROW_PIECE))`` of them, so an empty row is one
+    piece of no edges. ``piece_slot`` ((P,) int32) is -1 for the piece of a
+    one-piece row, which writes its row of the output; the pieces of a
+    longer row take consecutive slots in edge order, each a partial row of
+    a scratch buffer. ``piece_order`` ((P,) int32) is the order the kernels
+    take the pieces in: longest first, CSR order among equals, so the
+    longest pieces start first and the groups that run side by side get
+    pieces of about one length. ``long_rows`` ((L,) int32) are the rows of
+    more than one piece, in row order, and ``long_slot_ptr`` ((L+1,) int64)
+    their slot ranges: the second pass combines slots
+    ``long_slot_ptr[i]:long_slot_ptr[i+1]`` into row ``long_rows[i]``. The
+    slots number P - V + L (:attr:`num_slots`).
+
+    A CSR checks these types, lengths and its one device when it is made,
+    so the forwards' wrappers, which run on every layer, check only ``col``
+    of it and trust the rest.
     """
 
     rowptr: torch.Tensor
     col: torch.Tensor
     etype: torch.Tensor
     eid: torch.Tensor
+    piece_ptr: torch.Tensor
+    piece_row: torch.Tensor
+    piece_slot: torch.Tensor
+    piece_order: torch.Tensor
+    long_rows: torch.Tensor
+    long_slot_ptr: torch.Tensor
+
+    def __post_init__(self):
+        edges, pieces, long = self.col.numel(), self.piece_row.numel(), self.long_rows.numel()
+        want = {"rowptr": (torch.int64, self.rowptr.numel()), "col": (torch.int32, edges),
+                "etype": (torch.int32, edges), "eid": (torch.int32, edges),
+                "piece_ptr": (torch.int64, pieces + 1), "piece_row": (torch.int32, pieces),
+                "piece_slot": (torch.int32, pieces), "piece_order": (torch.int32, pieces),
+                "long_rows": (torch.int32, long), "long_slot_ptr": (torch.int64, long + 1)}
+        for name, (dtype, length) in want.items():
+            t = getattr(self, name)
+            if t.dtype != dtype or t.dim() != 1 or t.numel() != length:
+                raise ValueError(f"CSR: {name} must be 1-D {dtype} of length {length}")
+            if t.device != self.col.device or not t.is_contiguous():
+                raise ValueError(f"CSR: {name} must be contiguous on {self.col.device}")
+
+    @property
+    def num_slots(self) -> int:
+        """Partial rows of the long rows' pieces, from the shapes alone (every
+        row has at least one piece), so reading it never waits on the card."""
+        return self.piece_row.numel() - (self.rowptr.numel() - 1) + self.long_rows.numel()
 
     def to(self, device) -> "CSR":
         return CSR(*(t.to(device) for t in dataclasses.astuple(self)))
 
 
 SEGMENT_CHUNK = 256  # edges per chunk of a type segment
+ROW_PIECE = 128  # edges per piece of a CSR row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +203,40 @@ def build_csr(edge_index, edge_type, num_nodes: int, edge_ids=None) -> CSR:
         col=edge_index[1][order].to(torch.int32),
         etype=edge_type[order].to(torch.int32),
         eid=edge_ids[order].to(torch.int32),
+        **_pieces(rowptr, counts),
+    )
+
+
+def _pieces(rowptr, counts):
+    """The piece table of a CSR with these row pointers and row lengths (the
+    fields of :class:`CSR` from ``piece_ptr`` on), as ``build_segments`` cuts
+    a type's run into chunks."""
+    device = rowptr.device
+    num_rows = counts.numel()
+    pieces = (-(-counts // ROW_PIECE)).clamp_min(1)  # per row
+    row_first = torch.cumsum(pieces, 0) - pieces  # each row's first piece
+    num_pieces = int(pieces.sum())
+    piece_row = torch.repeat_interleave(
+        torch.arange(num_rows, device=device), pieces, output_size=num_pieces,
+    )
+    k = torch.arange(num_pieces, device=device) - row_first[piece_row]
+    piece_ptr = torch.empty(num_pieces + 1, dtype=torch.int64, device=device)
+    piece_ptr[:-1] = rowptr[piece_row] + ROW_PIECE * k
+    piece_ptr[-1] = rowptr[-1]
+    lengths = piece_ptr.diff()
+    order = torch.sort(lengths, descending=True, stable=True).indices
+    is_long = pieces > 1
+    long_piece = is_long[piece_row]
+    piece_slot = torch.where(long_piece, torch.cumsum(long_piece, 0) - 1, -1)
+    long_slot_ptr = torch.zeros(int(is_long.sum()) + 1, dtype=torch.int64, device=device)
+    long_slot_ptr[1:] = torch.cumsum(pieces[is_long], 0)
+    return dict(
+        piece_ptr=piece_ptr,
+        piece_row=piece_row.to(torch.int32),
+        piece_slot=piece_slot.to(torch.int32),
+        piece_order=order.to(torch.int32),
+        long_rows=torch.nonzero(is_long).flatten().to(torch.int32),
+        long_slot_ptr=long_slot_ptr,
     )
 
 

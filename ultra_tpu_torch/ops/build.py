@@ -4,8 +4,9 @@ them with ``ctypes``.
 A kernel ``name`` is the source ``csrc/<name>.cu``, compiled on its own into
 a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), at first use, into ``build/ultra_tpu_torch/`` of the
-checkout. The file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.
+checkout. The file name carries a hash of the source, the headers of
+``csrc`` (``*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 :func:`build_all` builds several sources at once, one ``nvcc`` each.
 """
 
@@ -49,6 +50,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD / f"lib{name}-{digest}.so"
 

@@ -7,7 +7,11 @@ launch counters, and their plain PyTorch versions.
   (all compute the same function). Two wrappers launch it:
   :func:`rspmm_sum_fwd` (the forward) and :func:`rspmm_sum_dx` (the input
   gradient: the same function on the source-major CSR, as
-  ``rspmm_pallas.py:1341-1374`` does), each with its own count.
+  ``rspmm_pallas.py:1341-1374`` does), each with its own count. It walks the
+  CSR's piece table (``graph.py``): a group of threads per piece of at most
+  ``ROW_PIECE`` edges, so a hub row no longer sets the launch's length, and
+  a second pass that adds a long row's partial rows in order, into scratch
+  the wrapper allocates; both passes are one launch in the count.
 - B2, ``csrc/rspmm_sum_drel.cu``: the relation gradient over the type
   segments (:func:`rspmm_sum_drel`). It replaces
   ``rspmm_pallas.py::_rel_grad_kernel``, ``rspmm_pallas_v2.py::_drel_kernel``
@@ -42,15 +46,16 @@ _KERNELS = {}  # name -> the bound C entry point, set at first launch
 # the C signatures of every kernel in csrc/ (the min/max ones are launched
 # from ops/rspmm_minmax_cuda.py, the gathers from ops/gather_cuda.py)
 _ARGTYPES = {
-    "rspmm_sum_fwd": [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    "rspmm_sum_fwd": [ctypes.c_void_p] * 14 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ],
     "rspmm_sum_drel": [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ],
-    "rspmm_minmax_fwd": [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    "rspmm_minmax_fwd": [ctypes.c_void_p] * 14 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ],
     "rspmm_minmax_dx": [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -133,25 +138,31 @@ def _check_device_tensors(op: str, device, rows, ptrs, ints, floats):
             raise TypeError(f"{op}: {name} must be 1-D int32 of length {n}")
 
 
-def _launch_fwd(op: str, csr: CSR, edge_weight, relation, x, mul):
-    """B1 on the card; (rows of ``csr``, F) f32 out."""
-    kernel = _kernel("rspmm_sum_fwd")
-    _check_device_tensors(
-        op, x.device, rows={"relation": relation, "x": x}, ptrs={"rowptr": csr.rowptr},
-        ints={"col": csr.col, "etype": csr.etype, "eid": csr.eid},
-        floats={"edge_weight": edge_weight},
-    )
+def _launch_pieces(name: str, op: str, csr: CSR, edge_weight, relation, x, *codes):
+    """B1 (``name`` "rspmm_sum_fwd") or B3 ("rspmm_minmax_fwd") on the card
+    over ``csr``'s piece table; (rows of ``csr``, F) f32 out. ``codes`` are
+    the kernel's int arguments after F (mul_op, and is_min for B3)."""
+    kernel = _kernel(name)
     num_rows, num_feat = csr.rowptr.numel() - 1, x.shape[1]
+    num_pieces, num_long = csr.piece_row.numel(), csr.long_rows.numel()
     out = torch.empty(num_rows, num_feat, dtype=torch.float32, device=x.device)
+    rows = {"relation": relation, "x": x, "out": out}
+    if num_long:  # scratch for the long rows' partials; none where every row is one piece
+        rows["partial"] = torch.empty(csr.num_slots, num_feat, dtype=torch.float32,
+                                      device=x.device)
+    # the CSR checked its own fields' types, lengths and device when it was
+    # made (graph.CSR): its col stands for all of them
+    _check_device_tensors(op, x.device, rows=rows, ptrs={}, ints={"col": csr.col},
+                          floats={"edge_weight": edge_weight})
     if num_rows == 0 or num_feat == 0:
         return out
+    operands = (csr.piece_ptr, csr.piece_row, csr.piece_slot, csr.piece_order, csr.long_rows,
+                csr.long_slot_ptr, csr.col, csr.etype, csr.eid, edge_weight, relation, x)
+    partial = rows["partial"].data_ptr() if num_long else 0
     with torch.cuda.device(x.device):
-        status = kernel(
-            csr.rowptr.data_ptr(), csr.col.data_ptr(), csr.etype.data_ptr(),
-            csr.eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
-            x.data_ptr(), out.data_ptr(), num_rows, num_feat, _MUL_CODE[mul],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        status = kernel(*(t.data_ptr() for t in operands), partial, out.data_ptr(),
+                        num_pieces, num_long, num_feat,
+                        *codes, torch.cuda.current_stream(x.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"{op} launch failed with CUDA error {status}")
     return out
@@ -192,7 +203,8 @@ def rspmm_sum_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul"):
     _check_dtypes(edge_weight, relation, x, mul)
     if x.device.type == "cpu":
         return rspmm_sum_fwd_plain(csr, edge_weight, relation, x, mul)
-    out = _launch_fwd("rspmm_sum_fwd", csr, edge_weight, relation, x, mul)
+    out = _launch_pieces("rspmm_sum_fwd", "rspmm_sum_fwd", csr, edge_weight, relation, x,
+                         _MUL_CODE[mul])
     rspmm_sum_fwd.launches[tuple(out.shape)] += 1
     return out
 
@@ -220,8 +232,8 @@ def rspmm_sum_dx(csr_src: CSR, edge_weight, relation, g, mul: str = "mul"):
     _check_dtypes(edge_weight, relation, g, mul, op="rspmm_sum_dx")
     if g.device.type == "cpu":
         return rspmm_sum_dx_plain(csr_src, edge_weight, relation, g, mul)
-    out = _launch_fwd("rspmm_sum_dx", csr_src, edge_weight, _rel_or_ones(relation, mul),
-                      g, "mul")
+    out = _launch_pieces("rspmm_sum_fwd", "rspmm_sum_dx", csr_src, edge_weight,
+                         _rel_or_ones(relation, mul), g, _MUL_CODE["mul"])
     rspmm_sum_dx.launches[tuple(out.shape)] += 1
     return out
 

@@ -4,7 +4,10 @@ and launch counters, and their plain PyTorch versions.
 - B3, ``csrc/rspmm_minmax_fwd.cu``: the forward over a destination-major
   CSR (:func:`rspmm_minmax_fwd`). It replaces
   ``ultra_tpu/ops/rspmm_pallas.py::_minmax_kernel`` and
-  ``rspmm_pallas_v2.py::_minmax_kernel_v2``.
+  ``rspmm_pallas_v2.py::_minmax_kernel_v2``. It walks the CSR's piece table
+  as B1 does (``ops/rspmm_cuda.py``), and takes the extreme of a long row's
+  partial rows in a second pass: exact, so the output does not depend on
+  how the rows were cut.
 - B4, ``csrc/rspmm_minmax_dx.cu``: the input gradient over the source-major
   CSR (:func:`rspmm_minmax_dx`). It replaces
   ``rspmm_pallas.py::_minmax_dx_kernel`` and
@@ -36,6 +39,7 @@ import torch
 from ultra_tpu_torch.graph import CSR, TypeSegments
 from ultra_tpu_torch.ops.rspmm_cuda import (
     _MUL_CODE, _check_device_tensors, _check_dtypes, _check_f32, _csr_rows, _kernel,
+    _launch_pieces,
 )
 
 
@@ -78,26 +82,8 @@ def rspmm_minmax_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul",
     _check_dtypes(edge_weight, relation, x, mul, op="rspmm_minmax_fwd")
     if x.device.type == "cpu":
         return rspmm_minmax_fwd_plain(csr, edge_weight, relation, x, mul, is_min)
-    kernel = _kernel("rspmm_minmax_fwd")
-    _check_device_tensors(
-        "rspmm_minmax_fwd", x.device, rows={"relation": relation, "x": x},
-        ptrs={"rowptr": csr.rowptr},
-        ints={"col": csr.col, "etype": csr.etype, "eid": csr.eid},
-        floats={"edge_weight": edge_weight},
-    )
-    num_rows, num_feat = csr.rowptr.numel() - 1, x.shape[1]
-    out = torch.empty(num_rows, num_feat, dtype=torch.float32, device=x.device)
-    if num_rows == 0 or num_feat == 0:
-        return out
-    with torch.cuda.device(x.device):
-        status = kernel(
-            csr.rowptr.data_ptr(), csr.col.data_ptr(), csr.etype.data_ptr(),
-            csr.eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
-            x.data_ptr(), out.data_ptr(), num_rows, num_feat, _MUL_CODE[mul],
-            int(bool(is_min)), torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"rspmm_minmax_fwd launch failed with CUDA error {status}")
+    out = _launch_pieces("rspmm_minmax_fwd", "rspmm_minmax_fwd", csr, edge_weight, relation,
+                         x, _MUL_CODE[mul], int(bool(is_min)))
     rspmm_minmax_fwd.launches[tuple(out.shape)] += 1
     return out
 

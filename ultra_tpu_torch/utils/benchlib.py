@@ -41,6 +41,20 @@ def fb15k237_split(kind: str = "realistic", seed: int = 0) -> KGSplit:
                    np.ascontiguousarray(trip[:, :2].T), trip[:, 2].copy())
 
 
+def uniform_destination_graph(split: KGSplit, device="cuda", seed: int = 1):
+    """A graph with ``split``'s sources, types and edge count and with
+    destinations drawn uniformly (numpy, ``seed``): its rows are all short
+    (the longest about 65 edges on FB15k-237's shape, against 3,031), so an
+    rspmm walk's time on it is what the walk costs without hub rows."""
+    from ultra_tpu_torch.graph import make_graph
+
+    edge_index = split.edge_index.copy()
+    edge_index[0] = np.random.default_rng(seed).integers(0, split.num_nodes,
+                                                         edge_index.shape[1])
+    return make_graph(edge_index, split.edge_type, split.num_nodes, split.num_relations,
+                      device=device)
+
+
 def pna_config() -> UltraConfig:
     """The PNA configuration at ``ultra_3g`` widths
     (``scripts/exp_pna_train.py:81-88``): a 6x64 sum RelNBFNet and a 6x64
