@@ -22,11 +22,13 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    the edge-weight gradient B6 on the entity graph at F=64 (attribution)
    and F=512, for the sum and for min and max, on those inputs; and B1
    (forward on both graphs, input gradient) and B6 at F=64 on the repo's
-   rule-KG, which ``[visualize]`` explains a prediction on. B1 and B3 walk
-   their CSR's piece table (``graph.ROW_PIECE``): they are also timed on a
-   graph with uniformly drawn destinations (``uniform_ms``), held against
-   their plain versions on a graph whose rows sit on each side of a piece's
-   length, and two B1 launches must give the same bits;
+   rule-KG, which ``[visualize]`` explains a prediction on. B1, B3 and B4
+   walk their CSR's piece table (``graph.ROW_PIECE``) and B2 the type
+   segments' (``graph.segment_piece``): B1, B3 and B4 are also timed on a
+   graph with uniformly drawn destinations (``uniform_ms``), all four are
+   held against their plain versions on layouts whose rows sit on each side
+   of a piece's length, and two launches each of B1, B2 and B4 must give
+   the same bits;
 5. serves zero-shot link prediction at the full ``ultra_3g`` width (6x64
    RelNBFNet + 6x64 EntityNBFNet, distmult, sum) with random weights from a
    seed, on the FB15k-237-shaped synthetic graph, through
@@ -213,12 +215,13 @@ def dw_bound_ms(csr, edge_weight, relation, x, g, out=None):
 
 def drel_bound_ms(seg, edge_weight, x, g, mul="mul"):
     """Least time for one sum relation gradient on these inputs: x (mul
-    only), g and the segments (src, dst, eid and the weight of each edge,
-    the chunk tables) read once, d_rel written once, and 3 (mul) or 2 (add)
-    f32 operations per feature of each edge whose weight is not 0."""
+    only), g and the segments (src, dst, eid and the weight of each edge)
+    read once, d_rel written once, and 3 (mul) or 2 (add) f32 operations per
+    feature of each edge whose weight is not 0; the piece table is not
+    counted, as for B1."""
     feat, num_edges = g.shape[1], seg.src.numel()
     nbytes = 4 * ((x.numel() if mul == "mul" else 0) + g.numel() + seg.num_types * feat)
-    nbytes += 16 * num_edges + 8 * (seg.chunkptr.numel() + seg.type_chunkptr.numel())
+    nbytes += 16 * num_edges
     return bound_ms(nbytes, (3 if mul == "mul" else 2) * live_edges(edge_weight, seg.eid) * feat)
 
 
@@ -320,6 +323,26 @@ def minmax_weights(g_, gen):
     return w.cuda(), row
 
 
+def minmax_grad_error(got, terms_fn, layout, w, rel, x, g, out, mul, rows):
+    """A min/max gradient kernel's output ``got`` (B4 or B5) against its
+    plain version, which routes in f32 as the forward did and adds in f64
+    (``terms_fn``: ``rspmm_minmax_dx_terms`` or ``rspmm_minmax_drel_terms``),
+    within KERNEL_REL_TO_ABS_SUM of the sum of the absolute terms plus
+    KERNEL_ATOL: (max |err|, worst |err| over its tolerance, ok, routed
+    terms)."""
+    index, terms = terms_fn(layout, w, rel, x, g.double(), out, mul)
+    routed = int((terms != 0).sum())
+    want = torch.zeros(rows, g.shape[1], dtype=torch.float64, device=g.device)
+    abs_sum = torch.zeros_like(want).index_add_(0, index, terms.abs())
+    want.index_add_(0, index, terms)
+    del index, terms
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs()
+    within = float((err / (KERNEL_REL_TO_ABS_SUM * abs_sum + KERNEL_ATOL)).max())
+    ok = bool(torch.isfinite(got).all()) and got.shape == want.shape and within <= 1
+    return float(err.max()), within, ok, routed
+
+
 def hold_minmax(tag, g_, feat, gen, replaces):
     """B3, B4 and B5 against their plain versions on ``g_`` at ``feat``, on
     tie-heavy inputs (relation and x from {-3..3}, a quarter of x's rows 0)
@@ -361,20 +384,12 @@ def hold_minmax(tag, g_, feat, gen, replaces):
                       f"inf_rows={int((~finite).all(1).sum())}", flush=True)
                 for grad, kernel, terms_fn, layout, rows in grads:
                     got = kernel(layout, w, rel, x, g, out, mul)
-                    index, terms = terms_fn(layout, w, rel, x, g.double(), out, mul)
-                    routed = int((terms != 0).sum())
-                    want = torch.zeros(rows, feat, dtype=torch.float64, device="cuda")
-                    abs_sum = torch.zeros_like(want).index_add_(0, index, terms.abs())
-                    want.index_add_(0, index, terms)
-                    del index, terms
-                    torch.cuda.synchronize()
-                    err = (got.double() - want).abs()
-                    within = float((err / (KERNEL_REL_TO_ABS_SUM * abs_sum + KERNEL_ATOL)).max())
-                    case_ok = bool(torch.isfinite(got).all()) and within <= 1
+                    err, within, case_ok, routed = minmax_grad_error(
+                        got, terms_fn, layout, w, rel, x, g, out, mul, rows)
                     ok &= case_ok
-                    errs[grad] = max(errs[grad], float(err.max()))
+                    errs[grad] = max(errs[grad], err)
                     print(f"[kernel] rspmm_minmax_{grad} {case}: ok={case_ok} "
-                          f"max_abs_err={float(err.max())!r} worst_err_over_tolerance="
+                          f"max_abs_err={err!r} worst_err_over_tolerance="
                           f"{within!r} routed_terms={routed}", flush=True)
     rel, x = inputs["normal"]
     out = k.rspmm_minmax_fwd(g_.csr, w, rel, x, "mul", False)
@@ -487,49 +502,68 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
 
 
 def piece_checks(graph, uniform, rows, feat, dim, gen):
-    """B1 and B3 beside their graph's piece table (``graph.ROW_PIECE``), at
-    ``feat`` (a batch's width) and ``dim`` (attribution's):
+    """B1, B2, B3 and B4 beside their layouts' piece tables
+    (``graph.ROW_PIECE``, ``graph.segment_piece``), at ``feat`` (a batch's
+    width) and ``dim`` (attribution's):
 
     - the kernels-line rows of the entity graph's B1 forward at both
-      widths, its d_x and B3 at ``feat`` get ``uniform_ms``, the same launch
-      on ``uniform`` (the graph's sources, types and edge count, uniformly
-      drawn destinations) walking its destination-major CSR, whose rows are
-      all short (for d_x too: it stands for the CSR by source of uniformly
-      drawn sources), and ``max_in_degree`` (and ``uniform_max_in_degree``),
-      the longest row the launch walks on each graph;
-    - B1 (mul and add, forward and d_x, both widths) and B3 (min and max,
-      mul and add, tie-heavy and normal inputs, ``feat``) against their
+      widths, its d_x, B3 and B4 at ``feat`` get ``uniform_ms``, the same
+      launch on ``uniform`` (the graph's sources, types and edge count,
+      uniformly drawn destinations) walking its destination-major CSR, whose
+      rows are all short (for d_x and B4 it stands for the CSR by source of
+      uniformly drawn sources; B4 routes against the forward of that
+      transposed graph), and ``max_in_degree`` (and
+      ``uniform_max_in_degree``), the longest row the launch walks on each
+      graph; the B2 rows get ``piece_len``, the segments' piece length;
+    - B1 (mul and add, forward and d_x, both widths), B3 and B4 (min and
+      max, mul and add, tie-heavy and normal inputs, ``feat``) against their
       plain versions on a graph whose rows have 0, 1, ROW_PIECE - 1,
       ROW_PIECE, ROW_PIECE + 1, 2 ROW_PIECE, 3,031 and 2 ROW_PIECE edges,
       the last row's all masked at run time; its sources are a permutation
-      of its destinations, so the CSR by source has the same rows. B1 within
-      its tolerance, B3 equal, the masked row -inf/+inf;
-    - two B1 launches on ``graph`` at each width give the same bits.
+      of its destinations, so the CSR by source has the same rows. B1 and B4
+      within their tolerances, B3 equal, the masked row -inf/+inf;
+    - B2 (mul and add, ``feat``) against its plain version on segments whose
+      types have 0, 1, L - 1, L, L + 1 and 3,031 edges, for each piece
+      length L of the two graphs' segments;
+    - two launches each of B1 (both widths), B4 and B2 on ``graph`` (B2 on
+      its relation graph too) give the same bits.
     Returns ok."""
     from ultra_tpu_torch import graph as graph_module
-    from ultra_tpu_torch.graph import make_graph
+    from ultra_tpu_torch.graph import build_segments, make_graph
     from ultra_tpu_torch.ops import rspmm_cuda as k
-    from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd, rspmm_minmax_fwd_plain
+    from ultra_tpu_torch.ops import rspmm_minmax_cuda as mk
     from ultra_tpu_torch.utils.benchlib import device_ms
 
     rand = lambda *shape: torch.randn(*shape, generator=gen).cuda()
     longest = lambda csr: int(csr.rowptr.diff().max())
     w_u = uniform.edge_weight * (torch.rand(uniform.edge_weight.shape, generator=gen) >= 0.1).cuda()
     n, r = graph.num_nodes, graph.num_relations
-    for name, fn, walked in (
-        (f"rspmm_sum_fwd/entity/F{feat}", k.rspmm_sum_fwd, graph.csr),
-        (f"rspmm_sum_fwd/entity/F{dim}", k.rspmm_sum_fwd, graph.csr),
-        (f"rspmm_sum_dx/entity/F{feat}", k.rspmm_sum_dx, graph.csr_src),
-        (f"rspmm_minmax_fwd/entity/F{feat}", rspmm_minmax_fwd, graph.csr),
+    g_u = rand(n, feat)
+
+    def minmax_dx_uniform(csr, w, rel, x, mul):
+        out = mk.rspmm_minmax_fwd(uniform.csr_src, w, rel, x, mul)
+        return lambda: mk.rspmm_minmax_dx(csr, w, rel, x, g_u, out, mul)
+
+    launch = lambda fn: lambda csr, w, rel, x, mul: lambda: fn(csr, w, rel, x, mul)
+    for name, timed, walked in (
+        (f"rspmm_sum_fwd/entity/F{feat}", launch(k.rspmm_sum_fwd), graph.csr),
+        (f"rspmm_sum_fwd/entity/F{dim}", launch(k.rspmm_sum_fwd), graph.csr),
+        (f"rspmm_sum_dx/entity/F{feat}", launch(k.rspmm_sum_dx), graph.csr_src),
+        (f"rspmm_minmax_fwd/entity/F{feat}", launch(mk.rspmm_minmax_fwd), graph.csr),
+        (f"rspmm_minmax_dx/entity/F{feat}", minmax_dx_uniform, graph.csr_src),
     ):
         f = rows[name]["out_shape"][1]
         rel, x = rand(r, f), rand(n, f)
-        rows[name].update(uniform_ms=device_ms(lambda: fn(uniform.csr, w_u, rel, x, "mul")),
+        rows[name].update(uniform_ms=device_ms(timed(uniform.csr, w_u, rel, x, "mul")),
                           max_in_degree=longest(walked),
                           uniform_max_in_degree=longest(uniform.csr))
         print(f"[kernel] {name}: ms={rows[name]['ms']!r} uniform_ms="
               f"{rows[name]['uniform_ms']!r} max_in_degree {longest(walked)} against "
               f"{longest(uniform.csr)}", flush=True)
+    for name, row in rows.items():
+        if name.startswith("rspmm_sum_drel"):
+            on = graph if "/entity/" in name else graph.relation_graph
+            row["piece_len"] = on.segments.piece_len
 
     piece = graph_module.ROW_PIECE
     degrees = [0, 1, piece - 1, piece, piece + 1, 2 * piece, 3031, 2 * piece]
@@ -559,6 +593,7 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
                       f"max_abs_err={err!r} worst_err_over_tolerance={within!r}", flush=True)
     ties_x = torch.randint(-3, 4, (len(degrees), feat), generator=gen).float()
     ties_x[torch.rand(len(degrees), generator=gen) < 0.25] = 0.0
+    g_b = rand(len(degrees), feat)
     for kind, (rel, x) in {
         "ties": (torch.randint(-3, 4, (num_types, feat), generator=gen).float().cuda(),
                  ties_x.cuda()),
@@ -566,14 +601,40 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
     }.items():
         for mul in ("mul", "add"):
             for is_min in (False, True):
-                got = rspmm_minmax_fwd(g_.csr, w, rel, x, mul, is_min)
-                want = rspmm_minmax_fwd_plain(g_.csr, w, rel, x, mul, is_min)
+                case = f"{kind} mul={mul} {'min' if is_min else 'max'}"
+                got = mk.rspmm_minmax_fwd(g_.csr, w, rel, x, mul, is_min)
+                want = mk.rspmm_minmax_fwd_plain(g_.csr, w, rel, x, mul, is_min)
                 differ = int((got != want).sum())
                 case_ok = differ == 0 and bool(torch.isinf(got[masked_row]).all())
                 ok &= case_ok
-                print(f"[kernel] rspmm_minmax_fwd piece boundaries {kind} mul={mul} "
-                      f"{'min' if is_min else 'max'}: ok={case_ok} differing={differ}",
-                      flush=True)
+                print(f"[kernel] rspmm_minmax_fwd piece boundaries {case}: ok={case_ok} "
+                      f"differing={differ}", flush=True)
+                d_x = mk.rspmm_minmax_dx(g_.csr_src, w, rel, x, g_b, got, mul)
+                err, within, case_ok, routed = minmax_grad_error(
+                    d_x, mk.rspmm_minmax_dx_terms, g_.csr_src, w, rel, x, g_b, got, mul,
+                    len(degrees))
+                ok &= case_ok
+                print(f"[kernel] rspmm_minmax_dx piece boundaries {case}: ok={case_ok} "
+                      f"max_abs_err={err!r} worst_err_over_tolerance={within!r} "
+                      f"routed_terms={routed}", flush=True)
+
+    for length in sorted({graph.segments.piece_len, graph.relation_graph.segments.piece_len}):
+        counts = [0, 1, length - 1, length, length + 1, 3031]
+        etype = np.repeat(np.arange(len(counts)), counts)
+        nodes = 64
+        edges = rng.integers(0, nodes, (2, etype.size))
+        seg_graph = make_graph(edges, etype, nodes, len(counts), device="cuda")
+        seg = build_segments(seg_graph.csr, len(counts), piece_len=length)
+        w_s = (seg_graph.edge_weight.cpu() * (torch.rand(etype.size, generator=gen) >= 0.1)).cuda()
+        x, g = rand(nodes, feat), rand(nodes, feat)
+        for mul in ("mul", "add"):
+            err, _, within, case_ok = sum_kernel_error(
+                k.rspmm_sum_drel(seg, w_s, x, g, mul), k.rspmm_sum_drel_plain, seg, w_s, x, g,
+                mul)
+            ok &= case_ok
+            print(f"[kernel] rspmm_sum_drel piece boundaries L={length} mul={mul}: "
+                  f"ok={case_ok} max_abs_err={err!r} worst_err_over_tolerance={within!r} "
+                  f"long_types={seg.long_rows.numel()} slots={seg.num_slots}", flush=True)
 
     for f in (feat, dim):
         rel, x = rand(r, f), rand(n, f)
@@ -583,6 +644,20 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
         ok &= same
         print(f"[kernel] rspmm_sum_fwd/entity/F{f} two launches bitwise equal: {same}",
               flush=True)
+    rel, x, g = rand(r, feat), rand(n, feat), rand(n, feat)
+    w_g = graph.edge_weight
+    out = mk.rspmm_minmax_fwd(graph.csr, w_g, rel, x)
+    twice = {f"rspmm_minmax_dx/entity/F{feat}":
+             lambda: mk.rspmm_minmax_dx(graph.csr_src, w_g, rel, x, g, out)}
+    for tag, on in (("entity", graph), ("relation", graph.relation_graph)):
+        x_r, g_r = rand(on.num_nodes, feat), rand(on.num_nodes, feat)
+        twice[f"rspmm_sum_drel/{tag}/F{feat}"] = (
+            lambda on=on, x_r=x_r, g_r=g_r: k.rspmm_sum_drel(on.segments, on.edge_weight, x_r,
+                                                             g_r))
+    for name, fn in twice.items():
+        same = torch.equal(fn(), fn())
+        ok &= same
+        print(f"[kernel] {name} two launches bitwise equal: {same}", flush=True)
     return ok
 
 
@@ -1565,8 +1640,8 @@ def main() -> int:
     logs = build.build_all(KERNELS)
     for name in KERNELS:
         build.load(name)
-        usage = [l.strip() for l in logs.get(name, "").splitlines() if "registers" in l]
-        print(f"[build] {name}: {'; '.join(usage)}", flush=True)
+        for usage in build.ptxas_usage(logs.get(name, "")):
+            print(f"[build] {name}: {usage}", flush=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1584,7 +1659,10 @@ def main() -> int:
           f"ROW_PIECE {ROW_PIECE}: {graph.csr.piece_row.numel()} pieces, "
           f"{graph.csr.long_rows.numel()} long rows ({graph.csr_src.piece_row.numel()} and "
           f"{graph.csr_src.long_rows.numel()} by source; relation graph "
-          f"{rel_graph.csr.piece_row.numel()} and {rel_graph.csr.long_rows.numel()}) "
+          f"{rel_graph.csr.piece_row.numel()} and {rel_graph.csr.long_rows.numel()}); "
+          f"type segments in {graph.segments.piece_row.numel()} pieces of "
+          f"{graph.segments.piece_len} edges (relation graph "
+          f"{rel_graph.segments.piece_row.numel()} of {rel_graph.segments.piece_len}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     (ROOT / "build" / "chip_smoke").mkdir(parents=True, exist_ok=True)
     if {"kernels", "visualize"} & set(phases):

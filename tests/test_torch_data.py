@@ -186,6 +186,20 @@ def test_model_config_and_checkpoint_load_as_jax(tmp_path):
             ckpt.load_model_checkpoint(str(bad))
 
 
+@pytest.mark.parametrize("flag", [None, False, True])
+def test_model_config_carries_remove_one_hop_as_jax(flag):
+    """``entity_model.remove_one_hop`` reaches the port's configuration as it
+    reaches the JAX package's: absent is False, and the relation model
+    keeps its own value."""
+    entity = {"input_dim": 8, "hidden_dims": [8]}
+    if flag is not None:
+        entity["remove_one_hop"] = flag
+    model_cfg = {"relation_model": {"input_dim": 8, "hidden_dims": [8]}, "entity_model": entity}
+    got, want = runner.model_config_from_dict(model_cfg), jrunner.model_config_from_dict(model_cfg)
+    assert got.entity_model.remove_one_hop is want.entity_model.remove_one_hop is bool(flag)
+    assert got.relation_model.remove_one_hop is want.relation_model.remove_one_hop is False
+
+
 def test_prepare_graph_pads_as_jax():
     split = kg.build_dataset("SyntheticRuleKG", os.path.join(REPO, "kg-datasets"),
                              num_nodes=1500, num_base_rel=40, num_comp_rel=20,

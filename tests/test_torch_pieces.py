@@ -1,13 +1,16 @@
-"""The CSR's piece table (``ultra_tpu_torch/graph.py``), which B1 and B3
-walk on the card, on a power-law graph with weight-0 edges, a runtime mask
-that empties one long row, and rows with no edges, with ``ROW_PIECE`` cut
-to 4 so that many rows split. The kernels cannot run here, so a plain-torch
-emulation of their two passes over the table (a partial per piece, written
-to the row or to its slot; then each long row's partials combined in slot
-order) is held against the wrappers' plain versions and against the JAX
-package's XLA backend.
+"""The piece tables of ``ultra_tpu_torch/graph.py``, which B1, B3 and B4
+walk on the card over a CSR and B2 over the type segments, on a power-law
+graph with weight-0 edges, runtime masks that empty long rows, and rows
+(and types) with no edges, with ``ROW_PIECE`` cut to 4 and the segments'
+piece length to 8 so that many rows split. The kernels cannot run here, so
+a plain-torch emulation of their two passes over the table (a partial per
+piece, written to the row or to its slot; then each long row's partials
+combined in slot order, or, for B2, by several groups in a fixed order) is
+held against the wrappers' plain versions and against the JAX package's
+XLA backend (its values, and its gradients through ``jax.vjp``). The rule
+that chooses the segments' piece length is held on FB15k-237's shape.
 
-Tolerance: the sum's emulation in f64 against the plain version in f64
+Tolerance: sums' emulations in f64 against the plain versions in f64
 within rtol 1e-12 (only the order of the additions differs); in f32 against
 XLA, rtol 1e-5 and atol 1e-5 as in ``test_torch_rspmm.py``. Min/max
 exactly: a min or a max is exact whatever the order.
@@ -15,6 +18,7 @@ exactly: a min or a max is exact whatever the order.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +28,12 @@ from ultra_tpu.ops.rspmm import generalized_rspmm as jax_generalized_rspmm
 from ultra_tpu_torch import graph as graph_module
 from ultra_tpu_torch.graph import make_graph
 from ultra_tpu_torch.ops import rspmm_cuda, rspmm_minmax_cuda
-from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd_plain
-from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd_plain
+from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_drel_plain, rspmm_sum_fwd_plain
+from ultra_tpu_torch.ops.rspmm_minmax_cuda import (
+    rspmm_minmax_dx_plain, rspmm_minmax_fwd_plain,
+)
+from ultra_tpu_torch.tasks import build_relation_graph_arrays
+from ultra_tpu_torch.utils.benchlib import fb15k237_split
 
 PIECE = 4
 V, R, E_BASE, F = 60, 6, 400, 8
@@ -71,33 +79,53 @@ def layout(graph, name):
     return graph.csr if name == "csr" else graph.csr_src
 
 
+def two_passes(table, num_rows, like, fill, fold, merge, split=1):
+    """The kernels' two passes over a piece table (a CSR's or the type
+    segments') in plain torch, in ``like``'s type: pass 1 folds each piece's
+    edges (``fold(lo, hi, row)``, a row) into its row of the output (a
+    one-piece row) or its slot of the partial rows; pass 2 combines each long
+    row's slots as ``long_row_kernel`` does: ``split`` groups each merge every
+    split-th slot from their own first on, in order (``merge(a, b)``), and the
+    first merges the others' results in group order."""
+    out = torch.full((num_rows, like.shape[1]), fill, dtype=like.dtype)
+    partial = torch.full((table.num_slots, like.shape[1]), float("nan"), dtype=like.dtype)
+    for p in table.piece_order.tolist():  # the kernels' order; the result does not depend on it
+        lo, hi = int(table.piece_ptr[p]), int(table.piece_ptr[p + 1])
+        row, slot = int(table.piece_row[p]), int(table.piece_slot[p])
+        (out[row] if slot < 0 else partial[slot]).copy_(fold(lo, hi, row))
+    for i in range(table.long_rows.numel()):
+        first, end = int(table.long_slot_ptr[i]), int(table.long_slot_ptr[i + 1])
+        sums = []
+        for part in range(split):
+            acc = partial[first + part].clone() if first + part < end else torch.full_like(
+                out[0], fill)
+            for s in range(first + part + split, end, split):
+                acc = merge(acc, partial[s])
+            sums.append(acc)
+        acc = sums[0]
+        for other in sums[1:]:
+            acc = merge(acc, other)
+        out[int(table.long_rows[i])] = acc
+    assert not partial.isnan().any()  # every slot was written
+    return out
+
+
 def emulate(csr, weight, rel, x, mul, agg):
-    """The kernels' two passes over ``csr``'s piece table in plain torch,
-    in the operands' type: pass 1 reduces each piece's edges into its row
-    of the output (a one-piece row) or its slot of the partial rows; pass 2
-    combines each long row's slots in order."""
+    """B1 and B3 (the forward) over ``csr``'s piece table: :func:`two_passes`
+    with each piece's messages summed, or reduced to their extreme."""
     fill = {"sum": 0.0, "max": float("-inf"), "min": float("inf")}[agg]
-    out = torch.full((csr.rowptr.numel() - 1, x.shape[1]), fill, dtype=x.dtype)
-    partial = torch.full((csr.num_slots, x.shape[1]), float("nan"), dtype=x.dtype)
-    for p in csr.piece_order.tolist():  # the kernels' order; the result does not depend on it
-        lo, hi = int(csr.piece_ptr[p]), int(csr.piece_ptr[p + 1])
+
+    def fold(lo, hi, row):
         r, s = rel[csr.etype[lo:hi].long()], x[csr.col[lo:hi].long()]
         w = weight[csr.eid[lo:hi].long()].unsqueeze(1)
         msg = (r * s if mul == "mul" else r + s) * w
         if agg == "sum":
-            acc = msg.sum(0)
-        else:
-            live = torch.cat([torch.full((1, x.shape[1]), fill, dtype=x.dtype),
-                              msg[w[:, 0] != 0]])
-            acc = live.amax(0) if agg == "max" else live.amin(0)
-        slot = int(csr.piece_slot[p])
-        (out[int(csr.piece_row[p])] if slot < 0 else partial[slot]).copy_(acc)
-    for i in range(csr.long_rows.numel()):
-        parts = partial[int(csr.long_slot_ptr[i]):int(csr.long_slot_ptr[i + 1])]
-        combined = {"sum": parts.sum, "max": parts.amax, "min": parts.amin}[agg](0)
-        out[int(csr.long_rows[i])] = combined
-    assert not partial.isnan().any()  # every slot was written
-    return out
+            return msg.sum(0)
+        live = torch.cat([torch.full((1, x.shape[1]), fill, dtype=x.dtype), msg[w[:, 0] != 0]])
+        return live.amax(0) if agg == "max" else live.amin(0)
+
+    merge = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[agg]
+    return two_passes(csr, csr.rowptr.numel() - 1, x, fill, fold, merge)
 
 
 @pytest.mark.parametrize("name", ["csr", "csr_src"])
@@ -212,3 +240,220 @@ def test_a_piece_table_of_the_wrong_length_is_refused(monkeypatch, small_pieces,
         csr = dataclasses.replace(csr, **{field: getattr(csr, field)[1:]})
         getattr(module, call)(csr, w, torch.empty(2 * R, F, device="meta"), x, "mul")
     assert not getattr(module, call).launches
+
+
+@pytest.mark.parametrize("field", ["piece_order", "long_slot_ptr", "dst"])
+def test_a_segment_table_of_the_wrong_length_is_refused(monkeypatch, small_segment_pieces,
+                                                       field):
+    """As a CSR's, the type segments' piece table and edge arrays are checked
+    when the segments are made, so B2's wrapper, which checks only ``src``
+    at each launch, never launches on a table of the wrong length."""
+    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    ei, et, ew, *_ = segment_inputs(seed=6)
+    seg = port_graph(ei, et, ew).segments.to("meta")
+    x = torch.empty(V, F, device="meta")
+    with pytest.raises(ValueError, match=field):
+        seg = dataclasses.replace(seg, **{field: getattr(seg, field)[1:]})
+        rspmm_cuda.rspmm_sum_drel(seg, torch.empty(len(ew), device="meta"), x, x, "mul")
+    assert not rspmm_cuda.rspmm_sum_drel.launches
+
+
+def emulate_minmax_dx(csr_src, weight, rel, x, g, out, mul):
+    """B4 over ``csr_src``'s piece table: :func:`two_passes` with each piece's
+    routed terms summed in ``g``'s type. An edge is routed where it is live
+    and its message, computed in the type of ``rel``, ``x`` and ``out`` (f32,
+    as the forward computed it), equals ``out`` of its destination; a
+    weight-0 or unrouted edge adds a selected 0, as the kernel folds it."""
+
+    def fold(lo, hi, u):
+        w = weight[csr_src.eid[lo:hi].long()].unsqueeze(1)
+        dst, r = csr_src.col[lo:hi].long(), rel[csr_src.etype[lo:hi].long()]
+        msg = (r * x[u] if mul == "mul" else r + x[u]) * w
+        route = (w != 0) & (msg == out[dst])
+        terms = w.to(g.dtype) * (r.to(g.dtype) if mul == "mul" else 1.0) * g[dst]
+        return torch.where(route, terms, torch.zeros((), dtype=g.dtype)).sum(0)
+
+    return two_passes(csr_src, csr_src.rowptr.numel() - 1, g, 0.0, fold, torch.add)
+
+
+def emulate_drel(seg, weight, x, g, mul, split):
+    """B2 over the segments' piece table: :func:`two_passes` with the type as
+    the row, each piece's ``w * x[src] * g[dst]`` (mul) or ``w * g[dst]``
+    (add) summed, and a long type's partials combined by ``split`` groups."""
+
+    def fold(lo, hi, _type):
+        terms = g[seg.dst[lo:hi].long()] * weight[seg.eid[lo:hi].long()].unsqueeze(1)
+        if mul == "mul":
+            terms = x[seg.src[lo:hi].long()] * terms
+        return terms.sum(0)
+
+    return two_passes(seg, seg.num_types, g, 0.0, fold, torch.add, split)
+
+
+def minmax_dx_inputs(seed):
+    """power_law_inputs with every edge out of the longest source row masked
+    at run time too, the forward's output on them, and g: (ei, et, ew, mask,
+    rel, x, g, out, that source)."""
+    ei, et, ew, mask, rel, x, _ = power_law_inputs(seed)
+    src_hub = np.bincount(ei[1, ew != 0], minlength=V).argmax()
+    mask[ei[1] == src_hub] = 0.0
+    g = np.random.default_rng(seed + 10).normal(size=(V, F)).astype(np.float32)
+    return ei, et, ew, mask, rel, x, g, src_hub
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("is_min", [False, True])
+def test_minmax_dx_two_passes_equal_the_plain_version(small_pieces, is_min, mul):
+    """B4's two passes over the source-major CSR in f64 against
+    ``rspmm_minmax_dx_plain`` in f64 (routing in f32 on both sides), on
+    tie-heavy inputs: every tying edge gets the whole gradient. The long
+    source row whose edges are all masked and the sources with no edge get
+    0."""
+    ei, et, ew, mask, rel, x, g, src_hub = minmax_dx_inputs(seed=4)
+    graph = port_graph(ei, et, ew)
+    w, rel_t, x_t = (torch.from_numpy(a) for a in (mask, rel, x))
+    out = rspmm_minmax_fwd_plain(graph.csr, w, rel_t, x_t, mul, is_min)
+    g64 = torch.from_numpy(g).double()
+    got = emulate_minmax_dx(graph.csr_src, w, rel_t, x_t, g64, out, mul)
+    want = rspmm_minmax_dx_plain(graph.csr_src, w, rel_t, x_t, g64, out, mul)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert src_hub in graph.csr_src.long_rows.tolist() and (got[src_hub] == 0).all()
+    assert (got[V - EMPTY:] == 0).all()
+    # the inputs tie: some output is the message of two or more live edges
+    csr = graph.csr
+    w_e = w[csr.eid.long()].unsqueeze(1)
+    r, s = rel_t[csr.etype.long()], x_t[csr.col.long()]
+    rows = rspmm_cuda._csr_rows(csr)
+    route = (w_e != 0) & (((r * s if mul == "mul" else r + s) * w_e) == out[rows])
+    assert (torch.zeros(V, F).index_add_(0, rows, route.float()) >= 2).any()
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("is_min", [False, True])
+def test_minmax_dx_two_passes_match_jax(small_pieces, is_min, mul):
+    """B4's emulation in f32 against the input gradient of the JAX package's
+    ``generalized_rspmm(backend="xla")`` (jax.vjp) on the same tie-heavy
+    edges and runtime weights."""
+    ei, et, ew, mask, rel, x, g, _ = minmax_dx_inputs(seed=5)
+    graph = port_graph(ei, et, ew)
+    w, rel_t, x_t = (torch.from_numpy(a) for a in (mask, rel, x))
+    agg = "min" if is_min else "max"
+    out = rspmm_minmax_fwd_plain(graph.csr, w, rel_t, x_t, mul, is_min)
+    got = emulate_minmax_dx(graph.csr_src, w, rel_t, x_t, torch.from_numpy(g), out, mul)
+    fn = lambda r, xx: jax_generalized_rspmm(
+        jnp.asarray(ei), jnp.asarray(et), jnp.asarray(mask), r, xx, sum=agg, mul=mul,
+        backend="xla")
+    _, vjp = jax.vjp(fn, jnp.asarray(rel[:, None]), jnp.asarray(x[:, None]))
+    want = np.asarray(vjp(jnp.asarray(g[:, None]))[1])[:, 0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+SEG_PIECE = 8
+
+
+@pytest.fixture
+def small_segment_pieces(monkeypatch):
+    monkeypatch.setattr(graph_module, "segment_piece", lambda counts: SEG_PIECE)
+
+
+def segment_inputs(seed):
+    """power_law_inputs' edges, weights and operands with types set so that
+    the segments hold a type of no edges (0), one of a single piece (1: 6
+    edges, fewer live), one of exactly SEG_PIECE + 1 edges (2) and types of
+    many pieces; x and g in f64 from a normal, so that the sums round."""
+    ei, et, ew, mask, *_ = power_law_inputs(seed)
+    ew[:SEG_PIECE + 7] = 1.0  # live at build time
+    rng = np.random.default_rng(seed)
+    et = rng.integers(3, 2 * R, ei.shape[1])
+    et[:6], et[6:SEG_PIECE + 7] = 1, 2
+    x, g = rng.normal(size=(V, F)), rng.normal(size=(V, F))
+    return ei, et, ew, mask, x, g
+
+
+def test_segment_pieces_cut_every_type(small_segment_pieces):
+    """The segments' piece table is a CSR's with the type as the row: the
+    pieces tile the type-sorted edges in order, at most SEG_PIECE each; an
+    empty type is one empty piece; a long type's pieces take consecutive
+    slots; the launch order is longest first."""
+    ei, et, ew, *_ = segment_inputs(seed=6)
+    seg = port_graph(ei, et, ew).segments
+    assert seg.piece_len == SEG_PIECE
+    counts = np.bincount(seg.etype.numpy(), minlength=2 * R)
+    piece_ptr, piece_row = seg.piece_ptr.numpy(), seg.piece_row.numpy()
+    sizes = np.diff(piece_ptr)
+    assert piece_ptr[0] == 0 and piece_ptr[-1] == seg.src.numel()
+    assert np.all((sizes >= 0) & (sizes <= SEG_PIECE))
+    assert np.array_equal(np.unique(piece_row), np.arange(2 * R))
+    type_ptr = np.concatenate([[0], np.cumsum(counts)])
+    assert np.all(type_ptr[piece_row] <= piece_ptr[:-1])
+    assert np.all(piece_ptr[1:] <= type_ptr[piece_row + 1])
+    pieces = np.bincount(piece_row, minlength=2 * R)
+    assert counts[0] == 0 and pieces[0] == 1 and sizes[piece_row == 0].tolist() == [0]
+    assert 0 < counts[1] <= 6 and pieces[1] == 1
+    assert counts[2] == SEG_PIECE + 1 and pieces[2] == 2
+    assert pieces[3:].min() > 1 and pieces.max() >= 5
+    assert np.array_equal(seg.long_rows.numpy(), np.nonzero(pieces > 1)[0])
+    slots = seg.piece_slot.numpy()
+    assert np.array_equal(np.sort(slots[slots >= 0]), np.arange(seg.num_slots))
+    for i, t in enumerate(seg.long_rows.tolist()):
+        assert slots[piece_row == t].tolist() == list(
+            range(seg.long_slot_ptr[i], seg.long_slot_ptr[i + 1]))
+    order = seg.piece_order.numpy()
+    assert np.array_equal(np.sort(order), np.arange(len(piece_row)))
+    assert np.all(np.diff(sizes[order]) <= 0)
+
+
+@pytest.mark.parametrize("split", [1, 2, 8])
+@pytest.mark.parametrize("mul", ["mul", "add"])
+def test_drel_two_passes_equal_the_plain_version(small_segment_pieces, mul, split):
+    """B2's two passes over the segments' piece table in f64 against
+    ``rspmm_sum_drel_plain`` in f64, within rtol 1e-12 (only the order of
+    the additions differs), with a long type's partials combined by 1, 2 or
+    8 groups. The type with no edges is 0."""
+    ei, et, ew, mask, x, g = segment_inputs(seed=7)
+    seg = port_graph(ei, et, ew).segments
+    w = torch.from_numpy(mask).double()
+    x_t, g_t = torch.from_numpy(x), torch.from_numpy(g)
+    got = emulate_drel(seg, w, x_t, g_t, mul, split)
+    want = rspmm_sum_drel_plain(seg, w, x_t, g_t, mul)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert (got[0] == 0).all() and (got[1:] != 0).all()
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+def test_drel_two_passes_match_jax(small_segment_pieces, mul):
+    """B2's emulation in f32 (8 groups a long type in pass 2) against the
+    relation gradient of the JAX package's ``generalized_rspmm(backend=
+    "xla")`` (jax.vjp) on the same edges and runtime weights."""
+    ei, et, ew, mask, x, g = segment_inputs(seed=8)
+    x, g = x.astype(np.float32), g.astype(np.float32)
+    rel = np.random.default_rng(9).normal(size=(2 * R, F)).astype(np.float32)
+    seg = port_graph(ei, et, ew).segments
+    got = emulate_drel(seg, torch.from_numpy(mask), torch.from_numpy(x), torch.from_numpy(g),
+                       mul, split=8)
+    fn = lambda r, xx: jax_generalized_rspmm(
+        jnp.asarray(ei), jnp.asarray(et), jnp.asarray(mask), r, xx, sum="add", mul=mul,
+        backend="xla")
+    _, vjp = jax.vjp(fn, jnp.asarray(rel[:, None]), jnp.asarray(x[:, None]))
+    want = np.asarray(vjp(jnp.asarray(g[:, None]))[0])[:, 0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_segment_piece_length_rule():
+    """The longest of 256, 128, 64 and 32 that still cuts the segments into
+    at least 4 pieces for each of an H100's 132 SMs: 256 for the entity
+    graph of FB15k-237's shape (544,230 edges, 474 types), 32 for its
+    relation graph (31,416 edges, 4 types), and 32 where even that gives too
+    few."""
+    split = fb15k237_split("realistic", seed=0)
+    entity = torch.bincount(torch.from_numpy(split.edge_type), minlength=474)
+    _, rel_type = build_relation_graph_arrays(split.edge_index, split.edge_type,
+                                              split.num_nodes, split.num_relations)
+    relation = torch.bincount(torch.from_numpy(rel_type), minlength=4)
+    assert (int(entity.sum()), int(relation.sum())) == (544230, 31416)
+    assert graph_module.segment_piece(entity) == 256
+    assert graph_module.segment_piece(relation) == 32
+    assert graph_module.segment_piece(torch.tensor([100, 0, 7])) == 32
+    # at the boundary: 528 pieces of 64 edges take 64, 527 take 32
+    assert graph_module.segment_piece(torch.full((4,), 132 * 64)) == 64
+    assert graph_module.segment_piece(torch.tensor([132 * 64] * 3 + [131 * 64])) == 32

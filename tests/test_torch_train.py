@@ -405,3 +405,80 @@ def test_train_and_validate_runs_checkpoints_and_resumes(tmp_path, monkeypatch):
                        str(tmp_path / "again"))
     again = torch.load(tmp_path / "again" / "model_epoch_1.pth", weights_only=True)
     assert again["step"] == 10
+
+
+def test_train_and_validate_masks_one_hop_edges_as_jax(tmp_path, monkeypatch):
+    """With ``entity_model.remove_one_hop`` set, the port's runner hands the
+    step the easy-edge masks the JAX runner builds on the same seed and
+    batches: every edge between a batch's head and tail is masked, not only
+    its (h, r, t) edges and inverses. Every training pair here also has an
+    edge of another relation, so the flag changes each mask."""
+    from ultra_tpu.data import kg as jkg
+    from ultra_tpu.train import runner as jrunner
+    from ultra_tpu_torch.train import runner
+
+    trip = random_kg_triples(30, 3, 60, seed=5)  # (h, t, r) rows
+    trip = np.concatenate([trip, np.concatenate([trip[:, :2], (trip[:, 2:] + 1) % 3], 1)])
+    ei, et = with_inverses(trip, 3)
+    split = KGSplit(ei, et, 30, 6, np.ascontiguousarray(trip[:, :2].T), trip[:, 2].copy())
+    dataset = KGDataset("tiny", split, split, split)
+    model_cfg = {"relation_model": {"input_dim": D, "hidden_dims": [D]},
+                 "entity_model": {"input_dim": D, "hidden_dims": [D], "remove_one_hop": True}}
+    cfg = {"model": model_cfg, "train": {"num_epoch": 1, "batch_size": 4, "batch_per_epoch": 3},
+           "task": {"num_negative": NEG}, "optimizer": {"lr": 5e-3}}
+    pcfg = runner.model_config_from_dict(model_cfg)
+    assert pcfg.entity_model.remove_one_hop
+
+    def recorder(module, masks):
+        real = module.easy_edge_weights
+
+        def record(index, batch, num_edges_padded, remove_one_hop=False):
+            masks.append((np.array(batch), remove_one_hop))
+            return real(index, batch, num_edges_padded, remove_one_hop=remove_one_hop)
+
+        monkeypatch.setattr(module, "easy_edge_weights", record)
+
+    got, want = [], []
+    recorder(tasks, got)
+    recorder(jtasks, want)
+    graph = split_to_graph(split, device="cpu")
+    filtered = {"valid": tasks.GraphIndex.build(ei, et, 30, 6)}
+    model = loop.init_ultra_params(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    train_and_validate(cfg, model, {"train": graph, "valid": graph}, dataset, filtered,
+                       str(tmp_path / "port"))
+
+    # the JAX runner, its step, validation and checkpoints stubbed: only the
+    # masks it builds are compared
+    class Tracker:
+        def __init__(self, workdir):
+            pass
+
+        def update(self, epoch, metric, state):
+            self.params = state.params
+
+        def load_best(self, like):
+            return self.params
+
+    monkeypatch.setattr(jrunner, "make_train_step",
+                        lambda *a, **k: lambda state, g, b, ew: (state, jnp.zeros(())))
+    monkeypatch.setattr(jrunner.eval_lib, "evaluate", lambda *a, **k: {"mrr": 0.0})
+    monkeypatch.setattr(jrunner.ckpt_lib, "BestModelTracker", Tracker)
+    jcfg = jrunner.model_config_from_dict(model_cfg)
+    jsplit = jkg.KGSplit(*split)
+    jgraph = jax_make_graph(ei, et, 30, 6, pad_to=graph.num_edges_padded)
+    jrunner.train_and_validate(
+        cfg, jcfg, jloop.init_ultra_params(jcfg, jax.random.key(0)),
+        {"train": jgraph, "valid": jgraph},
+        jkg.KGDataset("tiny", jsplit, jsplit, jsplit),
+        {"valid": jtasks.GraphIndex.build(ei, et, 30, 6)}, str(tmp_path / "jax"))
+
+    monkeypatch.undo()
+    assert len(got) == len(want) == 3
+    index, jindex = tasks.GraphIndex.build(ei, et, 30, 6), jtasks.GraphIndex.build(ei, et, 30, 6)
+    for (batch, flag), (jbatch, jflag) in zip(got, want):
+        np.testing.assert_array_equal(batch, jbatch)
+        assert flag is jflag is True
+        mask = tasks.easy_edge_weights(index, batch, graph.num_edges_padded, remove_one_hop=True)
+        np.testing.assert_array_equal(mask, jtasks.easy_edge_weights(
+            jindex, jbatch, graph.num_edges_padded, remove_one_hop=True))
+        assert (mask != tasks.easy_edge_weights(index, batch, graph.num_edges_padded)).any()

@@ -20,21 +20,25 @@
 //
 // What bounds it on an H100: bytes. Per edge and feature it reads three
 // gathered rows (rel, out and g) and does about 6 operations, far below the
-// card's f32 flops-per-byte balance. The design:
-// - one block per (source row u, feature tile) walks u's edges on the
-//   source-major CSR with the sum in registers: no atomics, and two runs give
-//   the same bits;
-// - x[u]'s tile is loaded once per block, not once per edge;
-// - an edge of weight 0 is skipped before its rows are loaded;
+// card's f32 flops-per-byte balance. In practice the gathers' latency bounds
+// it, and the design is B1's walk (rspmm_pieces.cuh) on the source-major CSR:
+// - every source row is cut into pieces of at most ROW_PIECE edges
+//   (graph.py), each walked by its own group of threads, the longest first,
+//   so the hub rows (out-degree in the thousands on FB15k-237's shape, whose
+//   inverse edges make out-degree as skewed as in-degree) no longer set the
+//   launch's length; a second pass adds a long row's partial rows in slot
+//   order. No atomics, so two runs give the same bits;
+// - a group stages its piece's destinations, types and weights in shared
+//   memory, then keeps the rel, out and g loads of several edges in flight
+//   per thread. The loads go out before the edge's weight and route tests:
+//   a weight-0 edge (the runtime easy-edge mask zeroes weights of edges
+//   that are in the CSR) or one that does not route folds in a selected 0,
+//   and nothing waits on a test;
+// - x[u]'s tile is loaded once per piece, not once per edge;
 // - each thread owns 4 contiguous features and loads float4 (F % 4 == 0 and
-//   16-byte aligned rows; anything else is refused);
-// - as in B1, the hub rows (out-degree in the thousands on power-law graphs)
-//   set the launch's length; splitting them is left to a later version.
-// Offsets row*F are 64-bit.
+//   16-byte aligned rows; anything else is refused).
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "rspmm_pieces.cuh"
 
 namespace {
 
@@ -43,97 +47,97 @@ __device__ __forceinline__ float message(float r, float x, float w) {
   return __fmul_rn(OP == 0 ? __fmul_rn(r, x) : __fadd_rn(r, x), w);
 }
 
-// the routed term of one feature: w * (r if mul else 1) * g, or 0
+// the routed term of one feature: w * (r if mul else 1) * g, or 0 for a
+// weight-0 edge or one whose message is not the saved output
 template <int OP>
 __device__ __forceinline__ float term(float r, float x, float w, float o, float g) {
-  if (message<OP>(r, x, w) != o) return 0.f;
-  return OP == 0 ? __fmul_rn(__fmul_rn(w, r), g) : __fmul_rn(w, g);
+  const float t = OP == 0 ? __fmul_rn(__fmul_rn(w, r), g) : __fmul_rn(w, g);
+  return w != 0.f && message<OP>(r, x, w) == o ? t : 0.f;
 }
 
-// `width` is the row length in float4s (F / 4).
+struct DxArgs {
+  const int32_t* col;  // the destination
+  const int32_t* etype;
+  const int32_t* eid;
+  const float* weight;  // indexed by eid
+  const float4* rel;    // (R, width)
+  const float4* x;      // (N, width)
+  const float4* g;      // (V, width)
+  const float4* out;    // (V, width), the forward's output
+};
+
+// An edge brings rel[etype], out[dst] and g[dst]; a piece's row brings
+// x[u].
 template <int OP>
-__global__ void rspmm_minmax_dx_kernel(const int64_t* __restrict__ rowptr,
-                                       const int32_t* __restrict__ col,
-                                       const int32_t* __restrict__ etype,
-                                       const int32_t* __restrict__ eid,
-                                       const float* __restrict__ weight,
-                                       const float4* __restrict__ rel,
-                                       const float4* __restrict__ x,
-                                       const float4* __restrict__ g,
-                                       const float4* __restrict__ out,
-                                       float4* __restrict__ dx,
-                                       int64_t width) {
-  const int64_t row = blockIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  const int64_t begin = rowptr[row];
-  const int64_t end = rowptr[row + 1];
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (begin < end) {
-    const float4 xv = __ldg(x + row * width + j);
-    for (int64_t e = begin; e < end; ++e) {
-      const float w = __ldg(weight + __ldg(eid + e));
-      if (w == 0.f) continue;
-      const int64_t dst = __ldg(col + e);
-      const int64_t type = __ldg(etype + e);
-      const float4 rv = __ldg(rel + type * width + j);
-      const float4 ov = __ldg(out + dst * width + j);
-      const float4 gv = __ldg(g + dst * width + j);
-      acc.x += term<OP>(rv.x, xv.x, w, ov.x, gv.x);
-      acc.y += term<OP>(rv.y, xv.y, w, ov.y, gv.y);
-      acc.z += term<OP>(rv.z, xv.z, w, ov.z, gv.z);
-      acc.w += term<OP>(rv.w, xv.w, w, ov.w, gv.w);
-    }
-  }
-  dx[row * width + j] = acc;
-}
+struct Dx : pieces::Adds {
+  using Args = DxArgs;
+  using Row = float4;
+  struct Edge {
+    float4 rel, out, g;
+  };
+  // 2 edges (6 rows) in flight at 4 blocks an SM: 3 or 4 edges spill under
+  // the 64 registers that 4 blocks allow, and 3 blocks or 2 with more edges
+  // in flight were no faster on an H100 (PERF.md)
+  static constexpr int kWords = 3, kUnroll = 2, kMinBlocks = 4, kSplit = 1;
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+  __device__ static Row row(const Args& a, int64_t u, int64_t width, int64_t j) {
+    return __ldg(a.x + u * width + j);
+  }
+  __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {
+    s[i] = __ldg(a.col + e);
+    s[pieces::kStage + i] = __ldg(a.etype + e);
+    s[2 * pieces::kStage + i] = __float_as_int(__ldg(a.weight + __ldg(a.eid + e)));
+  }
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    const int64_t dst = static_cast<int64_t>(s[i]) * width + j;
+    return {__ldg(a.rel + static_cast<int64_t>(s[pieces::kStage + i]) * width + j),
+            __ldg(a.out + dst), __ldg(a.g + dst)};
+  }
+  __device__ static void add(float4& acc, const Row& x, const int32_t* s, int i,
+                             const Edge& e) {
+    const float w = __int_as_float(s[2 * pieces::kStage + i]);
+    acc.x += term<OP>(e.rel.x, x.x, w, e.out.x, e.g.x);
+    acc.y += term<OP>(e.rel.y, x.y, w, e.out.y, e.g.y);
+    acc.z += term<OP>(e.rel.z, x.z, w, e.out.z, e.g.z);
+    acc.w += term<OP>(e.rel.w, x.w, w, e.out.w, e.g.w);
+  }
+};
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// rowptr: (num_rows+1) int64 of the source-major CSR; col (the destination),
+// Launches both passes on `stream` and returns cudaGetLastError() (0 on
+// success). The piece table (piece_ptr (P+1) int64, piece_row, piece_slot
+// and piece_order (P) int32, long_rows (L) int32, long_slot_ptr (L+1) int64)
+// is graph.py::build_csr's for the source-major CSR; col (the destination),
 // etype, eid: (E) int32; weight: f32 indexed by eid; rel: (R, num_feat) f32;
-// x, dx: (num_rows, num_feat) f32; g, out: (V, num_feat) f32. All contiguous
-// on one device; indices are trusted to be in range. num_feat % 4 != 0 or a
-// row operand not 16-byte aligned returns cudaErrorInvalidValue and launches
-// nothing.
-extern "C" int rspmm_minmax_dx(const void* rowptr, const void* col, const void* etype,
-                               const void* eid, const void* weight, const void* rel,
-                               const void* x, const void* g, const void* out, void* dx,
-                               long long num_rows, long long num_feat, int mul_op,
-                               void* stream) {
+// x: (N, num_feat) f32; g, out: (V, num_feat) f32; partial: (slots,
+// num_feat) f32 scratch (unread without long rows); dx: (N, num_feat) f32.
+// All contiguous on one device; indices are trusted to be in range.
+// num_feat % 4 != 0 or a misaligned row operand returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int rspmm_minmax_dx(const void* piece_ptr, const void* piece_row,
+                               const void* piece_slot, const void* piece_order,
+                               const void* long_rows, const void* long_slot_ptr,
+                               const void* col, const void* etype, const void* eid,
+                               const void* weight, const void* rel, const void* x,
+                               const void* g, const void* out, void* partial, void* dx,
+                               long long num_pieces, long long num_long, long long num_feat,
+                               int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rows <= 0 || num_feat <= 0 || num_feat % 4 != 0) {
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
+      !pieces::aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!aligned16(rel) || !aligned16(x) || !aligned16(g) || !aligned16(out) ||
-      !aligned16(dx)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long width = num_feat / 4;
-  const long long warps = (width + 31) / 32;
-  const int threads = static_cast<int>(warps < 8 ? warps * 32 : 256);
-  const dim3 grid(static_cast<unsigned>(num_rows),
-                  static_cast<unsigned>((width + threads - 1) / threads));
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* rp = static_cast<const int64_t*>(rowptr);
-  const auto* c = static_cast<const int32_t*>(col);
-  const auto* t = static_cast<const int32_t*>(etype);
-  const auto* id = static_cast<const int32_t*>(eid);
-  const auto* w = static_cast<const float*>(weight);
-  const auto* r = static_cast<const float4*>(rel);
-  const auto* xs = static_cast<const float4*>(x);
-  const auto* gs = static_cast<const float4*>(g);
-  const auto* os = static_cast<const float4*>(out);
-  auto* d = static_cast<float4*>(dx);
-  if (mul_op == 0) {
-    rspmm_minmax_dx_kernel<0><<<grid, threads, 0, s>>>(rp, c, t, id, w, r, xs, gs, os, d,
-                                                       width);
-  } else {
-    rspmm_minmax_dx_kernel<1><<<grid, threads, 0, s>>>(rp, c, t, id, w, r, xs, gs, os, d,
-                                                       width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const pieces::Table t{
+      static_cast<const int64_t*>(piece_ptr), static_cast<const int32_t*>(piece_row),
+      static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
+      static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
+      static_cast<float4*>(partial), static_cast<float4*>(dx), num_pieces, num_long, 0};
+  const DxArgs a{static_cast<const int32_t*>(col), static_cast<const int32_t*>(etype),
+                 static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
+                 static_cast<const float4*>(rel), static_cast<const float4*>(x),
+                 static_cast<const float4*>(g), static_cast<const float4*>(out)};
+  return mul_op == 0 ? pieces::launch<Dx<0>>(t, a, num_feat, stream)
+                     : pieces::launch<Dx<1>>(t, a, num_feat, stream);
 }

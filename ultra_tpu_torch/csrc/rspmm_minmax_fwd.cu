@@ -90,19 +90,23 @@ extern "C" int rspmm_minmax_fwd(const void* piece_ptr, const void* piece_row,
   if ((mul_op != 0 && mul_op != 1) || (is_min != 0 && is_min != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const pieces::Operands a{
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const pieces::Table t{
       static_cast<const int64_t*>(piece_ptr), static_cast<const int32_t*>(piece_row),
       static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
-      static_cast<const int32_t*>(long_rows),
-      static_cast<const int64_t*>(long_slot_ptr), static_cast<const int32_t*>(col),
-      static_cast<const int32_t*>(etype), static_cast<const int32_t*>(eid),
-      static_cast<const float*>(weight), static_cast<const float4*>(rel),
-      static_cast<const float4*>(x), static_cast<float4*>(partial), static_cast<float4*>(out),
-      num_pieces, num_long, 0};
+      static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
+      static_cast<float4*>(partial), static_cast<float4*>(out), num_pieces, num_long, 0};
+  const pieces::GatherArgs a{
+      static_cast<const int32_t*>(col), static_cast<const int32_t*>(etype),
+      static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
+      static_cast<const float4*>(rel), static_cast<const float4*>(x)};
+  using pieces::Gather;
   if (mul_op == 0) {
-    return is_min ? pieces::launch<Extreme<0, true>>(a, num_feat, stream)
-                  : pieces::launch<Extreme<0, false>>(a, num_feat, stream);
+    return is_min ? pieces::launch<Gather<Extreme<0, true>>>(t, a, num_feat, stream)
+                  : pieces::launch<Gather<Extreme<0, false>>>(t, a, num_feat, stream);
   }
-  return is_min ? pieces::launch<Extreme<1, true>>(a, num_feat, stream)
-                : pieces::launch<Extreme<1, false>>(a, num_feat, stream);
+  return is_min ? pieces::launch<Gather<Extreme<1, true>>>(t, a, num_feat, stream)
+                : pieces::launch<Gather<Extreme<1, false>>>(t, a, num_feat, stream);
 }

@@ -1,42 +1,62 @@
-// The walk over a CSR's piece table that the sum forward B1
-// (rspmm_sum_fwd.cu) and the min/max forward B3 (rspmm_minmax_fwd.cu) share.
+// The walk over a piece table that the rspmm kernels B1 (rspmm_sum_fwd.cu),
+// B2 (rspmm_sum_drel.cu), B3 (rspmm_minmax_fwd.cu) and B4
+// (rspmm_minmax_dx.cu) share.
 //
-// graph.py::build_csr cuts every CSR row into pieces of at most ROW_PIECE
-// edges, in edge order. A piece of a one-piece row writes that row of `out`;
-// the pieces of a longer row write consecutive partial rows (their slots) of
-// a scratch buffer, which a second pass combines in slot order. Both passes
-// are launched here, on one stream, with no atomics: the result is the same
-// bits on every run.
+// graph.py cuts every row of a layout into pieces of at most a fixed number
+// of edges, in edge order: the rows of a CSR (ROW_PIECE edges; a row is a
+// destination for B1 and B3, a source for B4) or the types of the type
+// segments (B2, a length chosen from the graph's edge and type counts). A
+// piece of a one-piece row writes that row of `out`; the pieces of a longer
+// row write consecutive partial rows (their slots) of a scratch buffer, which
+// a second pass combines in slot order. Both passes are launched here, on one
+// stream, with no atomics: the result is the same bits on every run.
 //
 // Pass 1. A group of threads takes one piece and one tile of the row, the
 // pieces longest first (piece_order), so that the longest start in the
 // first wave and the groups that share a warp or a block walk pieces of
-// about one length; a
-// thread per float4 of the row, the group F/4 threads wide (a power of two
-// from 8 up to 32, else a multiple of 32 up to 256, the last lanes idle
-// where F/4 is not), a block of 256 threads holding 256 / group of them. So
-// at F=64 a block walks 16 pieces and no lane idles; F > 1024 takes several
-// feature tiles (grid.y).
+// about one length; a thread per float4 of the row, the group F/4 threads
+// wide (a power of two from 8 up to 32, else a multiple of 32 up to 256, the
+// last lanes idle where F/4 is not), a block of 256 threads holding
+// 256 / group of them. So at F=64 a block walks 16 pieces and no lane idles;
+// F > 1024 takes several feature tiles (grid.y).
 // - The group first stages up to kStage edges of its piece in shared memory:
-//   `col`, `etype` and `weight[eid]`, read with coalesced loads, one round
-//   trip for the stage instead of three dependent loads per edge. Its
-//   barriers are the group's own, so a group that is done with a short
-//   piece does not wait for the block's longest.
-// - It then walks the staged edges kUnroll at a time: every thread issues
-//   the x and rel float4 loads of kUnroll edges before it combines any of
-//   them, so kUnroll row loads per thread are in flight at once, and then
-//   combines them in edge order (Agg::add).
-// - The sizes were timed on an H100 (PERF.md): a stage of 128 edges
-//   (a whole piece at ROW_PIECE 128), 4 edges in flight and registers
-//   capped so that 4 blocks fit an SM beat 8 in flight at 2 blocks and 2 at
-//   8: what hides the gathers' latency is warps in flight as much as loads
-//   per warp.
-// Pass 2. A group per (long row, tile) combines the row's partials in slot
-// order (Agg::merge) and writes the row of `out`.
+//   the 32-bit words the walk's policy asks for (indices, the weight), read
+//   with coalesced loads, one round trip for the stage instead of dependent
+//   loads per edge. Its barriers are the group's own, so a group that is
+//   done with a short piece does not wait for the block's longest.
+// - It then walks the staged edges W::kUnroll at a time: every thread issues
+//   the row loads of W::kUnroll edges before it folds any of them in, so
+//   that many edges' loads per thread are in flight at once, and then folds
+//   them in edge order.
+// - The sizes were timed on an H100 (PERF.md): a stage of 128 edges (a whole
+//   piece at ROW_PIECE 128); for B1 and B3, 4 edges in flight with
+//   registers capped so that 4 blocks fit an SM beat 8 in flight at 2
+//   blocks and 2 at 8: what hides the gathers' latency is warps in flight
+//   as much as loads per warp.
+// Pass 2. A group per (long row, tile) adds the row's partials in slot order
+// and writes the row of `out` (long_row_kernel: B1, B3, B4). A walk whose
+// long rows have hundreds of partials (B2 on the relation graph's 4 types)
+// gives a row `split` groups of one block instead (split_row_kernel): each
+// adds every split-th partial from its own first slot on, in slot order,
+// and the first folds the others' sums in, in group order, so that no single
+// group's chain of loads sets the pass's length.
 //
-// The aggregation is a policy: Agg::init() is an empty row's value,
-// Agg::add(acc, w, rel, x) folds one edge in, Agg::merge(acc, partial)
-// folds a partial in. Offsets row*F are 64-bit.
+// What an edge brings is the walk's policy W:
+//   W::Args                     the kernel's own operands
+//   W::kWords                   32-bit words staged per edge: word k of staged
+//                               edge i is s[k * kStage + i]
+//   W::kUnroll                  edges whose row loads a thread keeps in flight
+//   W::kMinBlocks               blocks of pass 1 an SM must hold (caps registers)
+//   W::kSplit                   the groups of pass 2 a long row may take (1:
+//                               long_row_kernel)
+//   W::Row row(a, r, width, j)  loaded once for the piece's row r (B4: x[r])
+//   W::stage(a, e, s, i)        stages edge e's words as edge i
+//   W::Edge load(a, s, i, width, j)   issues staged edge i's row loads
+//   W::add(acc, row, s, i, edge)      folds staged edge i in
+//   W::init()                   an empty row's value
+//   W::merge(acc, partial)      folds a partial in (both pieces::Adds for the
+//                               walks that add)
+// Offsets row*F are 64-bit.
 
 #pragma once
 
@@ -46,29 +66,36 @@
 
 namespace pieces {
 
-constexpr int kBlock = 256;    // threads a block
-constexpr int kStage = 128;    // edges of a piece staged in shared memory at once
-constexpr int kUnroll = 4;     // edges whose row loads a thread keeps in flight
-constexpr int kMinBlocks = 4;  // blocks an SM must hold (caps registers at 64 a thread)
+constexpr int kBlock = 256;      // threads of a pass-1 block
+constexpr int kStage = 128;      // edges of a piece staged in shared memory at once
+constexpr int kMaxThreads = 1024;  // threads of a pass-2 block at most
 
-struct Operands {
+// The piece table and the output, what every walk has.
+struct Table {
   const int64_t* piece_ptr;      // (P+1) first edge of each piece
   const int32_t* piece_row;      // (P) its row
   const int32_t* piece_slot;     // (P) its partial row, -1 for a one-piece row
   const int32_t* piece_order;    // (P) the pieces, longest first
   const int32_t* long_rows;      // (L) rows of more than one piece
   const int64_t* long_slot_ptr;  // (L+1) their slot ranges
-  const int32_t* col;            // (E) the CSR
-  const int32_t* etype;
-  const int32_t* eid;
-  const float* weight;           // indexed by eid
-  const float4* rel;             // (R, width)
-  const float4* x;               // (N, width)
   float4* partial;               // (slots, width) scratch
   float4* out;                   // (rows, width)
   int64_t num_pieces;
   int64_t num_long;
   int64_t width;                 // row length in float4s (F / 4)
+};
+
+struct NoRow {};
+
+// init and merge of the walks that add (B1, B2, B4): an empty row is 0.
+struct Adds {
+  __device__ static float4 init() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static void merge(float4& acc, const float4& p) {
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
 };
 
 // Threads of a group for a row of `width` float4s.
@@ -92,100 +119,176 @@ __device__ __forceinline__ void group_sync(int g, int group) {
   }
 }
 
-template <class Agg>
-__global__ void __launch_bounds__(kBlock, kMinBlocks) piece_kernel(const Operands a, int group) {
-  extern __shared__ int32_t staged[];  // per group: kStage cols, types, weights
+template <class W>
+__global__ void __launch_bounds__(kBlock, W::kMinBlocks)
+    piece_kernel(const Table t, const typename W::Args a, int group) {
+  extern __shared__ int32_t staged[];  // per group: kWords * kStage words
   const int g = threadIdx.x / group;
   const int lane = threadIdx.x - g * group;
   const int64_t k = static_cast<int64_t>(blockIdx.x) * (blockDim.x / group) + g;
-  const int64_t piece = k >= a.num_pieces ? a.num_pieces : a.piece_order[k];
+  const int64_t piece = k >= t.num_pieces ? t.num_pieces : t.piece_order[k];
   const int64_t j = static_cast<int64_t>(blockIdx.y) * group + lane;
-  const bool mine = j < a.width;
-  int32_t* s_col = staged + 3 * kStage * g;
-  int32_t* s_type = s_col + kStage;
-  float* s_w = reinterpret_cast<float*>(s_type + kStage);
+  const bool mine = j < t.width;
+  int32_t* s = staged + W::kWords * kStage * g;
   int64_t begin = 0, len = 0;
-  if (piece < a.num_pieces) {
-    begin = a.piece_ptr[piece];
-    len = a.piece_ptr[piece + 1] - begin;
+  if (piece < t.num_pieces) {
+    begin = t.piece_ptr[piece];
+    len = t.piece_ptr[piece + 1] - begin;
   }
-  float4 acc = Agg::init();
+  float4 acc = W::init();
+  typename W::Row row{};
+  if (len > 0 && mine) row = W::row(a, t.piece_row[piece], t.width, j);
   for (int64_t base = 0; base < len; base += kStage) {
     const int n = len - base < kStage ? static_cast<int>(len - base) : kStage;
     group_sync(g, group);  // the group is done with the last stage
-    for (int i = lane; i < n; i += group) {
-      const int64_t e = begin + base + i;
-      s_col[i] = __ldg(a.col + e);
-      s_type[i] = __ldg(a.etype + e);
-      s_w[i] = __ldg(a.weight + __ldg(a.eid + e));
-    }
+    for (int i = lane; i < n; i += group) W::stage(a, begin + base + i, s, i);
     group_sync(g, group);
     if (!mine) continue;
-    for (int i = 0; i < n; i += kUnroll) {
-      float4 xv[kUnroll], rv[kUnroll];
+    for (int i = 0; i < n; i += W::kUnroll) {
+      typename W::Edge ev[W::kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (i + u < n) {
-          xv[u] = __ldg(a.x + static_cast<int64_t>(s_col[i + u]) * a.width + j);
-          rv[u] = __ldg(a.rel + static_cast<int64_t>(s_type[i + u]) * a.width + j);
-        }
+      for (int u = 0; u < W::kUnroll; ++u) {
+        if (i + u < n) ev[u] = W::load(a, s, i + u, t.width, j);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (i + u < n) Agg::add(acc, s_w[i + u], rv[u], xv[u]);
+      for (int u = 0; u < W::kUnroll; ++u) {
+        if (i + u < n) W::add(acc, row, s, i + u, ev[u]);
       }
     }
   }
-  if (piece < a.num_pieces && mine) {
-    const int32_t slot = a.piece_slot[piece];
-    float4* row = slot < 0 ? a.out + static_cast<int64_t>(a.piece_row[piece]) * a.width
-                           : a.partial + static_cast<int64_t>(slot) * a.width;
-    row[j] = acc;
+  if (piece < t.num_pieces && mine) {
+    const int32_t slot = t.piece_slot[piece];
+    float4* dst = slot < 0 ? t.out + static_cast<int64_t>(t.piece_row[piece]) * t.width
+                           : t.partial + static_cast<int64_t>(slot) * t.width;
+    dst[j] = acc;
   }
 }
 
-template <class Agg>
-__global__ void __launch_bounds__(kBlock) long_row_kernel(const Operands a, int group) {
+// Pass 2 with one group a long row: a block of kBlock threads combines
+// kBlock / group long rows.
+template <class W>
+__global__ void __launch_bounds__(kBlock) long_row_kernel(const Table t, int group) {
   const int g = threadIdx.x / group;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x / group) + g;
   const int64_t j = static_cast<int64_t>(blockIdx.y) * group + (threadIdx.x - g * group);
-  if (i >= a.num_long || j >= a.width) return;
-  const int64_t first = a.long_slot_ptr[i];
-  const int64_t end = a.long_slot_ptr[i + 1];
-  float4 acc = a.partial[first * a.width + j];
+  if (i >= t.num_long || j >= t.width) return;
+  const int64_t first = t.long_slot_ptr[i];
+  const int64_t end = t.long_slot_ptr[i + 1];
+  float4 acc = t.partial[first * t.width + j];
 #pragma unroll 4
-  for (int64_t s = first + 1; s < end; ++s) Agg::merge(acc, a.partial[s * a.width + j]);
-  a.out[static_cast<int64_t>(a.long_rows[i]) * a.width + j] = acc;
+  for (int64_t s = first + 1; s < end; ++s) W::merge(acc, t.partial[s * t.width + j]);
+  t.out[static_cast<int64_t>(t.long_rows[i]) * t.width + j] = acc;
+}
+
+// Pass 2 with `split` groups a long row: a block holds blockDim.x / (split *
+// group) long rows, and the groups of a row combine through shared memory.
+template <class W>
+__global__ void __launch_bounds__(kMaxThreads) split_row_kernel(const Table t, int group,
+                                                                 int split) {
+  extern __shared__ float4 sums[];  // per group after a row's first: group float4s
+  const int g = threadIdx.x / group;
+  const int lane = threadIdx.x - g * group;
+  const int part = g % split;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x / (group * split)) + g / split;
+  const int64_t j = static_cast<int64_t>(blockIdx.y) * group + lane;
+  const bool mine = i < t.num_long && j < t.width;
+  float4 acc = W::init();
+  if (mine) {
+    const int64_t first = t.long_slot_ptr[i] + part;
+    const int64_t end = t.long_slot_ptr[i + 1];
+    if (first < end) acc = t.partial[first * t.width + j];
+#pragma unroll 4
+    for (int64_t s = first + split; s < end; s += split) {
+      W::merge(acc, t.partial[s * t.width + j]);
+    }
+  }
+  if (part > 0) sums[(g - g / split - 1) * group + lane] = acc;
+  __syncthreads();
+  if (part > 0 || !mine) return;
+  for (int p = 1; p < split; ++p) W::merge(acc, sums[(g - g / split + p - 1) * group + lane]);
+  t.out[static_cast<int64_t>(t.long_rows[i]) * t.width + j] = acc;
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // Checks what the walk needs, launches both passes on `stream` and returns
-// cudaGetLastError() (0 on success). num_feat % 4 != 0, no piece, or a rel,
-// x, out (or, with long rows, partial) not 16-byte aligned returns
-// cudaErrorInvalidValue and launches nothing.
-template <class Agg>
-int launch(Operands a, long long num_feat, void* stream) {
-  if (a.num_pieces <= 0 || a.num_long < 0 || num_feat <= 0 || num_feat % 4 != 0) {
+// cudaGetLastError() (0 on success). num_feat % 4 != 0, no piece, or an out
+// (or, with long rows, partial) not 16-byte aligned returns
+// cudaErrorInvalidValue and launches nothing; the caller checks its own
+// row operands' alignment.
+template <class W>
+int launch(Table t, const typename W::Args& a, long long num_feat, void* stream) {
+  if (t.num_pieces <= 0 || t.num_long < 0 || num_feat <= 0 || num_feat % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!aligned16(a.rel) || !aligned16(a.x) || !aligned16(a.out) ||
-      (a.num_long > 0 && !aligned16(a.partial))) {
+  if (!aligned16(t.out) || (t.num_long > 0 && !aligned16(t.partial))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  a.width = num_feat / 4;
-  const int group = group_size(a.width);
+  t.width = num_feat / 4;
+  const int group = group_size(t.width);
   const int groups = kBlock / group;
-  const unsigned tiles = static_cast<unsigned>((a.width + group - 1) / group);
+  const unsigned tiles = static_cast<unsigned>((t.width + group - 1) / group);
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(int32_t) * 3 * kStage * groups;
-  const dim3 grid(static_cast<unsigned>((a.num_pieces + groups - 1) / groups), tiles);
-  piece_kernel<Agg><<<grid, groups * group, smem, s>>>(a, group);
+  const size_t smem = sizeof(int32_t) * W::kWords * kStage * groups;
+  const dim3 grid(static_cast<unsigned>((t.num_pieces + groups - 1) / groups), tiles);
+  piece_kernel<W><<<grid, groups * group, smem, s>>>(t, a, group);
   const int status = static_cast<int>(cudaGetLastError());
-  if (status != 0 || a.num_long == 0) return status;
-  const dim3 grid2(static_cast<unsigned>((a.num_long + groups - 1) / groups), tiles);
-  long_row_kernel<Agg><<<grid2, groups * group, 0, s>>>(a, group);
+  if (status != 0 || t.num_long == 0) return status;
+  int split = 1;
+  while (split * 2 <= W::kSplit && split * 2 * group <= kMaxThreads) split *= 2;
+  if constexpr (W::kSplit > 1) {
+    if (split > 1) {
+      const int threads = split * group > kBlock ? split * group : kBlock;
+      const int rows = threads / (split * group);  // long rows a block combines
+      const size_t smem2 = sizeof(float4) * (split - 1) * group * rows;
+      const dim3 grid2(static_cast<unsigned>((t.num_long + rows - 1) / rows), tiles);
+      split_row_kernel<W><<<grid2, threads, smem2, s>>>(t, group, split);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  const dim3 grid2(static_cast<unsigned>((t.num_long + groups - 1) / groups), tiles);
+  long_row_kernel<W><<<grid2, groups * group, 0, s>>>(t, group);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The operands of the forward walk, which the aggregations share.
+struct GatherArgs {
+  const int32_t* col;
+  const int32_t* etype;
+  const int32_t* eid;
+  const float* weight;  // indexed by eid
+  const float4* rel;    // (R, width)
+  const float4* x;      // (N, width)
+};
+
+// The forward walk of B1 and B3: an edge brings x[col] and rel[etype] and
+// Agg folds it in (Agg::add(acc, w, rel, x)).
+template <class Agg>
+struct Gather {
+  using Args = GatherArgs;
+  struct Edge {
+    float4 x, rel;
+  };
+  using Row = NoRow;
+  static constexpr int kWords = 3, kUnroll = 4, kMinBlocks = 4, kSplit = 1;
+
+  __device__ static Row row(const Args&, int64_t, int64_t, int64_t) { return {}; }
+  __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {
+    s[i] = __ldg(a.col + e);
+    s[kStage + i] = __ldg(a.etype + e);
+    s[2 * kStage + i] = __float_as_int(__ldg(a.weight + __ldg(a.eid + e)));
+  }
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    return {__ldg(a.x + static_cast<int64_t>(s[i]) * width + j),
+            __ldg(a.rel + static_cast<int64_t>(s[kStage + i]) * width + j)};
+  }
+  __device__ static void add(float4& acc, const Row&, const int32_t* s, int i,
+                             const Edge& e) {
+    Agg::add(acc, __int_as_float(s[2 * kStage + i]), e.rel, e.x);
+  }
+  __device__ static float4 init() { return Agg::init(); }
+  __device__ static void merge(float4& acc, const float4& p) { Agg::merge(acc, p); }
+};
 
 }  // namespace pieces

@@ -14,138 +14,119 @@
 // What bounds it on an H100: bytes. Per edge and feature it does 2-3 flops on
 // two gathered 4-byte rows, far below the card's f32 flops-per-byte balance,
 // so the floor is each input read once (x, g, w, the segments) and d_rel
-// written once. The design:
+// written once. In practice the gathers' latency bounds it: each edge is a
+// chain of dependent loads (its indices, then its weight and its x and g
+// rows). The design is B1's walk (rspmm_pieces.cuh) with the type as the row:
 // - the edges are sorted by type on the host (graph.py::build_segments) and
-//   each type's run is cut into chunks of at most 256 edges. The types are
-//   few and skewed (4 on the relation graph, each a quarter of its edges;
-//   474 on the entity graph, the largest 23,200 of 544,230 edges), so one
-//   block per type would leave most of the 132 SMs idle and let the largest
-//   type set the launch's length. Chunks spread every type over many blocks;
-// - pass 1: one block per (chunk, feature tile) walks its chunk's edges in
-//   order with the sum in registers and writes one partial row per chunk;
-// - pass 2: one block per (type, feature tile) adds that type's partial rows
-//   in chunk order. No atomics anywhere, so two runs give the same bits;
-// - each thread owns 4 contiguous features and loads float4, so a warp reads
-//   512 contiguous bytes of every gathered row. F must be a multiple of 4 and
-//   x, g, partial and out 16-byte aligned; anything else is refused, never run
-//   on a slower path. Within a type the edges keep destination order, so the
-//   g rows of neighbouring edges repeat and hit L1/L2.
-// Offsets row*F are 64-bit, as in rspmm_sum_fwd.cu.
+//   each type's run is cut into pieces of a length chosen from the graph's
+//   edge and type counts (graph.py::segment_piece). The types are few and
+//   skewed (4 on the relation graph, each a quarter of its edges; 474 on the
+//   entity graph, the largest 23,200 of 544,230 edges), so one block per
+//   type would leave most of the 132 SMs idle and let the largest type set
+//   the launch's length;
+// - pass 1: a group of threads per piece, the longest first, stages the
+//   piece's weights, destinations and (mul) sources in shared memory with
+//   coalesced loads and keeps the x and g loads of several edges in flight
+//   per thread, adding the edges in order;
+// - pass 2 combines each long type's partial rows in a fixed order: on the
+//   relation graph a type has hundreds of pieces, so several groups share a
+//   type, each adding every split-th partial, and the first adds their sums
+//   in group order. No atomics anywhere, so two runs give the same bits;
+// - each thread owns 4 contiguous features and loads float4, so a group
+//   reads every gathered row in 16-byte pieces, neighbouring threads on
+//   neighbouring addresses. F must be a multiple of 4 and x, g, partial and
+//   out 16-byte aligned; anything else is refused, never run on a slower
+//   path. Within a type the edges keep destination order, so the g rows of
+//   neighbouring edges repeat and hit L1/L2.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "rspmm_pieces.cuh"
 
 namespace {
 
-// `width` is the row length in float4s (F / 4).
+struct DrelArgs {
+  const int32_t* src;
+  const int32_t* dst;
+  const int32_t* eid;
+  const float* weight;  // indexed by eid
+  const float4* x;      // (N, width), not read for mul_op 1
+  const float4* g;      // (V, width)
+};
+
+// An edge brings x[src] (mul_op 0) and g[dst]; staged words: the weight,
+// dst and (mul_op 0) src.
 template <int OP>
-__global__ void drel_chunk_kernel(const int64_t* __restrict__ chunkptr,
-                                  const int32_t* __restrict__ src,
-                                  const int32_t* __restrict__ dst,
-                                  const int32_t* __restrict__ eid,
-                                  const float* __restrict__ weight,
-                                  const float4* __restrict__ x,
-                                  const float4* __restrict__ g,
-                                  float4* __restrict__ partial,
-                                  int64_t width) {
-  const int64_t chunk = blockIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  const int64_t begin = chunkptr[chunk];
-  const int64_t end = chunkptr[chunk + 1];
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  // unrolled so that the index and row loads of several edges are in flight
-  // at once; the sum still adds the edges in order
-#pragma unroll 4
-  for (int64_t e = begin; e < end; ++e) {
-    const float w = __ldg(weight + __ldg(eid + e));
-    const float4 gv = __ldg(g + static_cast<int64_t>(__ldg(dst + e)) * width + j);
+struct Drel : pieces::Adds {
+  using Args = DrelArgs;
+  using Row = pieces::NoRow;
+  struct Edge {
+    float4 x, g;
+  };
+  // B1's sizes (4 edges in flight, 4 blocks an SM); pass 2 gives a long
+  // type up to 8 groups, fewer were slower on an H100 (PERF.md)
+  static constexpr int kWords = OP == 0 ? 3 : 2, kUnroll = 4, kMinBlocks = 4, kSplit = 8;
+
+  __device__ static Row row(const Args&, int64_t, int64_t, int64_t) { return {}; }
+  __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {
+    s[i] = __float_as_int(__ldg(a.weight + __ldg(a.eid + e)));
+    s[pieces::kStage + i] = __ldg(a.dst + e);
+    if (OP == 0) s[2 * pieces::kStage + i] = __ldg(a.src + e);
+  }
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    Edge e{};
+    e.g = __ldg(a.g + static_cast<int64_t>(s[pieces::kStage + i]) * width + j);
+    if (OP == 0) e.x = __ldg(a.x + static_cast<int64_t>(s[2 * pieces::kStage + i]) * width + j);
+    return e;
+  }
+  __device__ static void add(float4& acc, const Row&, const int32_t* s, int i,
+                             const Edge& e) {
+    const float w = __int_as_float(s[i]);
     if (OP == 0) {
-      const float4 xv = __ldg(x + static_cast<int64_t>(__ldg(src + e)) * width + j);
-      acc.x += w * (xv.x * gv.x);
-      acc.y += w * (xv.y * gv.y);
-      acc.z += w * (xv.z * gv.z);
-      acc.w += w * (xv.w * gv.w);
+      acc.x += w * (e.x.x * e.g.x);
+      acc.y += w * (e.x.y * e.g.y);
+      acc.z += w * (e.x.z * e.g.z);
+      acc.w += w * (e.x.w * e.g.w);
     } else {
-      acc.x += w * gv.x;
-      acc.y += w * gv.y;
-      acc.z += w * gv.z;
-      acc.w += w * gv.w;
+      acc.x += w * e.g.x;
+      acc.y += w * e.g.y;
+      acc.z += w * e.g.z;
+      acc.w += w * e.g.w;
     }
   }
-  partial[chunk * width + j] = acc;
-}
-
-__global__ void drel_type_kernel(const int64_t* __restrict__ type_chunkptr,
-                                 const float4* __restrict__ partial,
-                                 float4* __restrict__ out, int64_t width) {
-  const int64_t type = blockIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  const int64_t begin = type_chunkptr[type];
-  const int64_t end = type_chunkptr[type + 1];
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int64_t c = begin; c < end; ++c) {
-    const float4 p = partial[c * width + j];
-    acc.x += p.x;
-    acc.y += p.y;
-    acc.z += p.z;
-    acc.w += p.w;
-  }
-  out[type * width + j] = acc;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+};
 
 }  // namespace
 
 // Launches both passes on `stream` and returns cudaGetLastError() (0 on
-// success). chunkptr: (num_chunks+1) int64; type_chunkptr: (num_types+1)
-// int64; src, dst, eid: (E) int32 in type order; weight: f32 indexed by eid;
-// x: (N, num_feat) f32 (not read for mul_op 1); g: (V, num_feat) f32;
-// partial: (num_chunks, num_feat) f32 scratch; out: (num_types, num_feat) f32.
-// All contiguous on one device; indices are trusted to be in range.
+// success). The piece table (piece_ptr (P+1) int64, piece_row (the type),
+// piece_slot and piece_order (P) int32, long_rows (L) int32, long_slot_ptr
+// (L+1) int64) is graph.py::build_segments'; src, dst, eid: (E) int32 in type
+// order; weight: f32 indexed by eid; x: (N, num_feat) f32 (not read for
+// mul_op 1); g: (V, num_feat) f32; partial: (slots, num_feat) f32 scratch
+// (unread without long types); out: (num_types, num_feat) f32. All
+// contiguous on one device; indices are trusted to be in range.
 // num_feat % 4 != 0 or a misaligned x, g, partial or out returns
 // cudaErrorInvalidValue and launches nothing.
-extern "C" int rspmm_sum_drel(const void* chunkptr, const void* type_chunkptr,
+extern "C" int rspmm_sum_drel(const void* piece_ptr, const void* piece_row,
+                              const void* piece_slot, const void* piece_order,
+                              const void* long_rows, const void* long_slot_ptr,
                               const void* src, const void* dst, const void* eid,
                               const void* weight, const void* x, const void* g,
-                              void* partial, void* out, long long num_chunks,
-                              long long num_types, long long num_feat, int mul_op,
+                              void* partial, void* out, long long num_pieces,
+                              long long num_long, long long num_feat, int mul_op,
                               void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_types <= 0 || num_chunks < 0 || num_feat <= 0 || num_feat % 4 != 0) {
+  if (!pieces::aligned16(x) || !pieces::aligned16(g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!aligned16(x) || !aligned16(g) || !aligned16(partial) || !aligned16(out)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long width = num_feat / 4;
-  const long long warps = (width + 31) / 32;
-  const int threads = static_cast<int>(warps < 8 ? warps * 32 : 256);
-  const unsigned tiles = static_cast<unsigned>((width + threads - 1) / threads);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* cp = static_cast<const int64_t*>(chunkptr);
-  const auto* tcp = static_cast<const int64_t*>(type_chunkptr);
-  const auto* sr = static_cast<const int32_t*>(src);
-  const auto* ds = static_cast<const int32_t*>(dst);
-  const auto* id = static_cast<const int32_t*>(eid);
-  const auto* w = static_cast<const float*>(weight);
-  const auto* xs = static_cast<const float4*>(x);
-  const auto* gs = static_cast<const float4*>(g);
-  auto* part = static_cast<float4*>(partial);
-  if (num_chunks > 0) {
-    const dim3 grid(static_cast<unsigned>(num_chunks), tiles);
-    if (mul_op == 0) {
-      drel_chunk_kernel<0><<<grid, threads, 0, s>>>(cp, sr, ds, id, w, xs, gs, part, width);
-    } else {
-      drel_chunk_kernel<1><<<grid, threads, 0, s>>>(cp, sr, ds, id, w, xs, gs, part, width);
-    }
-    const int status = static_cast<int>(cudaGetLastError());
-    if (status != 0) return status;
-  }
-  const dim3 grid2(static_cast<unsigned>(num_types), tiles);
-  drel_type_kernel<<<grid2, threads, 0, s>>>(tcp, part, static_cast<float4*>(out), width);
-  return static_cast<int>(cudaGetLastError());
+  const pieces::Table t{
+      static_cast<const int64_t*>(piece_ptr), static_cast<const int32_t*>(piece_row),
+      static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
+      static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
+      static_cast<float4*>(partial), static_cast<float4*>(out), num_pieces, num_long, 0};
+  const DrelArgs a{static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+                   static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
+                   static_cast<const float4*>(x), static_cast<const float4*>(g)};
+  return mul_op == 0 ? pieces::launch<Drel<0>>(t, a, num_feat, stream)
+                     : pieces::launch<Drel<1>>(t, a, num_feat, stream);
 }

@@ -50,19 +50,12 @@ __device__ __forceinline__ float op(float r, float x) {
 }
 
 template <int OP>
-struct Sum {
-  __device__ static float4 init() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+struct Sum : pieces::Adds {
   __device__ static void add(float4& acc, float w, const float4& r, const float4& x) {
     acc.x += w * op<OP>(r.x, x.x);
     acc.y += w * op<OP>(r.y, x.y);
     acc.z += w * op<OP>(r.z, x.z);
     acc.w += w * op<OP>(r.w, x.w);
-  }
-  __device__ static void merge(float4& acc, const float4& p) {
-    acc.x += p.x;
-    acc.y += p.y;
-    acc.z += p.z;
-    acc.w += p.w;
   }
 };
 
@@ -86,15 +79,18 @@ extern "C" int rspmm_sum_fwd(const void* piece_ptr, const void* piece_row,
                              long long num_long, long long num_feat, int mul_op,
                              void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const pieces::Operands a{
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const pieces::Table t{
       static_cast<const int64_t*>(piece_ptr), static_cast<const int32_t*>(piece_row),
       static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
-      static_cast<const int32_t*>(long_rows),
-      static_cast<const int64_t*>(long_slot_ptr), static_cast<const int32_t*>(col),
-      static_cast<const int32_t*>(etype), static_cast<const int32_t*>(eid),
-      static_cast<const float*>(weight), static_cast<const float4*>(rel),
-      static_cast<const float4*>(x), static_cast<float4*>(partial), static_cast<float4*>(out),
-      num_pieces, num_long, 0};
-  return mul_op == 0 ? pieces::launch<Sum<0>>(a, num_feat, stream)
-                     : pieces::launch<Sum<1>>(a, num_feat, stream);
+      static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
+      static_cast<float4*>(partial), static_cast<float4*>(out), num_pieces, num_long, 0};
+  const pieces::GatherArgs a{
+      static_cast<const int32_t*>(col), static_cast<const int32_t*>(etype),
+      static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
+      static_cast<const float4*>(rel), static_cast<const float4*>(x)};
+  return mul_op == 0 ? pieces::launch<pieces::Gather<Sum<0>>>(t, a, num_feat, stream)
+                     : pieces::launch<pieces::Gather<Sum<1>>>(t, a, num_feat, stream);
 }

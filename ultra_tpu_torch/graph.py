@@ -22,13 +22,16 @@ a runtime weight mask reaches every kernel with no rebuild:
 
   Each CSR also cuts its rows into pieces of at most :data:`ROW_PIECE`
   edges (the piece table, see :class:`CSR`). The sum and min/max forwards
-  (B1, B3) give each piece to its own group of threads, so a hub row (in
+  (B1, B3) and, on ``csr_src``, the sum and min/max input gradients (B1,
+  B4) give each piece to its own group of threads, so a hub row (in
   FB15k-237's shape, 3,031 edges against a mean of 37) spreads over many
   groups instead of setting the launch's length, and a second pass combines
   the pieces of each long row in a fixed order.
-- ``segments`` (:class:`TypeSegments`): edges sorted by type, cut into
-  chunks of at most :data:`SEGMENT_CHUNK` edges. The relation gradient
-  walks it.
+- ``segments`` (:class:`TypeSegments`): edges sorted by type. Each type's
+  run is cut into pieces (a piece table as a CSR's, with the type as the
+  row, of :func:`segment_piece` edges), which the sum relation gradient B2
+  walks, and into chunks of at most :data:`SEGMENT_CHUNK` edges, which the
+  min/max relation gradient B5 walks.
 """
 
 from __future__ import annotations
@@ -91,42 +94,87 @@ class CSR:
     long_slot_ptr: torch.Tensor
 
     def __post_init__(self):
-        edges, pieces, long = self.col.numel(), self.piece_row.numel(), self.long_rows.numel()
-        want = {"rowptr": (torch.int64, self.rowptr.numel()), "col": (torch.int32, edges),
-                "etype": (torch.int32, edges), "eid": (torch.int32, edges),
-                "piece_ptr": (torch.int64, pieces + 1), "piece_row": (torch.int32, pieces),
-                "piece_slot": (torch.int32, pieces), "piece_order": (torch.int32, pieces),
-                "long_rows": (torch.int32, long), "long_slot_ptr": (torch.int64, long + 1)}
-        for name, (dtype, length) in want.items():
-            t = getattr(self, name)
-            if t.dtype != dtype or t.dim() != 1 or t.numel() != length:
-                raise ValueError(f"CSR: {name} must be 1-D {dtype} of length {length}")
-            if t.device != self.col.device or not t.is_contiguous():
-                raise ValueError(f"CSR: {name} must be contiguous on {self.col.device}")
+        edges = self.col.numel()
+        _check_fields(self, self.col, {"rowptr": (torch.int64, self.rowptr.numel()),
+                                       "col": (torch.int32, edges),
+                                       "etype": (torch.int32, edges),
+                                       "eid": (torch.int32, edges)})
 
     @property
     def num_slots(self) -> int:
         """Partial rows of the long rows' pieces, from the shapes alone (every
         row has at least one piece), so reading it never waits on the card."""
-        return self.piece_row.numel() - (self.rowptr.numel() - 1) + self.long_rows.numel()
+        return _num_slots(self, self.rowptr.numel() - 1)
 
     def to(self, device) -> "CSR":
         return CSR(*(t.to(device) for t in dataclasses.astuple(self)))
 
 
+def _check_fields(layout, like: torch.Tensor, want: dict) -> None:
+    """Checks a layout's tensors of ``want`` (name -> (dtype, length)) and
+    its piece table: 1-D, of those types and lengths, contiguous on
+    ``like``'s device."""
+    pieces, long = layout.piece_row.numel(), layout.long_rows.numel()
+    want = {**want, "piece_ptr": (torch.int64, pieces + 1), "piece_row": (torch.int32, pieces),
+            "piece_slot": (torch.int32, pieces), "piece_order": (torch.int32, pieces),
+            "long_rows": (torch.int32, long), "long_slot_ptr": (torch.int64, long + 1)}
+    kind = type(layout).__name__
+    for name, (dtype, length) in want.items():
+        t = getattr(layout, name)
+        if t.dtype != dtype or t.dim() != 1 or t.numel() != length:
+            raise ValueError(f"{kind}: {name} must be 1-D {dtype} of length {length}")
+        if t.device != like.device or not t.is_contiguous():
+            raise ValueError(f"{kind}: {name} must be contiguous on {like.device}")
+
+
+def _num_slots(layout, num_rows: int) -> int:
+    return layout.piece_row.numel() - num_rows + layout.long_rows.numel()
+
+
 SEGMENT_CHUNK = 256  # edges per chunk of a type segment
 ROW_PIECE = 128  # edges per piece of a CSR row
+# the lengths a type segment's pieces may take, and the pieces the relation
+# gradient should have at least: 4 groups of threads on each of an H100's
+# 132 SMs (segment_piece)
+SEGMENT_PIECES = (256, 128, 64, 32)
+SEGMENT_MIN_PIECES = 4 * 132
+
+
+def segment_piece(counts: torch.Tensor) -> int:
+    """The piece length of type segments whose types have ``counts`` edges:
+    the largest of :data:`SEGMENT_PIECES` that cuts them into at least
+    :data:`SEGMENT_MIN_PIECES` pieces (a type of no edges is one piece), else
+    the shortest. On FB15k-237's shape that is 256 for the entity graph
+    (544,230 edges in 474 types) and 32 for the relation graph (about 31,700
+    in 4 types): long pieces where there are edges enough to fill the card,
+    short ones where there are not."""
+    for piece in SEGMENT_PIECES:
+        if int((-(-counts // piece)).clamp_min(1).sum()) >= SEGMENT_MIN_PIECES:
+            return piece
+    return SEGMENT_PIECES[-1]
 
 
 @dataclasses.dataclass(frozen=True)
 class TypeSegments:
     """Edges sorted by type (stable, so destination-major within a type),
-    each type's run cut into chunks of at most :data:`SEGMENT_CHUNK` edges.
+    with two tables over each type's run.
 
-    ``etype``, ``src``, ``dst`` and ``eid`` are (E_live,) int32. Chunk ``k``
-    holds edges ``chunkptr[k]:chunkptr[k+1]`` (``chunkptr`` (K+1,) int64);
-    the chunks of type ``t`` are ``type_chunkptr[t]:type_chunkptr[t+1]``
-    (``type_chunkptr`` (R+1,) int64). A type with no edges has no chunk.
+    ``etype``, ``src``, ``dst`` and ``eid`` are (E_live,) int32.
+
+    The piece table, a :class:`CSR`'s with the type as the row (B2 walks
+    it): pieces of at most ``piece_len`` edges (:func:`segment_piece`),
+    ``piece_ptr`` ... ``long_slot_ptr`` as in :class:`CSR`, so a type with no
+    edges is one piece of none and ``long_rows`` are the types of more than
+    one piece.
+
+    The chunk table (B5 walks it): chunk ``k`` holds edges
+    ``chunkptr[k]:chunkptr[k+1]`` (``chunkptr`` (K+1,) int64), at most
+    :data:`SEGMENT_CHUNK` of them; the chunks of type ``t`` are
+    ``type_chunkptr[t]:type_chunkptr[t+1]`` (``type_chunkptr`` (R+1,)
+    int64). A type with no edges has no chunk.
+
+    The segments check their tensors' types, lengths and device when they
+    are made, so the relation gradient's wrapper checks only ``src``.
     """
 
     etype: torch.Tensor
@@ -135,21 +183,45 @@ class TypeSegments:
     eid: torch.Tensor
     chunkptr: torch.Tensor
     type_chunkptr: torch.Tensor
+    piece_ptr: torch.Tensor
+    piece_row: torch.Tensor
+    piece_slot: torch.Tensor
+    piece_order: torch.Tensor
+    long_rows: torch.Tensor
+    long_slot_ptr: torch.Tensor
+    piece_len: int
+
+    def __post_init__(self):
+        edges = self.src.numel()
+        _check_fields(self, self.src, {
+            "etype": (torch.int32, edges), "src": (torch.int32, edges),
+            "dst": (torch.int32, edges), "eid": (torch.int32, edges),
+            "chunkptr": (torch.int64, self.chunkptr.numel()),
+            "type_chunkptr": (torch.int64, self.type_chunkptr.numel())})
 
     @property
     def num_types(self) -> int:
         return self.type_chunkptr.numel() - 1
 
+    @property
+    def num_slots(self) -> int:
+        """Partial rows of the long types' pieces, from the shapes alone."""
+        return _num_slots(self, self.num_types)
+
     def to(self, device) -> "TypeSegments":
-        return TypeSegments(*(t.to(device) for t in dataclasses.astuple(self)))
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self) if f.name != "piece_len"})
 
 
-def build_segments(csr: CSR, num_types: int) -> TypeSegments:
-    """The type segments of ``csr``'s edges, with their chunk table.
+def build_segments(csr: CSR, num_types: int, piece_len: Optional[int] = None) -> TypeSegments:
+    """The type segments of ``csr``'s edges, with their piece table (pieces
+    of ``piece_len`` edges, by default :func:`segment_piece`'s) and chunk
+    table.
 
-    Many chunks per type let one type's edges spread over many blocks: the
-    relation graph has 4 types, and a block per type would leave most of the
-    card idle."""
+    Many pieces per type let one type's edges spread over many groups of
+    threads: the relation graph has 4 types, and a block per type would
+    leave most of the card idle."""
     device = csr.col.device
     num_rows = csr.rowptr.numel() - 1
     dst = torch.repeat_interleave(
@@ -159,17 +231,20 @@ def build_segments(csr: CSR, num_types: int) -> TypeSegments:
     etype = csr.etype.long()
     order = torch.argsort(etype, stable=True)
     counts = torch.bincount(etype, minlength=num_types)
+    type_ptr = torch.zeros(num_types + 1, dtype=torch.int64, device=device)
+    type_ptr[1:] = torch.cumsum(counts, 0)
+    if piece_len is None:
+        piece_len = segment_piece(counts)
     chunks = -(-counts // SEGMENT_CHUNK)  # per type
     type_chunkptr = torch.zeros(num_types + 1, dtype=torch.int64, device=device)
     type_chunkptr[1:] = torch.cumsum(chunks, 0)
     # chunk k of type t starts at t's first edge + SEGMENT_CHUNK * (k - t's first chunk)
-    type_start = torch.cumsum(counts, 0) - counts
     chunk_type = torch.repeat_interleave(
         torch.arange(num_types, device=device), chunks, output_size=int(type_chunkptr[-1]),
     )
     k = torch.arange(chunk_type.numel(), device=device)
     chunkptr = torch.empty(chunk_type.numel() + 1, dtype=torch.int64, device=device)
-    chunkptr[:-1] = type_start[chunk_type] + SEGMENT_CHUNK * (k - type_chunkptr[chunk_type])
+    chunkptr[:-1] = type_ptr[chunk_type] + SEGMENT_CHUNK * (k - type_chunkptr[chunk_type])
     chunkptr[-1] = csr.col.numel()
     return TypeSegments(
         etype=etype[order].to(torch.int32),
@@ -178,6 +253,8 @@ def build_segments(csr: CSR, num_types: int) -> TypeSegments:
         eid=csr.eid[order],
         chunkptr=chunkptr,
         type_chunkptr=type_chunkptr,
+        **_pieces(type_ptr, counts, piece_len),
+        piece_len=piece_len,
     )
 
 
@@ -203,17 +280,17 @@ def build_csr(edge_index, edge_type, num_nodes: int, edge_ids=None) -> CSR:
         col=edge_index[1][order].to(torch.int32),
         etype=edge_type[order].to(torch.int32),
         eid=edge_ids[order].to(torch.int32),
-        **_pieces(rowptr, counts),
+        **_pieces(rowptr, counts, ROW_PIECE),
     )
 
 
-def _pieces(rowptr, counts):
-    """The piece table of a CSR with these row pointers and row lengths (the
-    fields of :class:`CSR` from ``piece_ptr`` on), as ``build_segments`` cuts
-    a type's run into chunks."""
+def _pieces(rowptr, counts, piece_len: int):
+    """The piece table of rows with these pointers and lengths, cut into
+    pieces of at most ``piece_len`` edges (the fields of :class:`CSR` from
+    ``piece_ptr`` on)."""
     device = rowptr.device
     num_rows = counts.numel()
-    pieces = (-(-counts // ROW_PIECE)).clamp_min(1)  # per row
+    pieces = (-(-counts // piece_len)).clamp_min(1)  # per row
     row_first = torch.cumsum(pieces, 0) - pieces  # each row's first piece
     num_pieces = int(pieces.sum())
     piece_row = torch.repeat_interleave(
@@ -221,7 +298,7 @@ def _pieces(rowptr, counts):
     )
     k = torch.arange(num_pieces, device=device) - row_first[piece_row]
     piece_ptr = torch.empty(num_pieces + 1, dtype=torch.int64, device=device)
-    piece_ptr[:-1] = rowptr[piece_row] + ROW_PIECE * k
+    piece_ptr[:-1] = rowptr[piece_row] + piece_len * k
     piece_ptr[-1] = rowptr[-1]
     lengths = piece_ptr.diff()
     order = torch.sort(lengths, descending=True, stable=True).indices

@@ -34,6 +34,9 @@ class NBFNetConfig:
     activation: str = "relu"
     concat_hidden: bool = False
     num_mlp_layer: int = 2
+    # training masks every edge between a batch's head and tail, not only
+    # its (h, r, t) edges and their inverses (tasks.easy_edge_weights)
+    remove_one_hop: bool = False
     project_relations: bool = False
     # recompute each conv in the backward instead of keeping its activations
     # (torch.utils.checkpoint): O(V*B*D) live memory per stack instead of per

@@ -85,6 +85,21 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
     return logs
 
 
+def ptxas_usage(log: str) -> list:
+    """Each kernel's resources from a build's compiler output (``-Xptxas
+    -v``): "<entry>: <registers, barriers>; <stack and spills>"."""
+    usage, entry, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry, spills = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            usage.append(f"{entry}: {line.split('Used', 1)[1].strip()}; {spills}")
+            entry = None
+    return usage
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     lib = _LIBS.get(name)

@@ -15,7 +15,8 @@ launch counters, and their plain PyTorch versions.
 - B2, ``csrc/rspmm_sum_drel.cu``: the relation gradient over the type
   segments (:func:`rspmm_sum_drel`). It replaces
   ``rspmm_pallas.py::_rel_grad_kernel``, ``rspmm_pallas_v2.py::_drel_kernel``
-  and ``rspmm_pallas_v2.py::_drel_add_kernel``.
+  and ``rspmm_pallas_v2.py::_drel_add_kernel``. It walks the segments' piece
+  table as B1 walks a CSR's, with the type as the row.
 - B6, ``csrc/rspmm_dw.cu``: the edge-weight gradient over the
   destination-major CSR, for the sum and (given the forward's output) the
   min/max aggregators (:func:`rspmm_dw`). It replaces
@@ -49,7 +50,7 @@ _ARGTYPES = {
     "rspmm_sum_fwd": [ctypes.c_void_p] * 14 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ],
-    "rspmm_sum_drel": [ctypes.c_void_p] * 10 + [
+    "rspmm_sum_drel": [ctypes.c_void_p] * 14 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ],
@@ -57,8 +58,9 @@ _ARGTYPES = {
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
-    "rspmm_minmax_dx": [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    "rspmm_minmax_dx": [ctypes.c_void_p] * 16 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p,
     ],
     "rspmm_minmax_drel": [ctypes.c_void_p] * 13 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
@@ -138,34 +140,54 @@ def _check_device_tensors(op: str, device, rows, ptrs, ints, floats):
             raise TypeError(f"{op}: {name} must be 1-D int32 of length {n}")
 
 
+# the piece table's fields, in the kernels' C order (graph.CSR, graph.TypeSegments)
+_TABLE = ("piece_ptr", "piece_row", "piece_slot", "piece_order", "long_rows", "long_slot_ptr")
+
+
+def _launch_walk(name: str, op: str, table, num_rows: int, indices: dict, edge_weight,
+                 rows: dict, *codes, out_name: str = "out"):
+    """The kernel ``name`` (B1, B2, B3 or B4) on the card over ``table``'s
+    pieces (a :class:`CSR` or the :class:`TypeSegments`); (num_rows, F) f32
+    out. Its C arguments: the piece table, ``indices`` (the layout's three
+    index arrays), ``edge_weight``, ``rows`` (the kernel's f32 row
+    operands), each in the kernel's order, the partial rows' scratch, the
+    output, the counts and F, then ``codes`` (mul_op, and is_min for B3)."""
+    kernel = _kernel(name)
+    num_feat = next(iter(rows.values())).shape[1]
+    device = edge_weight.device
+    num_pieces, num_long = table.piece_row.numel(), table.long_rows.numel()
+    out = torch.empty(num_rows, num_feat, dtype=torch.float32, device=device)
+    scratch = {out_name: out}
+    if num_long:  # the long rows' partials; none where every row is one piece
+        scratch["partial"] = torch.empty(table.num_slots, num_feat, dtype=torch.float32,
+                                         device=device)
+    # the layout checked its own fields' types, lengths and device when it
+    # was made (graph.CSR, graph.TypeSegments): its first index array stands
+    # for all of them
+    first = next(iter(indices))
+    _check_device_tensors(op, device, rows={**rows, **scratch}, ptrs={},
+                          ints={first: indices[first]}, floats={"edge_weight": edge_weight})
+    if num_rows == 0 or num_feat == 0:
+        return out
+    operands = ([getattr(table, f) for f in _TABLE] + list(indices.values()) + [edge_weight]
+                + list(rows.values()))
+    partial = scratch["partial"].data_ptr() if num_long else 0
+    with torch.cuda.device(device):
+        status = kernel(*(t.data_ptr() for t in operands), partial, out.data_ptr(),
+                        num_pieces, num_long, num_feat,
+                        *codes, torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{op} launch failed with CUDA error {status}")
+    return out
+
+
 def _launch_pieces(name: str, op: str, csr: CSR, edge_weight, relation, x, *codes):
     """B1 (``name`` "rspmm_sum_fwd") or B3 ("rspmm_minmax_fwd") on the card
     over ``csr``'s piece table; (rows of ``csr``, F) f32 out. ``codes`` are
     the kernel's int arguments after F (mul_op, and is_min for B3)."""
-    kernel = _kernel(name)
-    num_rows, num_feat = csr.rowptr.numel() - 1, x.shape[1]
-    num_pieces, num_long = csr.piece_row.numel(), csr.long_rows.numel()
-    out = torch.empty(num_rows, num_feat, dtype=torch.float32, device=x.device)
-    rows = {"relation": relation, "x": x, "out": out}
-    if num_long:  # scratch for the long rows' partials; none where every row is one piece
-        rows["partial"] = torch.empty(csr.num_slots, num_feat, dtype=torch.float32,
-                                      device=x.device)
-    # the CSR checked its own fields' types, lengths and device when it was
-    # made (graph.CSR): its col stands for all of them
-    _check_device_tensors(op, x.device, rows=rows, ptrs={}, ints={"col": csr.col},
-                          floats={"edge_weight": edge_weight})
-    if num_rows == 0 or num_feat == 0:
-        return out
-    operands = (csr.piece_ptr, csr.piece_row, csr.piece_slot, csr.piece_order, csr.long_rows,
-                csr.long_slot_ptr, csr.col, csr.etype, csr.eid, edge_weight, relation, x)
-    partial = rows["partial"].data_ptr() if num_long else 0
-    with torch.cuda.device(x.device):
-        status = kernel(*(t.data_ptr() for t in operands), partial, out.data_ptr(),
-                        num_pieces, num_long, num_feat,
-                        *codes, torch.cuda.current_stream(x.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"{op} launch failed with CUDA error {status}")
-    return out
+    return _launch_walk(name, op, csr, csr.rowptr.numel() - 1,
+                        {"col": csr.col, "etype": csr.etype, "eid": csr.eid}, edge_weight,
+                        {"relation": relation, "x": x}, *codes)
 
 
 def _csr_rows(csr: CSR):
@@ -257,9 +279,9 @@ def rspmm_sum_drel(seg: TypeSegments, edge_weight, x, g, mul: str = "mul"):
     """Relation gradient of the sum rspmm: (R, F) f32, R = ``seg.num_types``,
     from the forward's input ``x`` (N, F; not read for ``"add"``) and the
     output gradient ``g`` (V, F). On a CPU tensor this runs
-    :func:`rspmm_sum_drel_plain`; on a CUDA tensor it launches B2 (both of
-    its passes, one count), building it first if needed, and raises if it
-    cannot."""
+    :func:`rspmm_sum_drel_plain`; on a CUDA tensor it launches B2 over the
+    segments' piece table (both of its passes, one count), building it first
+    if needed, and raises if it cannot."""
     _check_mul(mul)
     _check_f32("rspmm_sum_drel", x=x, g=g, edge_weight=edge_weight)
     if x.dim() != 2 or g.dim() != 2 or x.shape[1] != g.shape[1]:
@@ -267,29 +289,9 @@ def rspmm_sum_drel(seg: TypeSegments, edge_weight, x, g, mul: str = "mul"):
                          f"{tuple(g.shape)}")
     if g.device.type == "cpu":
         return rspmm_sum_drel_plain(seg, edge_weight, x, g, mul)
-    kernel = _kernel("rspmm_sum_drel")
-    num_chunks, num_types, num_feat = seg.chunkptr.numel() - 1, seg.num_types, g.shape[1]
-    out = torch.empty(num_types, num_feat, dtype=torch.float32, device=g.device)
-    partial = torch.empty(num_chunks, num_feat, dtype=torch.float32, device=g.device)
-    _check_device_tensors(
-        "rspmm_sum_drel", g.device,
-        rows={"x": x, "g": g, "partial": partial, "out": out},
-        ptrs={"chunkptr": seg.chunkptr, "type_chunkptr": seg.type_chunkptr},
-        ints={"src": seg.src, "dst": seg.dst, "eid": seg.eid},
-        floats={"edge_weight": edge_weight},
-    )
-    if num_types == 0 or num_feat == 0:
-        return out
-    with torch.cuda.device(g.device):
-        status = kernel(
-            seg.chunkptr.data_ptr(), seg.type_chunkptr.data_ptr(), seg.src.data_ptr(),
-            seg.dst.data_ptr(), seg.eid.data_ptr(), edge_weight.data_ptr(),
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            num_chunks, num_types, num_feat, _MUL_CODE[mul],
-            torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"rspmm_sum_drel launch failed with CUDA error {status}")
+    out = _launch_walk("rspmm_sum_drel", "rspmm_sum_drel", seg, seg.num_types,
+                       {"src": seg.src, "dst": seg.dst, "eid": seg.eid}, edge_weight,
+                       {"x": x, "g": g}, _MUL_CODE[mul])
     rspmm_sum_drel.launches[tuple(out.shape)] += 1
     return out
 

@@ -11,7 +11,8 @@ and launch counters, and their plain PyTorch versions.
 - B4, ``csrc/rspmm_minmax_dx.cu``: the input gradient over the source-major
   CSR (:func:`rspmm_minmax_dx`). It replaces
   ``rspmm_pallas.py::_minmax_dx_kernel`` and
-  ``rspmm_pallas_v2.py::_minmax_dx_kernel_v2``.
+  ``rspmm_pallas_v2.py::_minmax_dx_kernel_v2``. It walks that CSR's piece
+  table as B1 does, and adds a long row's partial rows in slot order.
 - B5, ``csrc/rspmm_minmax_drel.cu``: the relation gradient over the type
   segments (:func:`rspmm_minmax_drel`). It replaces
   ``rspmm_pallas.py::_minmax_drel_kernel`` and
@@ -39,7 +40,7 @@ import torch
 from ultra_tpu_torch.graph import CSR, TypeSegments
 from ultra_tpu_torch.ops.rspmm_cuda import (
     _MUL_CODE, _check_device_tensors, _check_dtypes, _check_f32, _csr_rows, _kernel,
-    _launch_pieces,
+    _launch_pieces, _launch_walk,
 )
 
 
@@ -133,32 +134,17 @@ def rspmm_minmax_dx(csr_src: CSR, edge_weight, relation, x, g, out, mul: str = "
     input ``x`` (N, F), its saved output ``out`` (V, F; +-inf rows kept)
     and the output gradient ``g`` (V, F), walking the source-major CSR
     ``csr_src``. On a CPU tensor this runs :func:`rspmm_minmax_dx_plain`; on
-    a CUDA tensor it launches B4, building it first if needed, and raises if
-    it cannot."""
+    a CUDA tensor it launches B4 over ``csr_src``'s piece table (both of its
+    passes, one count), building it first if needed, and raises if it
+    cannot."""
     _check_backward("rspmm_minmax_dx", edge_weight, relation, x, g, out, mul)
     if g.device.type == "cpu":
         return rspmm_minmax_dx_plain(csr_src, edge_weight, relation, x, g, out, mul)
-    kernel = _kernel("rspmm_minmax_dx")
-    num_rows, num_feat = csr_src.rowptr.numel() - 1, x.shape[1]
-    d_x = torch.empty(num_rows, num_feat, dtype=torch.float32, device=g.device)
-    _check_device_tensors(
-        "rspmm_minmax_dx", g.device,
-        rows={"relation": relation, "x": x, "g": g, "out": out, "d_x": d_x},
-        ptrs={"rowptr": csr_src.rowptr},
-        ints={"col": csr_src.col, "etype": csr_src.etype, "eid": csr_src.eid},
-        floats={"edge_weight": edge_weight},
-    )
-    if num_rows == 0 or num_feat == 0:
-        return d_x
-    with torch.cuda.device(g.device):
-        status = kernel(
-            csr_src.rowptr.data_ptr(), csr_src.col.data_ptr(), csr_src.etype.data_ptr(),
-            csr_src.eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(),
-            x.data_ptr(), g.data_ptr(), out.data_ptr(), d_x.data_ptr(), num_rows,
-            num_feat, _MUL_CODE[mul], torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"rspmm_minmax_dx launch failed with CUDA error {status}")
+    d_x = _launch_walk("rspmm_minmax_dx", "rspmm_minmax_dx", csr_src,
+                       csr_src.rowptr.numel() - 1,
+                       {"col": csr_src.col, "etype": csr_src.etype, "eid": csr_src.eid},
+                       edge_weight, {"relation": relation, "x": x, "g": g, "out": out},
+                       _MUL_CODE[mul], out_name="d_x")
     rspmm_minmax_dx.launches[tuple(d_x.shape)] += 1
     return d_x
 

@@ -36,10 +36,10 @@ def model_config_from_dict(model_cfg: dict) -> UltraConfig:
     """The YAML's ``model`` section -> :class:`UltraConfig` (the reference's
     class dispatch, ``models.py:14-15``).
 
-    Two of the JAX package's keys are not carried: ``precision`` (the TPU
-    matrix units' pass count; the port's kernels are exact f32) and
-    ``remove_one_hop`` (read by the JAX runner's training loop, whose port
-    is ROADMAP A6). ``compute_dtype: bfloat16`` raises: bf16 operands are
+    One of the JAX package's keys is not carried: ``precision`` (the TPU
+    matrix units' pass count; the port's kernels are exact f32).
+    ``remove_one_hop`` is kept: :func:`train_and_validate` reads it from the
+    entity model. ``compute_dtype: bfloat16`` raises: bf16 operands are
     ROADMAP B1."""
 
     def nbf(cfg: dict, project_relations: bool) -> NBFNetConfig:
@@ -59,6 +59,7 @@ def model_config_from_dict(model_cfg: dict) -> UltraConfig:
             activation=cfg.get("activation", "relu"),
             concat_hidden=bool(cfg.get("concat_hidden", False)),
             num_mlp_layer=int(cfg.get("num_mlp_layer", 2)),
+            remove_one_hop=bool(cfg.get("remove_one_hop", False)),
             remat=bool(cfg.get("remat", False)),
             project_relations=project_relations,
         )
@@ -159,7 +160,9 @@ def train_and_validate(
                     take = np.concatenate([take, perm[: batch_size - len(take)]])
                 batch = tasks.negative_sampling(
                     train_index, triples[take], num_negative, strict=strict, rng=rng)
-                ew = tasks.easy_edge_weights(train_index, batch, train_graph.num_edges_padded)
+                ew = tasks.easy_edge_weights(
+                    train_index, batch, train_graph.num_edges_padded,
+                    remove_one_hop=model.cfg.entity_model.remove_one_hop)
                 losses.append(step_fn(state, train_graph,
                                       torch.as_tensor(batch, device=device),
                                       torch.as_tensor(ew, device=device)))
