@@ -22,13 +22,13 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    the edge-weight gradient B6 on the entity graph at F=64 (attribution)
    and F=512, for the sum and for min and max, on those inputs; and B1
    (forward on both graphs, input gradient) and B6 at F=64 on the repo's
-   rule-KG, which ``[visualize]`` explains a prediction on. B1, B3 and B4
-   walk their CSR's piece table (``graph.ROW_PIECE``) and B2 the type
-   segments' (``graph.segment_piece``): B1, B3 and B4 are also timed on a
-   graph with uniformly drawn destinations (``uniform_ms``), all four are
-   held against their plain versions on layouts whose rows sit on each side
-   of a piece's length, and two launches each of B1, B2 and B4 must give
-   the same bits;
+   rule-KG, which ``[visualize]`` explains a prediction on. B1, B3, B4 and
+   B6 walk their CSR's piece table (``graph.ROW_PIECE``) and B2 and B5 the
+   type segments' (``graph.segment_piece``): B1, B3, B4 and B6 are also
+   timed on a graph with uniformly drawn destinations (``uniform_ms``), all
+   six are held against their plain versions on layouts whose rows sit on
+   each side of a piece's length (B6 also at F=16,384), and two launches
+   each of B1, B2, B4, B5 and B6 must give the same bits;
 5. serves zero-shot link prediction at the full ``ultra_3g`` width (6x64
    RelNBFNet + 6x64 EntityNBFNet, distmult, sum) with random weights from a
    seed, on the FB15k-237-shaped synthetic graph, through
@@ -182,6 +182,9 @@ VIS_GRAD_REL_TO_MAX, VIS_WEIGHT_RTOL = 1e-4, 1e-3
 # and the TF32 control must not pass.
 VIS_MINMAX_EDGES_OFF = 4e-4
 VIS_QUERIES = 4
+# B6 keeps no row in shared memory, so it takes any width: it is also held
+# at one whose g and out rows would not fit 48 KB of it
+DW_WIDE = 16384
 # the in-repo rule-KG that [visualize] explains predictions on, and its
 # constructor keys (kg-datasets/synthrule-v5000-b12-c6-e45000-s3: 4,326
 # entities in a triple, 136,010 train triples, 272,020 message edges)
@@ -237,14 +240,12 @@ def minmax_dx_bound_ms(csr_src, edge_weight, relation, x, g):
 
 def minmax_drel_bound_ms(seg, edge_weight, relation, x, g):
     """Least time for one min/max relation gradient on these inputs: x, g,
-    the saved output, the relation rows, the segments and the chunk tables
-    read once, the partial rows written and read once, d_rel written once,
-    and 6 f32 operations per feature of each edge whose weight is not 0."""
-    feat = g.shape[1]
-    nbytes = 4 * (x.numel() + 2 * g.numel() + 2 * relation.numel())
-    nbytes += 4 * 2 * (seg.chunkptr.numel() - 1) * feat
-    nbytes += 16 * seg.src.numel() + 8 * (seg.chunkptr.numel() + seg.type_chunkptr.numel())
-    return bound_ms(nbytes, 6 * live_edges(edge_weight, seg.eid) * feat)
+    the saved output (g's shape), the relation rows and the segments (src,
+    dst, eid and the weight of each edge) read once, d_rel written once, and
+    6 f32 operations per feature of each edge whose weight is not 0; the
+    piece table and the partial rows are not counted, as for B2."""
+    nbytes = 4 * (x.numel() + 2 * g.numel() + 2 * relation.numel()) + 16 * seg.src.numel()
+    return bound_ms(nbytes, 6 * live_edges(edge_weight, seg.eid) * g.shape[1])
 
 
 def kernel_row(name, source, replaces, out_shape, ms, plain_ms, bound, max_abs_err,
@@ -323,6 +324,66 @@ def minmax_weights(g_, gen):
     return w.cuda(), row
 
 
+def minmax_inputs(r, n, feat, gen):
+    """Relation rows (r, feat) and x (n, feat) on the card, tie-heavy (from
+    {-3..3}, a quarter of x's rows 0) and normal: {"ties": (rel, x),
+    "normal": (rel, x)}."""
+    ties_x = torch.randint(-3, 4, (n, feat), generator=gen).float()
+    ties_x[torch.rand(n, generator=gen) < 0.25] = 0.0
+    return {"ties": (torch.randint(-3, 4, (r, feat), generator=gen).float().cuda(), ties_x.cuda()),
+            "normal": (torch.randn(r, feat, generator=gen).cuda(),
+                       torch.randn(n, feat, generator=gen).cuda())}
+
+
+# B6's cases: (aggregation, inputs, mul, is_min); the sum on normal inputs
+DW_CASES = [("sum", "normal", mul, None) for mul in ("mul", "add")] + [
+    ("minmax", kind, mul, is_min) for kind in ("ties", "normal") for mul in ("mul", "add")
+    for is_min in (False, True)]
+
+
+def dw_error(got, csr, w, rel, x, g, mul, out, masked=None):
+    """B6's output ``got`` against its plain version, which routes in f32 as
+    the forward did and adds in f64 (every input in f64 for the sum), within
+    KERNEL_REL_TO_ABS_SUM of the sum of the absolute terms plus KERNEL_ATOL,
+    and, where given, the eids ``masked`` at run time: the sum's derivative,
+    0 for min/max. Returns (max |err|, worst |err| over its tolerance, ok, routed
+    terms)."""
+    from ultra_tpu_torch.ops.rspmm_cuda import rspmm_dw_terms
+
+    if out is None:  # every input in f64
+        terms = rspmm_dw_terms(csr, w.double(), rel.double(), x.double(), g.double(), mul)
+    else:
+        terms = rspmm_dw_terms(csr, w, rel, x, g.double(), mul, out)
+    eid = csr.eid.long()
+    want = torch.zeros(w.shape, dtype=torch.float64, device=w.device)
+    abs_sum = want.clone().index_put_((eid,), terms.abs().sum(1))
+    want.index_put_((eid,), terms.sum(1))
+    routed = int((terms != 0).sum())
+    del terms
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs()
+    within = float((err / (KERNEL_REL_TO_ABS_SUM * abs_sum + KERNEL_ATOL)).max())
+    ok = bool(torch.isfinite(got).all()) and within <= 1
+    if masked is not None:
+        ok &= bool((got[masked] != 0).any() if out is None else (got[masked] == 0).all())
+    return float(err.max()), within, ok, routed
+
+
+def dw_slots_written(g_, rel, x, g):
+    """B6 (the sum) over ``g_``'s CSR into a d_w filled with NaN where the
+    wrapper zeroes it: (CSR edges whose slot was not written, slots not in
+    the CSR that were written); both 0 when the walk writes the CSR's edges
+    and nothing else."""
+    from ultra_tpu_torch.ops import rspmm_cuda as k
+
+    csr, w = g_.csr, g_.edge_weight
+    d_w = torch.full(w.shape, float("nan"), device=w.device)
+    k._launch_dw(k._kernel("rspmm_dw"), csr, w, rel, x, g, "mul", None, d_w)
+    in_csr = torch.zeros(w.shape, dtype=torch.bool, device=w.device)
+    in_csr[csr.eid.long()] = True
+    return int(d_w[in_csr].isnan().sum()), int((~d_w[~in_csr].isnan()).sum())
+
+
 def minmax_grad_error(got, terms_fn, layout, w, rel, x, g, out, mul, rows):
     """A min/max gradient kernel's output ``got`` (B4 or B5) against its
     plain version, which routes in f32 as the forward did and adds in f64
@@ -357,13 +418,7 @@ def hold_minmax(tag, g_, feat, gen, replaces):
 
     w, masked_row = minmax_weights(g_, gen)
     n, r = g_.num_nodes, g_.num_relations
-    ties_x = torch.randint(-3, 4, (n, feat), generator=gen).float()
-    ties_x[torch.rand(n, generator=gen) < 0.25] = 0.0
-    inputs = {
-        "ties": (torch.randint(-3, 4, (r, feat), generator=gen).float().cuda(), ties_x.cuda()),
-        "normal": (torch.randn(r, feat, generator=gen).cuda(),
-                   torch.randn(n, feat, generator=gen).cuda()),
-    }
+    inputs = minmax_inputs(r, n, feat, gen)
     g = torch.randn(n, feat, generator=gen).cuda()
     grads = (("dx", k.rspmm_minmax_dx, k.rspmm_minmax_dx_terms, g_.csr_src, n),
              ("drel", k.rspmm_minmax_drel, k.rspmm_minmax_drel_terms, g_.segments, r))
@@ -445,44 +500,19 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
                                "against the plain version routed in f32 and added in f64")
     replaces = "ultra_tpu/ops/rspmm_pallas.py:465"
     for feat in feats:
-        ties_x = torch.randint(-3, 4, (n, feat), generator=gen).float()
-        ties_x[torch.rand(n, generator=gen) < 0.25] = 0.0
-        inputs = {"ties": (torch.randint(-3, 4, (r, feat), generator=gen).float().cuda(),
-                           ties_x.cuda()),
-                  "normal": (torch.randn(r, feat, generator=gen).cuda(),
-                             torch.randn(n, feat, generator=gen).cuda())}
+        inputs = minmax_inputs(r, n, feat, gen)
         g = torch.randn(n, feat, generator=gen).cuda()
         errs = {"sum": 0.0, "minmax": 0.0}
-        cases = [("sum", "normal", mul, None) for mul in ("mul", "add")] + [
-            ("minmax", kind, mul, is_min) for kind in ("ties", "normal")
-            for mul in ("mul", "add") for is_min in (False, True)]
-        for agg, kind, mul, is_min in cases:
+        for agg, kind, mul, is_min in DW_CASES:
             rel, x = inputs[kind]
             out = None if agg == "sum" else rspmm_minmax_fwd(csr, w, rel, x, mul, is_min)
-            got = k.rspmm_dw(csr, w, rel, x, g, mul, out)
-            if agg == "sum":  # every input in f64
-                terms = k.rspmm_dw_terms(csr, w.double(), rel.double(), x.double(), g.double(),
-                                         mul)
-            else:
-                terms = k.rspmm_dw_terms(csr, w, rel, x, g.double(), mul, out)
-            eid = csr.eid.long()
-            want = torch.zeros(w.shape, dtype=torch.float64, device="cuda")
-            abs_sum = want.clone().index_put_((eid,), terms.abs().sum(1))
-            want.index_put_((eid,), terms.sum(1))
-            routed = int((terms != 0).sum())
-            del terms
-            torch.cuda.synchronize()
-            err = (got.double() - want).abs()
-            within = float((err / (KERNEL_REL_TO_ABS_SUM * abs_sum + KERNEL_ATOL)).max())
-            case_ok = bool(torch.isfinite(got).all()) and within <= 1
-            # the masked row: the sum's derivative, 0 for min/max
-            case_ok &= bool((got[masked] != 0).any() if agg == "sum"
-                            else (got[masked] == 0).all())
+            err, within, case_ok, routed = dw_error(k.rspmm_dw(csr, w, rel, x, g, mul, out), csr,
+                                                    w, rel, x, g, mul, out, masked)
             ok &= case_ok
-            errs[agg] = max(errs[agg], float(err.max()))
+            errs[agg] = max(errs[agg], err)
             name = "sum" if agg == "sum" else ("min" if is_min else "max")
             print(f"[kernel] rspmm_dw {tag} F={feat} {kind} mul={mul} {name}: ok={case_ok} "
-                  f"max_abs_err={float(err.max())!r} worst_err_over_tolerance={within!r} "
+                  f"max_abs_err={err!r} worst_err_over_tolerance={within!r} "
                   f"routed_terms={routed}", flush=True)
         rel, x = inputs["normal"]
         timed = [(f"rspmm_dw/{tag}/F{feat}", None, feat == 64)]
@@ -502,31 +532,39 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
 
 
 def piece_checks(graph, uniform, rows, feat, dim, gen):
-    """B1, B2, B3 and B4 beside their layouts' piece tables
-    (``graph.ROW_PIECE``, ``graph.segment_piece``), at ``feat`` (a batch's
-    width) and ``dim`` (attribution's):
+    """B1-B6 beside their layouts' piece tables (``graph.ROW_PIECE``,
+    ``graph.segment_piece``), at ``feat`` (a batch's width) and ``dim``
+    (attribution's):
 
     - the kernels-line rows of the entity graph's B1 forward at both
-      widths, its d_x, B3 and B4 at ``feat`` get ``uniform_ms``, the same
-      launch on ``uniform`` (the graph's sources, types and edge count,
-      uniformly drawn destinations) walking its destination-major CSR, whose
-      rows are all short (for d_x and B4 it stands for the CSR by source of
-      uniformly drawn sources; B4 routes against the forward of that
-      transposed graph), and ``max_in_degree`` (and
-      ``uniform_max_in_degree``), the longest row the launch walks on each
-      graph; the B2 rows get ``piece_len``, the segments' piece length;
+      widths, its d_x, B3 and B4 at ``feat`` and B6 at ``dim`` get
+      ``uniform_ms``, the same launch on ``uniform`` (the graph's sources,
+      types and edge count, uniformly drawn destinations) walking its
+      destination-major CSR, whose rows are all short (for d_x and B4 it
+      stands for the CSR by source of uniformly drawn sources; B4 routes
+      against the forward of that transposed graph), and ``max_in_degree``
+      (and ``uniform_max_in_degree``), the longest row the launch walks on
+      each graph; the B2 and B5 rows get ``piece_len``, the segments' piece
+      length;
     - B1 (mul and add, forward and d_x, both widths), B3 and B4 (min and
-      max, mul and add, tie-heavy and normal inputs, ``feat``) against their
-      plain versions on a graph whose rows have 0, 1, ROW_PIECE - 1,
-      ROW_PIECE, ROW_PIECE + 1, 2 ROW_PIECE, 3,031 and 2 ROW_PIECE edges,
-      the last row's all masked at run time; its sources are a permutation
-      of its destinations, so the CSR by source has the same rows. B1 and B4
-      within their tolerances, B3 equal, the masked row -inf/+inf;
-    - B2 (mul and add, ``feat``) against its plain version on segments whose
-      types have 0, 1, L - 1, L, L + 1 and 3,031 edges, for each piece
-      length L of the two graphs' segments;
-    - two launches each of B1 (both widths), B4 and B2 on ``graph`` (B2 on
-      its relation graph too) give the same bits.
+      max, mul and add, tie-heavy and normal inputs, ``feat``) and B6 (the
+      sum and min/max as ``hold_dw`` holds them, at ``dim``, ``feat`` and
+      DW_WIDE) against their plain versions on a graph whose rows have 0, 1,
+      ROW_PIECE - 1, ROW_PIECE, ROW_PIECE + 1, 2 ROW_PIECE, 3,031 and 2
+      ROW_PIECE edges, the last row's all masked at run time; its sources
+      are a permutation of its destinations, so the CSR by source has the
+      same rows. B1, B4 and B6 within their tolerances, B3 equal, the masked
+      row -inf/+inf (B3), its edges' d_w 0 for min/max (B6);
+    - B2 (mul and add) and B5 (min and max, mul and add, tie-heavy and
+      normal inputs) at ``feat`` against their plain versions on segments
+      whose types have 0, 1, L - 1, L, L + 1 and 3,031 edges, for each
+      piece length L of the two graphs' segments;
+    - two launches each of B1 (both widths), B4, B2 and B5 on ``graph``
+      (B2 and B5 on its relation graph too) and B6 (the sum at ``dim``,
+      min/max at ``feat``) give the same bits;
+    - B6 on the boundary graph, padded and with edges dead at build time,
+      into a d_w filled with NaN writes the slot of every CSR edge and no
+      other.
     Returns ok."""
     from ultra_tpu_torch import graph as graph_module
     from ultra_tpu_torch.graph import build_segments, make_graph
@@ -544,6 +582,10 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
         out = mk.rspmm_minmax_fwd(uniform.csr_src, w, rel, x, mul)
         return lambda: mk.rspmm_minmax_dx(csr, w, rel, x, g_u, out, mul)
 
+    def dw_uniform(csr, w, rel, x, mul):
+        g = rand(n, x.shape[1])
+        return lambda: k.rspmm_dw(csr, w, rel, x, g, mul)
+
     launch = lambda fn: lambda csr, w, rel, x, mul: lambda: fn(csr, w, rel, x, mul)
     for name, timed, walked in (
         (f"rspmm_sum_fwd/entity/F{feat}", launch(k.rspmm_sum_fwd), graph.csr),
@@ -551,6 +593,7 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
         (f"rspmm_sum_dx/entity/F{feat}", launch(k.rspmm_sum_dx), graph.csr_src),
         (f"rspmm_minmax_fwd/entity/F{feat}", launch(mk.rspmm_minmax_fwd), graph.csr),
         (f"rspmm_minmax_dx/entity/F{feat}", minmax_dx_uniform, graph.csr_src),
+        (f"rspmm_dw/entity/F{dim}", dw_uniform, graph.csr),
     ):
         f = rows[name]["out_shape"][1]
         rel, x = rand(r, f), rand(n, f)
@@ -561,7 +604,7 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
               f"{rows[name]['uniform_ms']!r} max_in_degree {longest(walked)} against "
               f"{longest(uniform.csr)}", flush=True)
     for name, row in rows.items():
-        if name.startswith("rspmm_sum_drel"):
+        if name.startswith(("rspmm_sum_drel", "rspmm_minmax_drel")):
             on = graph if "/entity/" in name else graph.relation_graph
             row["piece_len"] = on.segments.piece_len
 
@@ -591,14 +634,8 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
                 ok &= case_ok
                 print(f"[kernel] {name} piece boundaries F={f} mul={mul}: ok={case_ok} "
                       f"max_abs_err={err!r} worst_err_over_tolerance={within!r}", flush=True)
-    ties_x = torch.randint(-3, 4, (len(degrees), feat), generator=gen).float()
-    ties_x[torch.rand(len(degrees), generator=gen) < 0.25] = 0.0
     g_b = rand(len(degrees), feat)
-    for kind, (rel, x) in {
-        "ties": (torch.randint(-3, 4, (num_types, feat), generator=gen).float().cuda(),
-                 ties_x.cuda()),
-        "normal": (rand(num_types, feat), rand(len(degrees), feat)),
-    }.items():
+    for kind, (rel, x) in minmax_inputs(num_types, len(degrees), feat, gen).items():
         for mul in ("mul", "add"):
             for is_min in (False, True):
                 case = f"{kind} mul={mul} {'min' if is_min else 'max'}"
@@ -617,6 +654,19 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
                 print(f"[kernel] rspmm_minmax_dx piece boundaries {case}: ok={case_ok} "
                       f"max_abs_err={err!r} worst_err_over_tolerance={within!r} "
                       f"routed_terms={routed}", flush=True)
+    masked = g_.csr.eid[g_.csr.rowptr[masked_row]:g_.csr.rowptr[masked_row + 1]].long()
+    for f in (dim, feat, DW_WIDE):
+        inputs, g_f = minmax_inputs(num_types, len(degrees), f, gen), rand(len(degrees), f)
+        for agg, kind, mul, is_min in DW_CASES:
+            rel, x = inputs[kind]
+            out = None if agg == "sum" else mk.rspmm_minmax_fwd(g_.csr, w, rel, x, mul, is_min)
+            err, within, case_ok, routed = dw_error(k.rspmm_dw(g_.csr, w, rel, x, g_f, mul, out),
+                                                    g_.csr, w, rel, x, g_f, mul, out, masked)
+            ok &= case_ok
+            name = "sum" if agg == "sum" else ("min" if is_min else "max")
+            print(f"[kernel] rspmm_dw piece boundaries F={f} {kind} mul={mul} {name}: "
+                  f"ok={case_ok} max_abs_err={err!r} worst_err_over_tolerance={within!r} "
+                  f"routed_terms={routed}", flush=True)
 
     for length in sorted({graph.segments.piece_len, graph.relation_graph.segments.piece_len}):
         counts = [0, 1, length - 1, length, length + 1, 3031]
@@ -635,6 +685,21 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
             print(f"[kernel] rspmm_sum_drel piece boundaries L={length} mul={mul}: "
                   f"ok={case_ok} max_abs_err={err!r} worst_err_over_tolerance={within!r} "
                   f"long_types={seg.long_rows.numel()} slots={seg.num_slots}", flush=True)
+        w_m = (seg_graph.edge_weight.cpu() * torch.tensor([0.5, 1.0, 2.0])[
+            torch.randint(0, 3, (etype.size,), generator=gen)]
+            * (torch.rand(etype.size, generator=gen) >= 0.1)).cuda()
+        for kind, (rel, x) in minmax_inputs(len(counts), nodes, feat, gen).items():
+            for mul in ("mul", "add"):
+                for is_min in (False, True):
+                    case = f"L={length} {kind} mul={mul} {'min' if is_min else 'max'}"
+                    out = mk.rspmm_minmax_fwd(seg_graph.csr, w_m, rel, x, mul, is_min)
+                    err, within, case_ok, routed = minmax_grad_error(
+                        mk.rspmm_minmax_drel(seg, w_m, rel, x, g, out, mul),
+                        mk.rspmm_minmax_drel_terms, seg, w_m, rel, x, g, out, mul, len(counts))
+                    ok &= case_ok
+                    print(f"[kernel] rspmm_minmax_drel piece boundaries {case}: ok={case_ok} "
+                          f"max_abs_err={err!r} worst_err_over_tolerance={within!r} "
+                          f"routed_terms={routed}", flush=True)
 
     for f in (feat, dim):
         rel, x = rand(r, f), rand(n, f)
@@ -651,13 +716,32 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
              lambda: mk.rspmm_minmax_dx(graph.csr_src, w_g, rel, x, g, out)}
     for tag, on in (("entity", graph), ("relation", graph.relation_graph)):
         x_r, g_r = rand(on.num_nodes, feat), rand(on.num_nodes, feat)
+        rel_r = rand(on.num_relations, feat)
+        out_r = mk.rspmm_minmax_fwd(on.csr, on.edge_weight, rel_r, x_r)
         twice[f"rspmm_sum_drel/{tag}/F{feat}"] = (
             lambda on=on, x_r=x_r, g_r=g_r: k.rspmm_sum_drel(on.segments, on.edge_weight, x_r,
                                                              g_r))
+        twice[f"rspmm_minmax_drel/{tag}/F{feat}"] = (
+            lambda on=on, x_r=x_r, g_r=g_r, rel_r=rel_r, out_r=out_r: mk.rspmm_minmax_drel(
+                on.segments, on.edge_weight, rel_r, x_r, g_r, out_r))
+    rel_d, x_d, g_d = rand(r, dim), rand(n, dim), rand(n, dim)
+    twice[f"rspmm_dw/entity/F{dim}"] = lambda: k.rspmm_dw(graph.csr, w_g, rel_d, x_d, g_d)
+    twice[f"rspmm_dw_minmax/entity/F{feat}"] = lambda: k.rspmm_dw(graph.csr, w_g, rel, x, g,
+                                                                  "mul", out)
     for name, fn in twice.items():
         same = torch.equal(fn(), fn())
         ok &= same
         print(f"[kernel] {name} two launches bitwise equal: {same}", flush=True)
+    # B6 on the boundary graph with edges dead at build time and padding,
+    # neither in the CSR: it writes every CSR edge's slot and no other
+    ew = np.where(rng.random(dst.size) < 0.1, 0.0, 1.0)
+    g_pad = make_graph(g_.edge_index.cpu().numpy(), g_.edge_type.cpu().numpy(), len(degrees),
+                       num_types, edge_weight=ew, pad_to=dst.size + 64, device="cuda")
+    unwritten, stray = dw_slots_written(g_pad, rand(num_types, dim), rand(len(degrees), dim),
+                                        rand(len(degrees), dim))
+    ok &= unwritten == 0 and stray == 0
+    print(f"[kernel] rspmm_dw piece boundaries: CSR slots unwritten {unwritten}, other slots "
+          f"written {stray} (of {g_pad.num_edges_padded - g_pad.csr.col.numel()})", flush=True)
     return ok
 
 

@@ -14,11 +14,10 @@ measures:
    (F = 8 x 64) and the edge-weight gradient (B6) at an attribution call's
    width (F = 64) on the graph and on a graph with the same sources, types
    and edge count whose destinations are drawn uniformly
-   (``benchlib.uniform_destination_graph``). B1 and B3 cut each row into
-   pieces of at most ``graph.ROW_PIECE`` edges, one group of threads a
+   (``benchlib.uniform_destination_graph``). B1, B3 and B6 cut each row
+   into pieces of at most ``graph.ROW_PIECE`` edges, one group of threads a
    piece, so the gap between the two graphs is what the hub rows still
-   cost them; B6 walks a row's edges in one block, so for it the gap is
-   what the graph's longest rows cost;
+   cost them;
 3. with ``torch.profiler``, one edge-importance attribution call
    (``models/visualize.py::edge_gradients``, one query) of the same model,
    over 10 queries.

@@ -90,12 +90,9 @@ def main() -> int:
                         "max_out_degree": int(graph.csr_src.rowptr.diff().max()),
                         "largest_type_edges": int(torch.bincount(
                             graph.segments.etype.long()).max()),
-                        "chunks": int(graph.segments.chunkptr.numel() - 1),
                         "segment_piece_len": graph.segments.piece_len,
                         "segment_pieces": graph.segments.piece_row.numel(),
                         "rel_graph_E": int(graph.relation_graph.csr.col.numel()),
-                        "rel_graph_chunks": int(
-                            graph.relation_graph.segments.chunkptr.numel() - 1),
                         "rel_graph_segment_piece_len": graph.relation_graph.segments.piece_len,
                         "rel_graph_segment_pieces": (
                             graph.relation_graph.segments.piece_row.numel())}}

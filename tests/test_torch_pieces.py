@@ -1,14 +1,16 @@
-"""The piece tables of ``ultra_tpu_torch/graph.py``, which B1, B3 and B4
-walk on the card over a CSR and B2 over the type segments, on a power-law
-graph with weight-0 edges, runtime masks that empty long rows, and rows
-(and types) with no edges, with ``ROW_PIECE`` cut to 4 and the segments'
-piece length to 8 so that many rows split. The kernels cannot run here, so
-a plain-torch emulation of their two passes over the table (a partial per
-piece, written to the row or to its slot; then each long row's partials
-combined in slot order, or, for B2, by several groups in a fixed order) is
-held against the wrappers' plain versions and against the JAX package's
-XLA backend (its values, and its gradients through ``jax.vjp``). The rule
-that chooses the segments' piece length is held on FB15k-237's shape.
+"""The piece tables of ``ultra_tpu_torch/graph.py``, which B1, B3, B4 and
+B6 walk on the card over a CSR and B2 and B5 over the type segments, on a
+power-law graph with weight-0 edges, runtime masks that empty long rows,
+and rows (and types) with no edges, with ``ROW_PIECE`` cut to 4 and the
+segments' piece length to 8 so that many rows split. The kernels cannot run
+here, so a plain-torch emulation of their two passes over the table (a
+partial per piece, written to the row or to its slot; then each long row's
+partials combined in slot order, or, for B2 and B5, by several groups in a
+fixed order) is held against the wrappers' plain versions and against the
+JAX package's XLA backend (its values, and its gradients through
+``jax.vjp``); B6's one pass (each piece's edges, each summed over the
+features and written at its ``eid``) likewise. The rule that chooses the
+segments' piece length is held on FB15k-237's shape.
 
 Tolerance: sums' emulations in f64 against the plain versions in f64
 within rtol 1e-12 (only the order of the additions differs); in f32 against
@@ -28,9 +30,11 @@ from ultra_tpu.ops.rspmm import generalized_rspmm as jax_generalized_rspmm
 from ultra_tpu_torch import graph as graph_module
 from ultra_tpu_torch.graph import make_graph
 from ultra_tpu_torch.ops import rspmm_cuda, rspmm_minmax_cuda
-from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_drel_plain, rspmm_sum_fwd_plain
+from ultra_tpu_torch.ops.rspmm_cuda import (
+    rspmm_dw_plain, rspmm_sum_drel_plain, rspmm_sum_fwd_plain,
+)
 from ultra_tpu_torch.ops.rspmm_minmax_cuda import (
-    rspmm_minmax_dx_plain, rspmm_minmax_fwd_plain,
+    rspmm_minmax_drel_plain, rspmm_minmax_dx_plain, rspmm_minmax_fwd_plain,
 )
 from ultra_tpu_torch.tasks import build_relation_graph_arrays
 from ultra_tpu_torch.utils.benchlib import fb15k237_split
@@ -384,6 +388,7 @@ def test_segment_pieces_cut_every_type(small_segment_pieces):
     assert piece_ptr[0] == 0 and piece_ptr[-1] == seg.src.numel()
     assert np.all((sizes >= 0) & (sizes <= SEG_PIECE))
     assert np.array_equal(np.unique(piece_row), np.arange(2 * R))
+    assert seg.num_types == seg.to("meta").num_types == 2 * R
     type_ptr = np.concatenate([[0], np.cumsum(counts)])
     assert np.all(type_ptr[piece_row] <= piece_ptr[:-1])
     assert np.all(piece_ptr[1:] <= type_ptr[piece_row + 1])
@@ -457,3 +462,207 @@ def test_segment_piece_length_rule():
     # at the boundary: 528 pieces of 64 edges take 64, 527 take 32
     assert graph_module.segment_piece(torch.full((4,), 132 * 64)) == 64
     assert graph_module.segment_piece(torch.tensor([132 * 64] * 3 + [131 * 64])) == 32
+
+
+def emulate_minmax_drel(seg, weight, rel, x, g, out, mul, split):
+    """B5 over the segments' piece table: :func:`two_passes` with the type as
+    the row, each piece's routed ``w * x[src] * g[dst]`` (mul) or ``w *
+    g[dst]`` (add) summed in ``g``'s type, and a long type's partials
+    combined by ``split`` groups. An edge is routed where it is live and its
+    message, computed in the type of ``rel``, ``x`` and ``out`` (f32, as the
+    forward computed it), equals ``out`` of its destination; a weight-0 or
+    unrouted edge adds a selected 0, as the kernel folds it."""
+
+    def fold(lo, hi, t):
+        w = weight[seg.eid[lo:hi].long()].unsqueeze(1)
+        s, dst = x[seg.src[lo:hi].long()], seg.dst[lo:hi].long()
+        msg = (rel[t] * s if mul == "mul" else rel[t] + s) * w
+        route = (w != 0) & (msg == out[dst])
+        terms = w.to(g.dtype) * (s.to(g.dtype) if mul == "mul" else 1.0) * g[dst]
+        return torch.where(route, terms, torch.zeros((), dtype=g.dtype)).sum(0)
+
+    return two_passes(seg, seg.num_types, g, 0.0, fold, torch.add, split)
+
+
+def minmax_drel_inputs(seed):
+    """segment_inputs' edges, types and weights (0.5, 1 or 2; 10% 0 at build
+    time, more at run time) with tie-heavy operands from {-2..2} for every
+    type, and g in f32: (ei, et, ew, mask, rel, x, g)."""
+    ei, et, ew, mask, _, g = segment_inputs(seed)
+    rng = np.random.default_rng(seed + 20)
+    rel = rng.integers(-2, 3, size=(2 * R, F)).astype(np.float32)
+    x = rng.integers(-2, 3, size=(V, F)).astype(np.float32)
+    return ei, et, ew, mask, rel, x, g.astype(np.float32)
+
+
+@pytest.mark.parametrize("split", [1, 2, 8])
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("is_min", [False, True])
+def test_minmax_drel_two_passes_equal_the_plain_version(small_segment_pieces, is_min, mul,
+                                                        split):
+    """B5's two passes over the segments' piece table in f64 against
+    ``rspmm_minmax_drel_plain`` in f64 (routing in f32 on both sides), on
+    tie-heavy inputs, with a long type's partials combined by 1, 2 or 8
+    groups: every tying edge gets its whole term. The type with no edges is
+    0."""
+    ei, et, ew, mask, rel, x, g = minmax_drel_inputs(seed=11)
+    graph = port_graph(ei, et, ew)
+    w, rel_t, x_t = (torch.from_numpy(a) for a in (mask, rel, x))
+    out = rspmm_minmax_fwd_plain(graph.csr, w, rel_t, x_t, mul, is_min)
+    g64 = torch.from_numpy(g).double()
+    got = emulate_minmax_drel(graph.segments, w, rel_t, x_t, g64, out, mul, split)
+    want = rspmm_minmax_drel_plain(graph.segments, w, rel_t, x_t, g64, out, mul)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert (got[0] == 0).all() and (got[3:] != 0).any(1).all()
+    # the inputs tie: some output is the message of two or more live edges
+    seg = graph.segments
+    w_e = w[seg.eid.long()].unsqueeze(1)
+    r, s = rel_t[seg.etype.long()], x_t[seg.src.long()]
+    route = (w_e != 0) & (((r * s if mul == "mul" else r + s) * w_e) == out[seg.dst.long()])
+    assert (torch.zeros(V, F).index_add_(0, seg.dst.long(), route.float()) >= 2).any()
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("is_min", [False, True])
+def test_minmax_drel_two_passes_match_jax(small_segment_pieces, is_min, mul):
+    """B5's emulation in f32 (8 groups a long type in pass 2) against the
+    relation gradient of the JAX package's ``generalized_rspmm(backend=
+    "xla")`` (jax.vjp) on the same tie-heavy edges and runtime weights."""
+    ei, et, ew, mask, rel, x, g = minmax_drel_inputs(seed=12)
+    graph = port_graph(ei, et, ew)
+    w, rel_t, x_t = (torch.from_numpy(a) for a in (mask, rel, x))
+    agg = "min" if is_min else "max"
+    out = rspmm_minmax_fwd_plain(graph.csr, w, rel_t, x_t, mul, is_min)
+    got = emulate_minmax_drel(graph.segments, w, rel_t, x_t, torch.from_numpy(g), out, mul,
+                              split=8)
+    fn = lambda r, xx: jax_generalized_rspmm(
+        jnp.asarray(ei), jnp.asarray(et), jnp.asarray(mask), r, xx, sum=agg, mul=mul,
+        backend="xla")
+    _, vjp = jax.vjp(fn, jnp.asarray(rel[:, None]), jnp.asarray(x[:, None]))
+    want = np.asarray(vjp(jnp.asarray(g[:, None]))[0])[:, 0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("field", ["piece_slot", "piece_ptr", "eid"])
+def test_a_segment_table_of_the_wrong_length_never_reaches_b5(monkeypatch,
+                                                             small_segment_pieces, field):
+    """B5's wrapper, which checks only ``src`` of the segments at each
+    launch, never launches on a table or an edge array of the wrong length:
+    the segments refuse it when they are made."""
+    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    ei, et, ew, *_ = segment_inputs(seed=6)
+    seg = port_graph(ei, et, ew).segments.to("meta")
+    x, rel = torch.empty(V, F, device="meta"), torch.empty(2 * R, F, device="meta")
+    with pytest.raises(ValueError, match=field):
+        seg = dataclasses.replace(seg, **{field: getattr(seg, field)[1:]})
+        rspmm_minmax_cuda.rspmm_minmax_drel(seg, torch.empty(len(ew), device="meta"), rel, x,
+                                            x, x, "mul")
+    assert not rspmm_minmax_cuda.rspmm_minmax_drel.launches
+
+
+def emulate_dw(csr, weight, rel, x, g, mul, out=None, parts=rspmm_cuda.DW_PARTS):
+    """B6 over ``csr``'s piece table, in ``g``'s type: each piece cut into
+    ``parts`` parts of ceil(length / parts) edges (the last shorter, some
+    empty) as the kernel cuts it, each part's edges, in the kernel's order,
+    each edge's terms ``route * (rel op x[src]) * g[row]`` summed over the
+    features and written at its ``eid``; the route is 1 without ``out``
+    (sum) and, with the forward's ``out`` (min/max), 1 where the edge is
+    live and its message, computed in f32 as the forward did, equals
+    ``out[row]``. Returns (d_w, the writes of each slot)."""
+    d_w = torch.zeros(weight.shape, dtype=g.dtype)
+    writes = torch.zeros(weight.shape, dtype=torch.int64)
+    for k in range(csr.piece_row.numel() * parts):
+        p = int(csr.piece_order[k // parts])
+        first, end = int(csr.piece_ptr[p]), int(csr.piece_ptr[p + 1])
+        span = -(-(end - first) // parts)
+        lo = first + (k % parts) * span
+        hi = min(lo + span, end)
+        if hi <= lo:
+            continue
+        row, eid = int(csr.piece_row[p]), csr.eid[lo:hi].long()
+        r, s = rel[csr.etype[lo:hi].long()], x[csr.col[lo:hi].long()]
+        m = r * s if mul == "mul" else r + s
+        terms = m.to(g.dtype) * g[row]
+        if out is not None:
+            w = weight[eid].unsqueeze(1)
+            route = (w != 0) & (m * w == out[row])
+            terms = torch.where(route, terms, torch.zeros((), dtype=g.dtype))
+        d_w[eid] = terms.sum(1)
+        writes[eid] += 1
+    return d_w, writes
+
+
+def dw_case(agg, mul, seed, dtype):
+    """(graph, mask, rel, x, g in ``dtype``, out or None, hub) on
+    power_law_inputs' tie-heavy operands; ``out`` is the f32 min/max
+    forward's output on the runtime weights."""
+    ei, et, ew, mask, rel, x, hub = power_law_inputs(seed)
+    graph = port_graph(ei, et, ew)
+    g = torch.from_numpy(np.random.default_rng(seed + 30).normal(size=(V, F))).to(dtype)
+    w, rel_t, x_t = (torch.from_numpy(a) for a in (mask, rel, x))
+    out = None if agg == "sum" else rspmm_minmax_fwd_plain(graph.csr, w, rel_t, x_t, mul,
+                                                           agg == "min")
+    return graph, ei, et, ew, w, rel_t, x_t, g, out, hub
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+@pytest.mark.parametrize("agg", ["sum", "minmax"])
+def test_dw_walk_writes_every_edge_once(small_pieces, agg, parts):
+    """B6's walk, with each piece split over 1, 2 or 3 groups, writes d_w
+    once at the eid of every edge of the CSR (the edges live at build time),
+    and never a padding slot or an edge dead at build time, which keep the
+    wrapper's zeros."""
+    graph, _, _, ew, w, rel, x, g, out, _ = dw_case(agg, "mul", seed=13, dtype=torch.float64)
+    got, writes = emulate_dw(graph.csr, w, rel, x, g, "mul", out, parts)
+    built = torch.from_numpy(ew != 0)
+    assert (writes[built] == 1).all() and (writes[~built] == 0).all()
+    assert (got[~built] == 0).all() and graph.csr.long_rows.numel() >= 5
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("agg", ["sum", "max", "min"])
+def test_dw_walk_equals_the_plain_version(small_pieces, agg, mul):
+    """B6's walk in f64 against ``rspmm_dw_plain`` in f64 (min/max routing
+    in f32 on both sides), on tie-heavy inputs, within rtol 1e-12. The long
+    row whose edges are all masked at run time gets the sum's derivative and
+    0 for min/max."""
+    graph, _, _, _, w, rel, x, g, out, hub = dw_case(
+        "sum" if agg == "sum" else agg, mul, seed=14, dtype=torch.float64)
+    if agg == "sum":
+        rel, x = rel.double(), x.double()
+    got, _ = emulate_dw(graph.csr, w.double() if agg == "sum" else w, rel, x, g, mul, out)
+    want = rspmm_dw_plain(graph.csr, w.double() if agg == "sum" else w, rel, x, g, mul, out)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    csr = graph.csr
+    assert hub in csr.long_rows.tolist()
+    hub_edges = csr.eid[csr.rowptr[hub]:csr.rowptr[hub + 1]].long()
+    assert (got[hub_edges] != 0).any() if agg == "sum" else (got[hub_edges] == 0).all()
+    if agg != "sum":  # the inputs tie: some output is the message of two or more live edges
+        rows = rspmm_cuda._csr_rows(csr)
+        w_e = w[csr.eid.long()].unsqueeze(1)
+        r, s = rel[csr.etype.long()], x[csr.col.long()]
+        route = (w_e != 0) & (((r * s if mul == "mul" else r + s) * w_e) == out[rows])
+        assert (torch.zeros(V, F).index_add_(0, rows, route.float()) >= 2).any()
+
+
+@pytest.mark.parametrize("mul", ["mul", "add"])
+@pytest.mark.parametrize("agg", ["sum", "max", "min"])
+def test_dw_walk_matches_jax(small_pieces, agg, mul):
+    """B6's walk in f32 against the edge-weight gradient of the JAX
+    package's ``generalized_rspmm(backend="xla")`` (jax.vjp with respect to
+    the weights), over the edges live when the graph was built (XLA gives
+    the others their derivative, the port 0): a runtime-masked edge gets its
+    derivative for the sum and 0 for min/max in both."""
+    graph, ei, et, ew, w, rel, x, g, out, _ = dw_case(
+        "sum" if agg == "sum" else agg, mul, seed=15, dtype=torch.float32)
+    got, _ = emulate_dw(graph.csr, w, rel, x, g, mul, out)
+    fn = lambda ww: jax_generalized_rspmm(
+        jnp.asarray(ei), jnp.asarray(et), ww, jnp.asarray(rel[:, None].numpy()),
+        jnp.asarray(x[:, None].numpy()), sum="add" if agg == "sum" else agg, mul=mul,
+        backend="xla")
+    _, vjp = jax.vjp(fn, jnp.asarray(w.numpy()))
+    (want,) = vjp(jnp.asarray(g[:, None].numpy()))
+    built = ew != 0
+    np.testing.assert_allclose(got.numpy()[built], np.asarray(want)[built], rtol=1e-5,
+                               atol=1e-5)
+    assert np.abs(np.asarray(want)[built]).sum() > 0

@@ -23,27 +23,38 @@
 //
 // What bounds it on an H100: bytes. Per edge and feature it reads two
 // gathered rows (rel and x) and does 3 operations (5 for min/max), far below
-// the card's f32 flops-per-byte balance. The design:
-// - one block per destination row: the row's g (and out) is loaded into
-//   shared memory once and read by every edge of the row;
-// - one warp per edge, lanes striding the features as float4 (F % 4 == 0 and
-//   16-byte aligned rows; anything else is refused);
-// - each edge's sum is reduced across the warp by a butterfly of shuffles in
-//   a fixed order and written once by lane 0: no atomics, and two runs give
-//   the same bits;
-// - for min/max an edge of weight 0 is skipped before its rows are loaded;
-// - as in B1, the rows with thousands of edges set the launch's length on
-//   power-law graphs; splitting them is left to a later version.
+// the card's f32 flops-per-byte balance. In practice the gathers' latency
+// bounds it, and the design walks the CSR's piece table as B1 does
+// (rspmm_pieces.cuh), with a pass of its own, since its output is one value
+// an edge and not a row:
+// - a group of threads takes one part of a piece of at most ROW_PIECE
+//   edges, the longest pieces first, so a hub row (3,031 edges on
+//   FB15k-237's shape) spreads over many groups instead of setting the
+//   launch's length. The edges' sums are independent, so a piece may be
+//   split evenly over `parts` groups, which shortens the longest walk
+//   further;
+// - the group is at most one warp: each lane holds K float4s of the row
+//   (F <= 128 * K), the piece's g row (and out row for min/max) loaded into
+//   registers once; a wider row is walked in passes of 128 * K features,
+//   each edge's partial sums kept in shared memory between them;
+// - the group stages its piece's sources, types, ids and (min/max) weights
+//   in shared memory with coalesced loads, then keeps the rel and x loads
+//   of several edges in flight per thread before it folds any of them in;
+//   the weight and route tests come after the loads, as a selected 0;
+// - each edge's sum over the features is reduced across the group by a
+//   butterfly of shuffles in a fixed order and written once, to d_w[eid], by
+//   the group's first lane. An edge lies in exactly one part of one piece,
+//   so there is no second pass and no atomic: two runs give the same bits;
+// - loads are float4, neighbouring lanes on neighbouring addresses (F % 4
+//   == 0 and 16-byte aligned rows; anything else is refused).
 // Offsets row*F are 64-bit.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "rspmm_pieces.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kSharedLimit = 48 * 1024;  // bytes of dynamic shared memory
+constexpr int kWords = 4;       // staged per edge: source, type, eid, weight (min/max)
+constexpr int kMaxGroups = 16;  // groups a block holds at most (shared memory)
 
 template <int OP>
 __device__ __forceinline__ float unweighted(float r, float x) {
@@ -54,116 +65,193 @@ __device__ __forceinline__ float unweighted(float r, float x) {
 template <int OP, bool MINMAX>
 __device__ __forceinline__ float term(float r, float x, float g, float w, float o) {
   const float m = unweighted<OP>(r, x);
-  if (MINMAX && __fmul_rn(m, w) != o) return 0.f;
-  return __fmul_rn(m, g);
+  const float t = __fmul_rn(m, g);
+  return !MINMAX || (w != 0.f && __fmul_rn(m, w) == o) ? t : 0.f;
 }
 
-// `width` is the row length in float4s (F / 4).
 template <int OP, bool MINMAX>
-__global__ void rspmm_dw_kernel(const int64_t* __restrict__ rowptr,
-                                const int32_t* __restrict__ col,
-                                const int32_t* __restrict__ etype,
-                                const int32_t* __restrict__ eid,
-                                const float* __restrict__ weight,
-                                const float4* __restrict__ rel,
-                                const float4* __restrict__ x,
-                                const float4* __restrict__ g,
-                                const float4* __restrict__ out,
-                                float* __restrict__ dw,
-                                int64_t width) {
-  extern __shared__ float4 rows[];  // g[row], then out[row] for min/max
-  const int64_t row = blockIdx.x;
-  const int64_t begin = rowptr[row];
-  const int64_t end = rowptr[row + 1];
-  if (begin == end) return;  // the whole block leaves: no barrier is skipped
-  float4* g_row = rows;
-  float4* o_row = rows + width;
-  for (int64_t j = threadIdx.x; j < width; j += blockDim.x) {
-    g_row[j] = __ldg(g + row * width + j);
-    if (MINMAX) o_row[j] = __ldg(out + row * width + j);
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int64_t e = begin + warp; e < end; e += kWarps) {  // uniform across a warp
-    const int64_t id = __ldg(eid + e);
-    const float w = __ldg(weight + id);
-    float acc = 0.f;
-    if (!MINMAX || w != 0.f) {
-      const int64_t src = __ldg(col + e);
-      const int64_t type = __ldg(etype + e);
-      for (int64_t j = lane; j < width; j += 32) {
-        const float4 rv = __ldg(rel + type * width + j);
-        const float4 xv = __ldg(x + src * width + j);
-        const float4 gv = g_row[j];
-        const float4 ov = MINMAX ? o_row[j] : gv;
-        acc += term<OP, MINMAX>(rv.x, xv.x, gv.x, w, ov.x);
-        acc += term<OP, MINMAX>(rv.y, xv.y, gv.y, w, ov.y);
-        acc += term<OP, MINMAX>(rv.z, xv.z, gv.z, w, ov.z);
-        acc += term<OP, MINMAX>(rv.w, xv.w, gv.w, w, ov.w);
+__device__ __forceinline__ float terms(const float4& r, const float4& x, const float4& g,
+                                       float w, const float4& o) {
+  return term<OP, MINMAX>(r.x, x.x, g.x, w, o.x) + term<OP, MINMAX>(r.y, x.y, g.y, w, o.y) +
+         term<OP, MINMAX>(r.z, x.z, g.z, w, o.z) + term<OP, MINMAX>(r.w, x.w, g.w, w, o.w);
+}
+
+struct DwArgs {
+  const int32_t* col;  // the source
+  const int32_t* etype;
+  const int32_t* eid;
+  const float* weight;  // indexed by eid
+  const float4* rel;    // (R, width)
+  const float4* x;      // (N, width)
+  const float4* g;      // (V, width)
+  const float4* out;    // (V, width) for min/max, else unread
+  float* dw;            // indexed by eid
+};
+
+// One group of `group` lanes (8, 16 or 32) a part of a piece (`parts` parts
+// a piece, of as near equal lengths as may be); lane l holds features
+// base + l + k * group, k < K, of the pass over the row that starts at base.
+// Shared memory per group: kWords * kStage staged words, then, where the
+// row takes more than one pass, kStage partial sums.
+template <int OP, bool MINMAX, int K>
+__global__ void __launch_bounds__(pieces::kBlock, K == 1 ? 4 : 2)
+    dw_kernel(const pieces::Table t, const DwArgs a, int group, int parts, int passes) {
+  constexpr int kStage = pieces::kStage;
+  constexpr int kUnroll = 4 / K;  // edges whose loads a thread keeps in flight
+  extern __shared__ int32_t staged[];
+  const int groups = blockDim.x / group;
+  const int g = threadIdx.x / group;
+  const int lane = threadIdx.x - g * group;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * groups + g;
+  if (k >= t.num_pieces * parts) return;  // the whole group leaves: no barrier is skipped
+  const int64_t piece = t.piece_order[k / parts];
+  const int64_t first = t.piece_ptr[piece];
+  const int64_t span = (t.piece_ptr[piece + 1] - first + parts - 1) / parts;
+  const int64_t begin = first + (k % parts) * span;
+  const int64_t end = begin + span < t.piece_ptr[piece + 1] ? begin + span : t.piece_ptr[piece + 1];
+  const int64_t len = end - begin;
+  if (len <= 0) return;
+  int32_t* s = staged + kWords * kStage * g;
+  float* sums = reinterpret_cast<float*>(staged + kWords * kStage * groups) + kStage * g;
+  const unsigned lanes = (group == 32 ? 0xffffffffu : (1u << group) - 1)
+                         << ((threadIdx.x & 31) & ~(group - 1));
+  const int64_t row = static_cast<int64_t>(t.piece_row[piece]) * t.width;
+  for (int64_t base = 0; base < len; base += kStage) {
+    const int n = len - base < kStage ? static_cast<int>(len - base) : kStage;
+    pieces::group_sync(g, group);  // the group is done with the last stage
+    for (int i = lane; i < n; i += group) {
+      const int64_t e = begin + base + i;
+      const int32_t id = __ldg(a.eid + e);
+      s[i] = __ldg(a.col + e);
+      s[kStage + i] = __ldg(a.etype + e);
+      s[2 * kStage + i] = id;
+      if (MINMAX) s[3 * kStage + i] = __float_as_int(__ldg(a.weight + id));
+    }
+    pieces::group_sync(g, group);
+    for (int pass = 0; pass < passes; ++pass) {
+      int64_t j[K];
+      float4 g_row[K], o_row[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        j[c] = static_cast<int64_t>(pass * K + c) * group + lane;
+        if (j[c] < t.width) {
+          g_row[c] = __ldg(a.g + row + j[c]);
+          if (MINMAX) o_row[c] = __ldg(a.out + row + j[c]);
+        }
+      }
+      for (int i = 0; i < n; i += kUnroll) {
+        float4 rv[kUnroll][K], xv[kUnroll][K];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (i + u >= n) continue;
+          const int64_t r = static_cast<int64_t>(s[kStage + i + u]) * t.width;
+          const int64_t src = static_cast<int64_t>(s[i + u]) * t.width;
+#pragma unroll
+          for (int c = 0; c < K; ++c) {
+            if (j[c] < t.width) {
+              rv[u][c] = __ldg(a.rel + r + j[c]);
+              xv[u][c] = __ldg(a.x + src + j[c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (i + u >= n) continue;  // the same for every lane of the group
+          const float w = MINMAX ? __int_as_float(s[3 * kStage + i + u]) : 0.f;
+          float acc = 0.f;
+#pragma unroll
+          for (int c = 0; c < K; ++c) {
+            if (j[c] < t.width) {
+              acc += terms<OP, MINMAX>(rv[u][c], xv[u][c], g_row[c], w,
+                                       MINMAX ? o_row[c] : g_row[c]);
+            }
+          }
+          for (int offset = group / 2; offset > 0; offset >>= 1) {
+            acc += __shfl_xor_sync(lanes, acc, offset);
+          }
+          if (lane == 0) {
+            const float sum = pass == 0 ? acc : sums[i + u] + acc;
+            if (pass == passes - 1) {
+              a.dw[s[2 * kStage + i + u]] = sum;
+            } else {
+              sums[i + u] = sum;
+            }
+          }
+        }
       }
     }
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, offset);
-    }
-    if (lane == 0) dw[id] = acc;
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+template <int OP, bool MINMAX, int K>
+int launch_lanes(const pieces::Table& t, const DwArgs& a, int group, int parts,
+                 cudaStream_t stream) {
+  const int groups = pieces::kBlock / group < kMaxGroups ? pieces::kBlock / group : kMaxGroups;
+  const int passes = static_cast<int>((t.width + K * group - 1) / (K * group));
+  const size_t words = kWords * pieces::kStage + (passes > 1 ? pieces::kStage : 0);
+  const dim3 grid(static_cast<unsigned>((t.num_pieces * parts + groups - 1) / groups));
+  dw_kernel<OP, MINMAX, K><<<grid, groups * group, sizeof(int32_t) * words * groups, stream>>>(
+      t, a, group, parts, passes);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int OP, bool MINMAX>
-void launch(unsigned grid, size_t smem, cudaStream_t s, const int64_t* rp, const int32_t* c,
-            const int32_t* t, const int32_t* id, const float* w, const float4* r,
-            const float4* xs, const float4* gs, const float4* os, float* d, int64_t width) {
-  rspmm_dw_kernel<OP, MINMAX><<<grid, kWarps * 32, smem, s>>>(rp, c, t, id, w, r, xs, gs, os,
-                                                               d, width);
+int launch(const pieces::Table& t, const DwArgs& a, int parts, cudaStream_t stream) {
+  // a group of at most one warp, as many lanes as float4s up to 32; a wider
+  // row puts 2 or 4 float4s on a lane, and one wider still takes passes
+  const int group = t.width > 32 ? 32 : pieces::group_size(t.width);
+  if (t.width <= group) return launch_lanes<OP, MINMAX, 1>(t, a, group, parts, stream);
+  if (t.width <= 2 * group) return launch_lanes<OP, MINMAX, 2>(t, a, group, parts, stream);
+  return launch_lanes<OP, MINMAX, 4>(t, a, group, parts, stream);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// rowptr: (num_rows+1) int64 of the destination-major CSR; col (the source),
+// Launches on `stream` and returns cudaGetLastError() (0 on success). The
+// piece table (piece_ptr (P+1) int64, piece_row and piece_order (P) int32)
+// is graph.py::build_csr's for the destination-major CSR; col (the source),
 // etype, eid: (E) int32; weight, dw: f32 indexed by eid (dw zeroed by the
-// caller); rel: (R, num_feat) f32; x: (N, num_feat) f32; g: (num_rows,
-// num_feat) f32; out: (num_rows, num_feat) f32 for minmax 1, unread (may be
+// caller); rel: (R, num_feat) f32; x: (N, num_feat) f32; g: (rows,
+// num_feat) f32; out: (rows, num_feat) f32 for minmax 1, unread (may be
 // null) for minmax 0. All contiguous on one device; indices are trusted to be
-// in range. num_feat % 4 != 0, a row operand not 16-byte aligned, or rows of
-// g (and out) over 48 KB return cudaErrorInvalidValue and launch nothing.
-extern "C" int rspmm_dw(const void* rowptr, const void* col, const void* etype,
-                        const void* eid, const void* weight, const void* rel, const void* x,
-                        const void* g, const void* out, void* dw, long long num_rows,
-                        long long num_feat, int mul_op, int minmax, void* stream) {
+// in range. Each piece is walked by `parts` groups (1 to kStage). num_feat %
+// 4 != 0, no piece, parts out of range or a row operand not 16-byte aligned
+// returns cudaErrorInvalidValue and launches nothing.
+extern "C" int rspmm_dw(const void* piece_ptr, const void* piece_row, const void* piece_order,
+                        const void* col, const void* etype, const void* eid,
+                        const void* weight, const void* rel, const void* x, const void* g,
+                        const void* out, void* dw, long long num_pieces, long long num_feat,
+                        int mul_op, int minmax, int parts, void* stream) {
   if ((mul_op != 0 && mul_op != 1) || (minmax != 0 && minmax != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_rows <= 0 || num_feat <= 0 || num_feat % 4 != 0) {
+  if (parts < 1 || parts > pieces::kStage) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_pieces <= 0 || num_feat <= 0 || num_feat % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!aligned16(rel) || !aligned16(x) || !aligned16(g) || (minmax && !aligned16(out))) {
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
+      (minmax && !pieces::aligned16(out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long width = num_feat / 4;
-  const size_t smem = static_cast<size_t>(width) * sizeof(float4) * (minmax ? 2 : 1);
-  if (smem > static_cast<size_t>(kSharedLimit)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto grid = static_cast<unsigned>(num_rows);
+  const pieces::Table t{static_cast<const int64_t*>(piece_ptr),
+                        static_cast<const int32_t*>(piece_row),
+                        nullptr,
+                        static_cast<const int32_t*>(piece_order),
+                        nullptr,
+                        nullptr,
+                        nullptr,
+                        nullptr,
+                        num_pieces,
+                        0,
+                        num_feat / 4};
+  const DwArgs a{static_cast<const int32_t*>(col),  static_cast<const int32_t*>(etype),
+                 static_cast<const int32_t*>(eid),  static_cast<const float*>(weight),
+                 static_cast<const float4*>(rel),   static_cast<const float4*>(x),
+                 static_cast<const float4*>(g),     static_cast<const float4*>(out),
+                 static_cast<float*>(dw)};
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* rp = static_cast<const int64_t*>(rowptr);
-  const auto* c = static_cast<const int32_t*>(col);
-  const auto* t = static_cast<const int32_t*>(etype);
-  const auto* id = static_cast<const int32_t*>(eid);
-  const auto* w = static_cast<const float*>(weight);
-  const auto* r = static_cast<const float4*>(rel);
-  const auto* xs = static_cast<const float4*>(x);
-  const auto* gs = static_cast<const float4*>(g);
-  const auto* os = static_cast<const float4*>(out);
-  auto* d = static_cast<float*>(dw);
   if (mul_op == 0) {
-    if (minmax) launch<0, true>(grid, smem, s, rp, c, t, id, w, r, xs, gs, os, d, width);
-    else launch<0, false>(grid, smem, s, rp, c, t, id, w, r, xs, gs, os, d, width);
-  } else {
-    if (minmax) launch<1, true>(grid, smem, s, rp, c, t, id, w, r, xs, gs, os, d, width);
-    else launch<1, false>(grid, smem, s, rp, c, t, id, w, r, xs, gs, os, d, width);
+    return minmax ? launch<0, true>(t, a, parts, s) : launch<0, false>(t, a, parts, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return minmax ? launch<1, true>(t, a, parts, s) : launch<1, false>(t, a, parts, s);
 }

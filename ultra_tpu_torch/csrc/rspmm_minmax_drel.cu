@@ -21,24 +21,26 @@
 //
 // What bounds it on an H100: bytes. Per edge and feature it reads three
 // gathered rows (x, out and g) and does about 6 operations. The design is
-// B2's (rspmm_sum_drel.cu):
+// B2's walk (rspmm_pieces.cuh, rspmm_sum_drel.cu) over the type segments'
+// pieces with B4's policy (rspmm_minmax_dx.cu) turned round:
 // - the edges are sorted by type on the host and each type's run is cut into
-//   chunks of at most 256 edges (graph.py::build_segments), so the few,
-//   skewed types spread over many blocks;
-// - pass 1: one block per (chunk, feature tile) loads its type's rel row
-//   once (a chunk holds one type), walks the chunk's edges with the sum in
-//   registers and writes one partial row per chunk; an edge of weight 0 is
-//   skipped before its rows are loaded;
-// - pass 2: one block per (type, feature tile) adds that type's partial rows
-//   in chunk order. No atomics anywhere, so two runs give the same bits;
+//   pieces of graph.py::segment_piece edges (256 on the entity graph, 32 on
+//   the relation graph), a group of threads a piece, the longest first, so
+//   the few, skewed types spread over the whole card;
+// - a piece's row brings rel[t] once; the group stages the piece's sources,
+//   destinations and weights in shared memory, then keeps the x, out and g
+//   loads of several edges in flight per thread. The loads go out before the
+//   weight and route tests: a weight-0 edge (the runtime easy-edge mask) or
+//   one that does not route folds in a selected 0, and nothing waits on a
+//   test;
+// - pass 2 adds a long type's partial rows in slot order, split over up to
+//   8 groups (the relation graph's 4 types have hundreds of pieces each) in
+//   a fixed order. No atomics anywhere, so two runs give the same bits;
 // - each thread owns 4 contiguous features and loads float4 (F % 4 == 0 and
 //   16-byte aligned rows; anything else is refused). Within a type the edges
 //   keep destination order, so neighbouring edges share g and out rows.
-// Offsets row*F are 64-bit.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "rspmm_pieces.cuh"
 
 namespace {
 
@@ -47,127 +49,95 @@ __device__ __forceinline__ float message(float r, float x, float w) {
   return __fmul_rn(OP == 0 ? __fmul_rn(r, x) : __fadd_rn(r, x), w);
 }
 
-// the routed term of one feature: w * (x if mul else 1) * g, or 0
+// the routed term of one feature: w * (x if mul else 1) * g, or 0 for a
+// weight-0 edge or one whose message is not the saved output
 template <int OP>
 __device__ __forceinline__ float term(float r, float x, float w, float o, float g) {
-  if (message<OP>(r, x, w) != o) return 0.f;
-  return OP == 0 ? __fmul_rn(__fmul_rn(w, x), g) : __fmul_rn(w, g);
+  const float t = OP == 0 ? __fmul_rn(__fmul_rn(w, x), g) : __fmul_rn(w, g);
+  return w != 0.f && message<OP>(r, x, w) == o ? t : 0.f;
 }
 
-// `width` is the row length in float4s (F / 4).
+struct MinMaxDrelArgs {
+  const int32_t* src;
+  const int32_t* dst;
+  const int32_t* eid;
+  const float* weight;  // indexed by eid
+  const float4* rel;    // (R, width)
+  const float4* x;      // (N, width)
+  const float4* g;      // (V, width)
+  const float4* out;    // (V, width), the forward's output
+};
+
+// An edge brings x[src], out[dst] and g[dst]; a piece's row brings rel[t].
 template <int OP>
-__global__ void minmax_drel_chunk_kernel(const int64_t* __restrict__ chunkptr,
-                                         const int32_t* __restrict__ etype,
-                                         const int32_t* __restrict__ src,
-                                         const int32_t* __restrict__ dst,
-                                         const int32_t* __restrict__ eid,
-                                         const float* __restrict__ weight,
-                                         const float4* __restrict__ rel,
-                                         const float4* __restrict__ x,
-                                         const float4* __restrict__ g,
-                                         const float4* __restrict__ out,
-                                         float4* __restrict__ partial,
-                                         int64_t width) {
-  const int64_t chunk = blockIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  const int64_t begin = chunkptr[chunk];
-  const int64_t end = chunkptr[chunk + 1];
-  const int64_t type = __ldg(etype + begin);  // chunks are never empty
-  const float4 rv = __ldg(rel + type * width + j);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int64_t e = begin; e < end; ++e) {
-    const float w = __ldg(weight + __ldg(eid + e));
-    if (w == 0.f) continue;
-    const int64_t d = __ldg(dst + e);
-    const float4 xv = __ldg(x + static_cast<int64_t>(__ldg(src + e)) * width + j);
-    const float4 ov = __ldg(out + d * width + j);
-    const float4 gv = __ldg(g + d * width + j);
-    acc.x += term<OP>(rv.x, xv.x, w, ov.x, gv.x);
-    acc.y += term<OP>(rv.y, xv.y, w, ov.y, gv.y);
-    acc.z += term<OP>(rv.z, xv.z, w, ov.z, gv.z);
-    acc.w += term<OP>(rv.w, xv.w, w, ov.w, gv.w);
-  }
-  partial[chunk * width + j] = acc;
-}
+struct MinMaxDrel : pieces::Adds {
+  using Args = MinMaxDrelArgs;
+  using Row = float4;
+  struct Edge {
+    float4 x, out, g;
+  };
+  // B4's sizes (3 rows an edge, 2 edges in flight at 4 blocks an SM) and
+  // B2's pass 2 (up to 8 groups a long type)
+  static constexpr int kWords = 3, kUnroll = 2, kMinBlocks = 4, kSplit = 8;
 
-__global__ void minmax_drel_type_kernel(const int64_t* __restrict__ type_chunkptr,
-                                        const float4* __restrict__ partial,
-                                        float4* __restrict__ out, int64_t width) {
-  const int64_t type = blockIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  const int64_t begin = type_chunkptr[type];
-  const int64_t end = type_chunkptr[type + 1];
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int64_t c = begin; c < end; ++c) {
-    const float4 p = partial[c * width + j];
-    acc.x += p.x;
-    acc.y += p.y;
-    acc.z += p.z;
-    acc.w += p.w;
+  __device__ static Row row(const Args& a, int64_t t, int64_t width, int64_t j) {
+    return __ldg(a.rel + t * width + j);
   }
-  out[type * width + j] = acc;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+  __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {
+    s[i] = __ldg(a.src + e);
+    s[pieces::kStage + i] = __ldg(a.dst + e);
+    s[2 * pieces::kStage + i] = __float_as_int(__ldg(a.weight + __ldg(a.eid + e)));
+  }
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    const int64_t dst = static_cast<int64_t>(s[pieces::kStage + i]) * width + j;
+    return {__ldg(a.x + static_cast<int64_t>(s[i]) * width + j), __ldg(a.out + dst),
+            __ldg(a.g + dst)};
+  }
+  __device__ static void add(float4& acc, const Row& r, const int32_t* s, int i,
+                             const Edge& e) {
+    const float w = __int_as_float(s[2 * pieces::kStage + i]);
+    acc.x += term<OP>(r.x, e.x.x, w, e.out.x, e.g.x);
+    acc.y += term<OP>(r.y, e.x.y, w, e.out.y, e.g.y);
+    acc.z += term<OP>(r.z, e.x.z, w, e.out.z, e.g.z);
+    acc.w += term<OP>(r.w, e.x.w, w, e.out.w, e.g.w);
+  }
+};
 
 }  // namespace
 
 // Launches both passes on `stream` and returns cudaGetLastError() (0 on
-// success). chunkptr: (num_chunks+1) int64; type_chunkptr: (num_types+1)
-// int64; etype, src, dst, eid: (E) int32 in type order; weight: f32 indexed
-// by eid; rel: (num_types, num_feat) f32; x: (N, num_feat) f32; g, out: (V,
-// num_feat) f32; partial: (num_chunks, num_feat) f32 scratch; d_rel:
-// (num_types, num_feat) f32. All contiguous on one device; indices are
-// trusted to be in range. num_feat % 4 != 0 or a misaligned row operand
-// returns cudaErrorInvalidValue and launches nothing.
-extern "C" int rspmm_minmax_drel(const void* chunkptr, const void* type_chunkptr,
-                                 const void* etype, const void* src, const void* dst,
-                                 const void* eid, const void* weight, const void* rel,
-                                 const void* x, const void* g, const void* out,
-                                 void* partial, void* d_rel, long long num_chunks,
-                                 long long num_types, long long num_feat, int mul_op,
-                                 void* stream) {
+// success). The piece table (piece_ptr (P+1) int64, piece_row (the type),
+// piece_slot and piece_order (P) int32, long_rows (L) int32, long_slot_ptr
+// (L+1) int64) is graph.py::build_segments'; src, dst, eid: (E) int32 in type
+// order; weight: f32 indexed by eid; rel: (num_types, num_feat) f32; x: (N,
+// num_feat) f32; g, out: (V, num_feat) f32; partial: (slots, num_feat) f32
+// scratch (unread without long types); d_rel: (num_types, num_feat) f32. All
+// contiguous on one device; indices are trusted to be in range.
+// num_feat % 4 != 0 or a misaligned row operand returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int rspmm_minmax_drel(const void* piece_ptr, const void* piece_row,
+                                 const void* piece_slot, const void* piece_order,
+                                 const void* long_rows, const void* long_slot_ptr,
+                                 const void* src, const void* dst, const void* eid,
+                                 const void* weight, const void* rel, const void* x,
+                                 const void* g, const void* out, void* partial, void* d_rel,
+                                 long long num_pieces, long long num_long, long long num_feat,
+                                 int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_types <= 0 || num_chunks < 0 || num_feat <= 0 || num_feat % 4 != 0) {
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
+      !pieces::aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!aligned16(rel) || !aligned16(x) || !aligned16(g) || !aligned16(out) ||
-      !aligned16(partial) || !aligned16(d_rel)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long width = num_feat / 4;
-  const long long warps = (width + 31) / 32;
-  const int threads = static_cast<int>(warps < 8 ? warps * 32 : 256);
-  const unsigned tiles = static_cast<unsigned>((width + threads - 1) / threads);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* cp = static_cast<const int64_t*>(chunkptr);
-  const auto* tcp = static_cast<const int64_t*>(type_chunkptr);
-  const auto* et = static_cast<const int32_t*>(etype);
-  const auto* sr = static_cast<const int32_t*>(src);
-  const auto* ds = static_cast<const int32_t*>(dst);
-  const auto* id = static_cast<const int32_t*>(eid);
-  const auto* w = static_cast<const float*>(weight);
-  const auto* r = static_cast<const float4*>(rel);
-  const auto* xs = static_cast<const float4*>(x);
-  const auto* gs = static_cast<const float4*>(g);
-  const auto* os = static_cast<const float4*>(out);
-  auto* part = static_cast<float4*>(partial);
-  if (num_chunks > 0) {
-    const dim3 grid(static_cast<unsigned>(num_chunks), tiles);
-    if (mul_op == 0) {
-      minmax_drel_chunk_kernel<0><<<grid, threads, 0, s>>>(cp, et, sr, ds, id, w, r, xs, gs,
-                                                           os, part, width);
-    } else {
-      minmax_drel_chunk_kernel<1><<<grid, threads, 0, s>>>(cp, et, sr, ds, id, w, r, xs, gs,
-                                                           os, part, width);
-    }
-    const int status = static_cast<int>(cudaGetLastError());
-    if (status != 0) return status;
-  }
-  const dim3 grid2(static_cast<unsigned>(num_types), tiles);
-  minmax_drel_type_kernel<<<grid2, threads, 0, s>>>(tcp, part, static_cast<float4*>(d_rel),
-                                                    width);
-  return static_cast<int>(cudaGetLastError());
+  const pieces::Table t{
+      static_cast<const int64_t*>(piece_ptr), static_cast<const int32_t*>(piece_row),
+      static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
+      static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
+      static_cast<float4*>(partial), static_cast<float4*>(d_rel), num_pieces, num_long, 0};
+  const MinMaxDrelArgs a{static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+                         static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
+                         static_cast<const float4*>(rel), static_cast<const float4*>(x),
+                         static_cast<const float4*>(g), static_cast<const float4*>(out)};
+  return mul_op == 0 ? pieces::launch<MinMaxDrel<0>>(t, a, num_feat, stream)
+                     : pieces::launch<MinMaxDrel<1>>(t, a, num_feat, stream);
 }

@@ -1,11 +1,14 @@
 // The walk over a piece table that the rspmm kernels B1 (rspmm_sum_fwd.cu),
-// B2 (rspmm_sum_drel.cu), B3 (rspmm_minmax_fwd.cu) and B4
-// (rspmm_minmax_dx.cu) share.
+// B2 (rspmm_sum_drel.cu), B3 (rspmm_minmax_fwd.cu), B4 (rspmm_minmax_dx.cu)
+// and B5 (rspmm_minmax_drel.cu) share. B6 (rspmm_dw.cu), whose output is
+// one value an edge, walks a CSR's table with a pass of its own built from
+// the same parts (the table, group_size, group_sync, the staging).
 //
 // graph.py cuts every row of a layout into pieces of at most a fixed number
 // of edges, in edge order: the rows of a CSR (ROW_PIECE edges; a row is a
-// destination for B1 and B3, a source for B4) or the types of the type
-// segments (B2, a length chosen from the graph's edge and type counts). A
+// destination for B1, B3 and B6, a source for B4) or the types of the type
+// segments (B2 and B5, a length chosen from the graph's edge and type
+// counts). A
 // piece of a one-piece row writes that row of `out`; the pieces of a longer
 // row write consecutive partial rows (their slots) of a scratch buffer, which
 // a second pass combines in slot order. Both passes are launched here, on one
@@ -35,11 +38,11 @@
 //   as much as loads per warp.
 // Pass 2. A group per (long row, tile) adds the row's partials in slot order
 // and writes the row of `out` (long_row_kernel: B1, B3, B4). A walk whose
-// long rows have hundreds of partials (B2 on the relation graph's 4 types)
-// gives a row `split` groups of one block instead (split_row_kernel): each
-// adds every split-th partial from its own first slot on, in slot order,
-// and the first folds the others' sums in, in group order, so that no single
-// group's chain of loads sets the pass's length.
+// long rows have hundreds of partials (B2 and B5 on the relation graph's 4
+// types) gives a row `split` groups of one block instead (split_row_kernel):
+// each adds every split-th partial from its own first slot on, in slot
+// order, and the first folds the others' sums in, in group order, so that
+// no single group's chain of loads sets the pass's length.
 //
 // What an edge brings is the walk's policy W:
 //   W::Args                     the kernel's own operands
@@ -49,7 +52,8 @@
 //   W::kMinBlocks               blocks of pass 1 an SM must hold (caps registers)
 //   W::kSplit                   the groups of pass 2 a long row may take (1:
 //                               long_row_kernel)
-//   W::Row row(a, r, width, j)  loaded once for the piece's row r (B4: x[r])
+//   W::Row row(a, r, width, j)  loaded once for the piece's row r (B4: x[r],
+//                               B5: rel[r])
 //   W::stage(a, e, s, i)        stages edge e's words as edge i
 //   W::Edge load(a, s, i, width, j)   issues staged edge i's row loads
 //   W::add(acc, row, s, i, edge)      folds staged edge i in
@@ -87,7 +91,7 @@ struct Table {
 
 struct NoRow {};
 
-// init and merge of the walks that add (B1, B2, B4): an empty row is 0.
+// init and merge of the walks that add (B1, B2, B4, B5): an empty row is 0.
 struct Adds {
   __device__ static float4 init() { return make_float4(0.f, 0.f, 0.f, 0.f); }
   __device__ static void merge(float4& acc, const float4& p) {

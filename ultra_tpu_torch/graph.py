@@ -26,12 +26,12 @@ a runtime weight mask reaches every kernel with no rebuild:
   B4) give each piece to its own group of threads, so a hub row (in
   FB15k-237's shape, 3,031 edges against a mean of 37) spreads over many
   groups instead of setting the launch's length, and a second pass combines
-  the pieces of each long row in a fixed order.
+  the pieces of each long row in a fixed order. The edge-weight gradient
+  (B6), one value an edge, walks the same pieces with no second pass.
 - ``segments`` (:class:`TypeSegments`): edges sorted by type. Each type's
   run is cut into pieces (a piece table as a CSR's, with the type as the
-  row, of :func:`segment_piece` edges), which the sum relation gradient B2
-  walks, and into chunks of at most :data:`SEGMENT_CHUNK` edges, which the
-  min/max relation gradient B5 walks.
+  row, of :func:`segment_piece` edges), which the sum and min/max relation
+  gradients B2 and B5 walk.
 """
 
 from __future__ import annotations
@@ -131,7 +131,6 @@ def _num_slots(layout, num_rows: int) -> int:
     return layout.piece_row.numel() - num_rows + layout.long_rows.numel()
 
 
-SEGMENT_CHUNK = 256  # edges per chunk of a type segment
 ROW_PIECE = 128  # edges per piece of a CSR row
 # the lengths a type segment's pieces may take, and the pieces the relation
 # gradient should have at least: 4 groups of threads on each of an H100's
@@ -157,32 +156,24 @@ def segment_piece(counts: torch.Tensor) -> int:
 @dataclasses.dataclass(frozen=True)
 class TypeSegments:
     """Edges sorted by type (stable, so destination-major within a type),
-    with two tables over each type's run.
+    with a piece table over each type's run.
 
     ``etype``, ``src``, ``dst`` and ``eid`` are (E_live,) int32.
 
-    The piece table, a :class:`CSR`'s with the type as the row (B2 walks
-    it): pieces of at most ``piece_len`` edges (:func:`segment_piece`),
-    ``piece_ptr`` ... ``long_slot_ptr`` as in :class:`CSR`, so a type with no
-    edges is one piece of none and ``long_rows`` are the types of more than
-    one piece.
-
-    The chunk table (B5 walks it): chunk ``k`` holds edges
-    ``chunkptr[k]:chunkptr[k+1]`` (``chunkptr`` (K+1,) int64), at most
-    :data:`SEGMENT_CHUNK` of them; the chunks of type ``t`` are
-    ``type_chunkptr[t]:type_chunkptr[t+1]`` (``type_chunkptr`` (R+1,)
-    int64). A type with no edges has no chunk.
+    The piece table, a :class:`CSR`'s with the type as the row (B2 and B5
+    walk it): pieces of at most ``piece_len`` edges (:func:`segment_piece`),
+    ``piece_ptr`` ... ``long_slot_ptr`` as in :class:`CSR`, so each of the
+    ``num_types`` types has at least one piece (a type with no edges one of
+    none) and ``long_rows`` are the types of more than one piece.
 
     The segments check their tensors' types, lengths and device when they
-    are made, so the relation gradient's wrapper checks only ``src``.
+    are made, so the relation gradients' wrappers check only ``src``.
     """
 
     etype: torch.Tensor
     src: torch.Tensor
     dst: torch.Tensor
     eid: torch.Tensor
-    chunkptr: torch.Tensor
-    type_chunkptr: torch.Tensor
     piece_ptr: torch.Tensor
     piece_row: torch.Tensor
     piece_slot: torch.Tensor
@@ -190,18 +181,13 @@ class TypeSegments:
     long_rows: torch.Tensor
     long_slot_ptr: torch.Tensor
     piece_len: int
+    num_types: int
 
     def __post_init__(self):
         edges = self.src.numel()
         _check_fields(self, self.src, {
             "etype": (torch.int32, edges), "src": (torch.int32, edges),
-            "dst": (torch.int32, edges), "eid": (torch.int32, edges),
-            "chunkptr": (torch.int64, self.chunkptr.numel()),
-            "type_chunkptr": (torch.int64, self.type_chunkptr.numel())})
-
-    @property
-    def num_types(self) -> int:
-        return self.type_chunkptr.numel() - 1
+            "dst": (torch.int32, edges), "eid": (torch.int32, edges)})
 
     @property
     def num_slots(self) -> int:
@@ -210,14 +196,13 @@ class TypeSegments:
 
     def to(self, device) -> "TypeSegments":
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self) if f.name != "piece_len"})
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 def build_segments(csr: CSR, num_types: int, piece_len: Optional[int] = None) -> TypeSegments:
     """The type segments of ``csr``'s edges, with their piece table (pieces
-    of ``piece_len`` edges, by default :func:`segment_piece`'s) and chunk
-    table.
+    of ``piece_len`` edges, by default :func:`segment_piece`'s).
 
     Many pieces per type let one type's edges spread over many groups of
     threads: the relation graph has 4 types, and a block per type would
@@ -235,26 +220,14 @@ def build_segments(csr: CSR, num_types: int, piece_len: Optional[int] = None) ->
     type_ptr[1:] = torch.cumsum(counts, 0)
     if piece_len is None:
         piece_len = segment_piece(counts)
-    chunks = -(-counts // SEGMENT_CHUNK)  # per type
-    type_chunkptr = torch.zeros(num_types + 1, dtype=torch.int64, device=device)
-    type_chunkptr[1:] = torch.cumsum(chunks, 0)
-    # chunk k of type t starts at t's first edge + SEGMENT_CHUNK * (k - t's first chunk)
-    chunk_type = torch.repeat_interleave(
-        torch.arange(num_types, device=device), chunks, output_size=int(type_chunkptr[-1]),
-    )
-    k = torch.arange(chunk_type.numel(), device=device)
-    chunkptr = torch.empty(chunk_type.numel() + 1, dtype=torch.int64, device=device)
-    chunkptr[:-1] = type_ptr[chunk_type] + SEGMENT_CHUNK * (k - type_chunkptr[chunk_type])
-    chunkptr[-1] = csr.col.numel()
     return TypeSegments(
         etype=etype[order].to(torch.int32),
         src=csr.col[order],
         dst=dst[order].to(torch.int32),
         eid=csr.eid[order],
-        chunkptr=chunkptr,
-        type_chunkptr=type_chunkptr,
         **_pieces(type_ptr, counts, piece_len),
         piece_len=piece_len,
+        num_types=num_types,
     )
 
 

@@ -20,7 +20,9 @@ launch counters, and their plain PyTorch versions.
 - B6, ``csrc/rspmm_dw.cu``: the edge-weight gradient over the
   destination-major CSR, for the sum and (given the forward's output) the
   min/max aggregators (:func:`rspmm_dw`). It replaces
-  ``rspmm_pallas.py::_dw_kernel``.
+  ``rspmm_pallas.py::_dw_kernel``. It walks the CSR's piece table, each
+  piece split evenly over :data:`DW_PARTS` groups of at most one warp, and
+  writes each edge's sum once, at its ``eid``: one pass, no scratch.
 
 The kernels are bound by memory traffic on the card; each source says what
 its design does about that. A wrapper takes the plain version for a tensor
@@ -43,6 +45,9 @@ from ultra_tpu_torch.graph import CSR, TypeSegments
 from ultra_tpu_torch.ops import build
 
 _MUL_CODE = {"mul": 0, "add": 1}
+# the groups of threads B6 splits each piece of the CSR over: its edges' sums
+# are independent, so the longest walk shortens with no second pass
+DW_PARTS = 2
 _KERNELS = {}  # name -> the bound C entry point, set at first launch
 # the C signatures of every kernel in csrc/ (the min/max ones are launched
 # from ops/rspmm_minmax_cuda.py, the gathers from ops/gather_cuda.py)
@@ -62,12 +67,13 @@ _ARGTYPES = {
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ],
-    "rspmm_minmax_drel": [ctypes.c_void_p] * 13 + [
+    "rspmm_minmax_drel": [ctypes.c_void_p] * 16 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ],
-    "rspmm_dw": [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    "rspmm_dw": [ctypes.c_void_p] * 12 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ],
     "gather_rows": [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
@@ -146,7 +152,7 @@ _TABLE = ("piece_ptr", "piece_row", "piece_slot", "piece_order", "long_rows", "l
 
 def _launch_walk(name: str, op: str, table, num_rows: int, indices: dict, edge_weight,
                  rows: dict, *codes, out_name: str = "out"):
-    """The kernel ``name`` (B1, B2, B3 or B4) on the card over ``table``'s
+    """The kernel ``name`` (B1, B2, B3, B4 or B5) on the card over ``table``'s
     pieces (a :class:`CSR` or the :class:`TypeSegments`); (num_rows, F) f32
     out. Its C arguments: the piece table, ``indices`` (the layout's three
     index arrays), ``edge_weight``, ``rows`` (the kernel's f32 row
@@ -334,8 +340,8 @@ def rspmm_dw(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):
     forward's saved output, switches the tie routing on; without it this is
     the sum's gradient, which a runtime-masked edge gets in full. A slot not
     in the CSR is 0. On a CPU tensor this runs :func:`rspmm_dw_plain`; on a
-    CUDA tensor it launches B6, building it first if needed, and raises if it
-    cannot."""
+    CUDA tensor it launches B6 over ``csr``'s piece table, building it first
+    if needed, and raises if it cannot."""
     _check_dtypes(edge_weight, relation, x, mul, op="rspmm_dw")
     _check_f32("rspmm_dw", g=g, **({} if out is None else {"out": out}))
     num_rows = csr.rowptr.numel() - 1
@@ -346,29 +352,30 @@ def rspmm_dw(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):
         return rspmm_dw_plain(csr, edge_weight, relation, x, g, mul, out)
     kernel = _kernel("rspmm_dw")
     rows = {"relation": relation, "x": x, "g": g, **({} if out is None else {"out": out})}
-    _check_device_tensors(
-        "rspmm_dw", g.device, rows=rows, ptrs={"rowptr": csr.rowptr},
-        ints={"col": csr.col, "etype": csr.etype, "eid": csr.eid},
-        floats={"edge_weight": edge_weight},
-    )
-    if 4 * x.shape[1] * (1 if out is None else 2) > 48 * 1024:
-        raise ValueError(f"rspmm_dw: the kernel keeps a row of g (and out) in 48 KB of "
-                         f"shared memory, too little for F={x.shape[1]}")
+    # the CSR checked its own fields when it was made (graph.CSR): col stands
+    # for them, as in the forwards' wrappers
+    _check_device_tensors("rspmm_dw", g.device, rows=rows, ptrs={}, ints={"col": csr.col},
+                          floats={"edge_weight": edge_weight})
     d_w = torch.zeros(edge_weight.shape, dtype=torch.float32, device=g.device)
     if num_rows == 0 or x.shape[1] == 0:
         return d_w
-    with torch.cuda.device(g.device):
-        status = kernel(
-            csr.rowptr.data_ptr(), csr.col.data_ptr(), csr.etype.data_ptr(),
-            csr.eid.data_ptr(), edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(),
-            g.data_ptr(), 0 if out is None else out.data_ptr(), d_w.data_ptr(), num_rows,
-            x.shape[1], _MUL_CODE[mul], int(out is not None),
-            torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"rspmm_dw launch failed with CUDA error {status}")
+    _launch_dw(kernel, csr, edge_weight, relation, x, g, mul, out, d_w)
     rspmm_dw.launches[(num_rows, x.shape[1])] += 1
     return d_w
+
+
+def _launch_dw(kernel, csr: CSR, edge_weight, relation, x, g, mul, out, d_w):
+    """B6 (``kernel``) on checked operands: writes the d_w of each CSR edge
+    into ``d_w`` at its eid and leaves every other slot as it was."""
+    operands = (csr.piece_ptr, csr.piece_row, csr.piece_order, csr.col, csr.etype, csr.eid,
+                edge_weight, relation, x, g)
+    with torch.cuda.device(g.device):
+        status = kernel(*(t.data_ptr() for t in operands),
+                        0 if out is None else out.data_ptr(), d_w.data_ptr(),
+                        csr.piece_row.numel(), x.shape[1], _MUL_CODE[mul], int(out is not None),
+                        DW_PARTS, torch.cuda.current_stream(g.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"rspmm_dw launch failed with CUDA error {status}")
 
 
 rspmm_dw.launches = collections.Counter()  # launches by (rows of the CSR, F)

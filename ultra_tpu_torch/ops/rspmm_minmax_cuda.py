@@ -16,7 +16,9 @@ and launch counters, and their plain PyTorch versions.
 - B5, ``csrc/rspmm_minmax_drel.cu``: the relation gradient over the type
   segments (:func:`rspmm_minmax_drel`). It replaces
   ``rspmm_pallas.py::_minmax_drel_kernel`` and
-  ``rspmm_pallas_v2.py::_minmax_drel_kernel_v2``.
+  ``rspmm_pallas_v2.py::_minmax_drel_kernel_v2``. It walks the segments'
+  piece table as B2 does (``ops/rspmm_cuda.py``), and adds a long type's
+  partial rows in a fixed order.
 
 The message of a live edge (weight not 0) is ``(rel op x) * w``, rounded
 after each operation, in that order, in the kernels and in the plain
@@ -39,8 +41,7 @@ import torch
 
 from ultra_tpu_torch.graph import CSR, TypeSegments
 from ultra_tpu_torch.ops.rspmm_cuda import (
-    _MUL_CODE, _check_device_tensors, _check_dtypes, _check_f32, _csr_rows, _kernel,
-    _launch_pieces, _launch_walk,
+    _MUL_CODE, _check_dtypes, _check_f32, _csr_rows, _launch_pieces, _launch_walk,
 )
 
 
@@ -186,39 +187,19 @@ def rspmm_minmax_drel(seg: TypeSegments, edge_weight, relation, x, g, out, mul: 
     ``seg.num_types`` = the rows of ``relation``, from the forward's inputs,
     its saved output ``out`` and the output gradient ``g``. ``x`` is read for
     ``"add"`` too: the route needs the message. On a CPU tensor this runs
-    :func:`rspmm_minmax_drel_plain`; on a CUDA tensor it launches B5 (both of
-    its passes, one count), building it first if needed, and raises if it
-    cannot."""
+    :func:`rspmm_minmax_drel_plain`; on a CUDA tensor it launches B5 over the
+    segments' piece table (both of its passes, one count), building it first
+    if needed, and raises if it cannot."""
     _check_backward("rspmm_minmax_drel", edge_weight, relation, x, g, out, mul)
     if relation.shape[0] != seg.num_types:
         raise ValueError(f"rspmm_minmax_drel: relation has {relation.shape[0]} rows, the "
                          f"segments {seg.num_types} types")
     if g.device.type == "cpu":
         return rspmm_minmax_drel_plain(seg, edge_weight, relation, x, g, out, mul)
-    kernel = _kernel("rspmm_minmax_drel")
-    num_chunks, num_types, num_feat = seg.chunkptr.numel() - 1, seg.num_types, g.shape[1]
-    d_rel = torch.empty(num_types, num_feat, dtype=torch.float32, device=g.device)
-    partial = torch.empty(num_chunks, num_feat, dtype=torch.float32, device=g.device)
-    _check_device_tensors(
-        "rspmm_minmax_drel", g.device,
-        rows={"relation": relation, "x": x, "g": g, "out": out, "partial": partial,
-              "d_rel": d_rel},
-        ptrs={"chunkptr": seg.chunkptr, "type_chunkptr": seg.type_chunkptr},
-        ints={"etype": seg.etype, "src": seg.src, "dst": seg.dst, "eid": seg.eid},
-        floats={"edge_weight": edge_weight},
-    )
-    if num_types == 0 or num_feat == 0:
-        return d_rel
-    with torch.cuda.device(g.device):
-        status = kernel(
-            seg.chunkptr.data_ptr(), seg.type_chunkptr.data_ptr(), seg.etype.data_ptr(),
-            seg.src.data_ptr(), seg.dst.data_ptr(), seg.eid.data_ptr(),
-            edge_weight.data_ptr(), relation.data_ptr(), x.data_ptr(), g.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), d_rel.data_ptr(), num_chunks, num_types,
-            num_feat, _MUL_CODE[mul], torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"rspmm_minmax_drel launch failed with CUDA error {status}")
+    d_rel = _launch_walk("rspmm_minmax_drel", "rspmm_minmax_drel", seg, seg.num_types,
+                         {"src": seg.src, "dst": seg.dst, "eid": seg.eid}, edge_weight,
+                         {"relation": relation, "x": x, "g": g, "out": out},
+                         _MUL_CODE[mul], out_name="d_rel")
     rspmm_minmax_drel.launches[tuple(d_rel.shape)] += 1
     return d_rel
 
