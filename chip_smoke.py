@@ -20,9 +20,13 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    gradient) and B5 (relation gradient) on both graphs at F=512, for each
    ``mul`` and each of min and max, on tie-heavy inputs and on normal ones;
    the edge-weight gradient B6 on the entity graph at F=64 (attribution)
-   and F=512, for the sum and for min and max, on those inputs; and B1
+   and F=512, for the sum and for min and max, on those inputs; B1
    (forward on both graphs, input gradient) and B6 at F=64 on the repo's
-   rule-KG, which ``[visualize]`` explains a prediction on. B1, B3, B4 and
+   rule-KG, which ``[visualize]`` explains a prediction on, and B1 and B2
+   at F=512 on it and on its relation graph, ``[link-prediction]``'s
+   training graph; and B1 at
+   validation's widths (F=1024 on the entity graph, 4096 on the relation
+   graph) on ``[link-prediction]``'s inference graph. B1, B3, B4 and
    B6 walk their CSR's piece table (``graph.ROW_PIECE``) and B2 and B5 the
    type segments' (``graph.segment_piece``): B1, B3, B4 and B6 are also
    timed on a graph with uniformly drawn destinations (``uniform_ms``), all
@@ -61,13 +65,24 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    rule-KG ``kg-datasets/synthrule-v5000-b12-c6-e45000-s3``, from a
    ``.pth``, against the CPU; and the command line itself where PyYAML is
    installed, in its own process while this one runs the CPU references;
-10. runs the gather probe (``[gather-probe]``,
+10. runs link prediction (``[link-prediction]``) as
+   ``scripts/torch_run.py`` runs it with ``config/inductive/inference.yaml``
+   (``train/runner.py::run_link_prediction``), on a fully inductive dataset
+   in InGram's layout written from the repo's two rule-KGs (see
+   LP_INFERENCE), from a ``.pth`` of random weights: zero-shot, and a
+   fine-tune of one short epoch, each timed with its launches asserted;
+   the card's ranks of a few test triples held against the CPU's, with the
+   random weights and with the fine-tuned checkpoint; and the
+   command line itself where PyYAML is installed, in its own process while
+   this one runs the CPU references, whose test metrics must be the
+   zero-shot run's;
+11. runs the gather probe (``[gather-probe]``,
    ``utils/benchlib.py::gather_probe``, the function
    ``scripts/torch_gather_probe.py`` runs): G1 and G2 at the TPU probes'
    shapes and G1 over the entity graph's edge sources, each equal to its
    plain version, timed beside it and the PyTorch call that computes the
-   same function;
-11. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   same function, and an empty kernel on G2's grid, the floor under G2;
+12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises before the last line is printed.
@@ -78,6 +93,7 @@ check the kernels alone); the last line is then not printed.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import os
@@ -107,7 +123,7 @@ KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
 WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
             "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv",
-          "visualize", "gather-probe")
+          "visualize", "link-prediction", "gather-probe")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -192,6 +208,21 @@ SYNTHRULE = dict(num_nodes=5000, num_base_rel=12, num_comp_rel=6, num_base_tripl
                  seed=3)
 
 
+# [link-prediction]: a fully inductive dataset in InGram's layout (FBIngram,
+# version "synth") written from the repo's two rule-KGs. Its training graph
+# is SYNTHRULE's train.txt (136,010 triples, 272,020 message edges, 36
+# relations with inverses); its inference graph LP_INFERENCE's train.txt
+# (90,748 triples over 3,732 entities, 54 relations with inverses), with
+# every token renamed so that the graphs share none; its validation and test
+# triples the first LP_TRIPLES lines of LP_INFERENCE's valid.txt and
+# test.txt. Run A is zero-shot; run B fine-tunes one epoch of LP_STEPS
+# batches; the card's ranks of the first LP_RANKED test triples are held
+# against the CPU's.
+LP_INFERENCE = "synthrule-v4000-b18-c9-e30000-s1"
+LP_TRIPLES, LP_STEPS, LP_RANKED = 1024, 8, 16
+LP_METRICS = ["mr", "mrr", "hits@1", "hits@3", "hits@10"]
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -248,10 +279,10 @@ def minmax_drel_bound_ms(seg, edge_weight, relation, x, g):
     return bound_ms(nbytes, 6 * live_edges(edge_weight, seg.eid) * g.shape[1])
 
 
-def kernel_row(name, source, replaces, out_shape, ms, plain_ms, bound, max_abs_err,
+def kernel_row(name, source, replaces, launch_key, ms, plain_ms, bound, max_abs_err,
                tolerance, on_path=True, **extra):
     """One entry of the kernels line; ``launches`` is filled in at the end
-    from the main path's counts at ``out_shape``."""
+    from the main path's counts at ``launch_key``."""
     least_ms, bound_by = bound
     print(f"[kernel] {name}: ms={ms!r} plain_ms={plain_ms!r} bound_ms={least_ms!r} "
           f"({bound_by})", flush=True)
@@ -259,7 +290,7 @@ def kernel_row(name, source, replaces, out_shape, ms, plain_ms, bound, max_abs_e
             "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": least_ms, "bound_by": bound_by,
             "library_ms": None,  # unless ``extra`` names the PyTorch call that computes it
-            "out_shape": list(out_shape), "on_path": on_path, "tolerance": tolerance,
+            "launch_key": list(launch_key), "on_path": on_path, "tolerance": tolerance,
             **extra}
 
 
@@ -285,12 +316,15 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
     path would run it) for each ``mul`` of ``timed``, which maps it to the
     TPU kernel it replaces. Returns (rows of the kernels line, ok); the row
     of "add" is named ``name`` with ``_add`` after the wrapper's name and is
-    not on the path (distmult)."""
+    not on the path (distmult). Each row's launch key is the one the wrapper
+    counted for these inputs."""
     from ultra_tpu_torch.utils.benchlib import device_ms
 
     errs, ok = {}, True
     for mul in ("mul", "add"):
+        before = collections.Counter(kernel.launches)
         got = kernel(layout, weight, a, b, mul)
+        (key,) = kernel.launches - before
         errs[mul], rel, within, case_ok = sum_kernel_error(got, plain, layout, weight, a, b, mul)
         ok &= case_ok
         print(f"[kernel] {name} mul={mul} {tuple(got.shape)}: ok={case_ok} "
@@ -302,12 +336,13 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
         wrapper, rest = name.split("/", 1)
         row_name = name if mul == "mul" else f"{wrapper}_{mul}/{rest}"
         rows.append(kernel_row(
-            row_name, source, replaces, got.shape,
+            row_name, source, replaces, key,
             device_ms(lambda: kernel(layout, weight, a, b, mul)),
             device_ms(lambda: plain(layout, weight, a, b, mul), samples=PLAIN_SAMPLES),
             bound(layout, weight, a, b, mul), errs[mul],
             f"|err| <= {KERNEL_REL_TO_ABS_SUM} * sum|terms| + {KERNEL_ATOL} against the "
             "plain version in f64", on_path=mul == "mul", mul=mul,
+            **({"piece_len": layout.piece_len} if hasattr(layout, "piece_len") else {}),
         ))
     return rows, ok
 
@@ -544,8 +579,8 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
       stands for the CSR by source of uniformly drawn sources; B4 routes
       against the forward of that transposed graph), and ``max_in_degree``
       (and ``uniform_max_in_degree``), the longest row the launch walks on
-      each graph; the B2 and B5 rows get ``piece_len``, the segments' piece
-      length;
+      each graph; the B5 rows get ``piece_len``, the segments' piece length
+      (:func:`hold` gives it to the B2 rows);
     - B1 (mul and add, forward and d_x, both widths), B3 and B4 (min and
       max, mul and add, tie-heavy and normal inputs, ``feat``) and B6 (the
       sum and min/max as ``hold_dw`` holds them, at ``dim``, ``feat`` and
@@ -595,7 +630,7 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
         (f"rspmm_minmax_dx/entity/F{feat}", minmax_dx_uniform, graph.csr_src),
         (f"rspmm_dw/entity/F{dim}", dw_uniform, graph.csr),
     ):
-        f = rows[name]["out_shape"][1]
+        f = rows[name]["launch_key"][1]
         rel, x = rand(r, f), rand(n, f)
         rows[name].update(uniform_ms=device_ms(timed(uniform.csr, w_u, rel, x, "mul")),
                           max_in_degree=longest(walked),
@@ -604,7 +639,7 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
               f"{rows[name]['uniform_ms']!r} max_in_degree {longest(walked)} against "
               f"{longest(uniform.csr)}", flush=True)
     for name, row in rows.items():
-        if name.startswith(("rspmm_sum_drel", "rspmm_minmax_drel")):
+        if name.startswith("rspmm_minmax_drel"):
             on = graph if "/entity/" in name else graph.relation_graph
             row["piece_len"] = on.segments.piece_len
 
@@ -745,17 +780,20 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
     return ok
 
 
-def check_kernels(graph, rule_graph, cfg, gen, uniform):
+def check_kernels(graph, rule_graph, lp_graph, cfg, gen, uniform):
     """Every kernel wrapper against its plain version at each shape the
     serving, training, validation and attribution paths give it: F = 512
     (a batch of 8, D = 64) for training and serving, 1024 for validation's
     two directions on the entity graph, 4096 for the precompute's 64
     relations on the relation graph, 64 (one query) for attribution's
     forwards on both graphs and its input and edge-weight gradients on the
-    entity graph, on ``graph`` and on ``rule_graph`` (the rule-KG that
-    ``[visualize]`` explains a prediction on); then :func:`piece_checks`
-    with ``uniform``, the graph with uniformly drawn destinations. Returns
-    ({row name: row}, ok); a row's ``out_shape`` is the launch-count key of
+    entity graph, on ``graph``; on ``rule_graph`` (the rule-KG that
+    ``[visualize]`` explains a prediction on, and the training graph of
+    ``[link-prediction]``) F = 64 for attribution and F = 512 for
+    fine-tuning; on ``lp_graph`` (``[link-prediction]``'s inference graph)
+    validation's F = 1024 and 4096; then :func:`piece_checks` with
+    ``uniform``, the graph with uniformly drawn destinations. Returns
+    ({row name: row}, ok); a row's ``launch_key`` is the launch-count key of
     its launches."""
     from ultra_tpu_torch.ops import rspmm_cuda as k
 
@@ -767,7 +805,8 @@ def check_kernels(graph, rule_graph, cfg, gen, uniform):
     # is the forward kernel on the source plan (rspmm_pallas.py:1341-1374)
     # and the relation gradient the v2 or the v1 kernel (:1375-1392); the
     # min/max gradients run the v2 kernels with v2 plans, else the v1 ones
-    # (rspmm_pallas.py:852-963). The rule-KG's graphs run attribution only.
+    # (rspmm_pallas.py:852-963). The rule-KG's graphs run attribution and
+    # [link-prediction]'s fine-tuning, the inference graph validation.
     entity_fwd, relation_fwd = ("ultra_tpu/ops/rspmm_pallas_v2.py:508",
                                 "ultra_tpu/ops/rspmm_pallas.py:283")
     for tag, g_, fwd_feats, dx_feats, drel_replaces, minmax_replaces, fwd_replaces in (
@@ -781,8 +820,13 @@ def check_kernels(graph, rule_graph, cfg, gen, uniform):
          {"fwd": "ultra_tpu/ops/rspmm_pallas.py:574",
           "dx": "ultra_tpu/ops/rspmm_pallas.py:704",
           "drel": "ultra_tpu/ops/rspmm_pallas.py:745"}, relation_fwd),
-        ("rulekg", rule_graph, (dim,), (dim,), None, None, entity_fwd),
-        ("rulekg-relation", rule_graph.relation_graph, (dim,), (), None, None, relation_fwd),
+        ("rulekg", rule_graph, (dim, train_feat), (dim, train_feat),
+         "ultra_tpu/ops/rspmm_pallas_v2.py:1054", None, entity_fwd),
+        ("rulekg-relation", rule_graph.relation_graph, (dim, train_feat), (train_feat,),
+         "ultra_tpu/ops/rspmm_pallas.py:381", None, relation_fwd),
+        ("inference", lp_graph, (2 * train_feat,), (), None, None, entity_fwd),
+        ("inference-relation", lp_graph.relation_graph, (PRECOMPUTE_CHUNK * dim,), (), None,
+         None, relation_fwd),
     ):
         keep = torch.rand(g_.edge_weight.shape, generator=gen) >= 0.1
         w = (g_.edge_weight.cpu() * keep).cuda()
@@ -847,8 +891,8 @@ def wrappers():
 
 
 def launch_counts():
-    """{wrapper: {output shape (rows, F), for the gathers with the element
-    type: launches}} since the last reset."""
+    """{wrapper: {output shape (rows, F), for B2 (V, R, F), for the gathers
+    with the element type: launches}} since the last reset."""
     return {f.__name__: dict(f.launches) for f in wrappers()}
 
 
@@ -902,7 +946,8 @@ def forward_launches(model_cfg, num_rows, feat):
 
 
 def per_step_launches(cfg, num_nodes, num_rel):
-    """What autograd asks of the rspmm in one step, by output shape: a
+    """What autograd asks of the rspmm in one step, by launch key (the
+    output shape; B2's with the graph's nodes before it): a
     forward, a relation gradient and an input gradient of each rspmm call of
     every layer of both models, except the input gradients of the relation
     model's first layer, whose input is a constant boundary. The relation
@@ -918,7 +963,7 @@ def per_step_launches(cfg, num_nodes, num_rel):
         n_sum, n_ext = rspmm_calls_per_layer(model.aggregate_func)
         layers = len(model.hidden_dims)
         add_launches(counts, "rspmm_sum_dx", (rows, feat), n_sum * dx_layers)
-        add_launches(counts, "rspmm_sum_drel", (types, feat), n_sum * layers)
+        add_launches(counts, "rspmm_sum_drel", (rows, types, feat), n_sum * layers)
         add_launches(counts, "rspmm_minmax_dx", (rows, feat), n_ext * dx_layers)
         add_launches(counts, "rspmm_minmax_drel", (types, feat), n_ext * layers)
     return counts
@@ -1562,11 +1607,273 @@ def gather_probe_run(graph):
             name, "ultra_tpu_torch/csrc/gather.cu", g["replaces"], g["out_key"], g["ms"],
             g["plain_ms"], (g["bound_ms"], g["bound_by"]), g["max_abs_err"],
             "equal to the plain version", library_ms=g["library_ms"],
-            library_call=g["library_call"])
+            library_call=g["library_call"],
+            **{k: g[k] for k in ("launch_floor_ms",) if k in g})
     check(record["equal"], "a gather differs from its plain version (see [gather-probe])")
     check(all(counts[name] for name in ("gather_rows", "gather_lanes")),
           f"the gather probe launched {as_json(counts)}")
     return rows, {name: counts[name] for name in ("gather_rows", "gather_lanes")}
+
+
+def write_lp_dataset():
+    """The [link-prediction] dataset's raw files, in InGram's layout, under a
+    fresh ``build/chip_smoke/lp/kg-datasets/ingram/fb/synth/raw`` (see
+    LP_INFERENCE); the inference graph's tokens take an ``i`` prefix.
+    Returns the ``kg-datasets`` directory, which the YAML's ``root:
+    ./kg-datasets/`` names from ``build/chip_smoke/lp``."""
+    import shutil
+
+    base = ROOT / "build" / "chip_smoke" / "lp"
+    shutil.rmtree(base, ignore_errors=True)
+    root = base / "kg-datasets"
+    raw = root / "ingram" / "fb" / "synth" / "raw"
+    raw.mkdir(parents=True)
+    from ultra_tpu_torch.data.kg import SyntheticRuleKG
+
+    train = Path(SyntheticRuleKG(str(ROOT / "kg-datasets"), **SYNTHRULE).raw_dir)
+    inference = ROOT / "kg-datasets" / LP_INFERENCE / "raw"
+    shutil.copyfile(train / "train.txt", raw / "transductive_train.txt")
+    for src, dst, limit in (("train.txt", "inference_graph.txt", None),
+                            ("valid.txt", "inf_valid.txt", LP_TRIPLES),
+                            ("test.txt", "inf_test.txt", LP_TRIPLES)):
+        with open(inference / src) as f:
+            lines = f.read().splitlines()[:limit]
+        (raw / dst).write_text("".join("\t".join("i" + tok for tok in line.split()) + "\n"
+                                       for line in lines))
+    return root
+
+
+def lp_config(ckpt, epochs=0, batch_per_epoch=None):
+    """``config/inductive/inference.yaml`` rendered with ``--dataset FBIngram
+    --version synth --epochs <epochs> --bpe <batch_per_epoch> --ckpt
+    <ckpt>``, as a dict: the card's machine has no jinja2 or PyYAML."""
+    layer = {"input_dim": 64, "hidden_dims": [64] * 6, "message_func": "distmult",
+             "aggregate_func": "sum", "short_cut": True, "layer_norm": True}
+    return {
+        "output_dir": "./output",
+        "dataset": {"class": "FBIngram", "version": "synth", "root": "./kg-datasets/"},
+        "model": {"class": "Ultra", "relation_model": {"class": "RelNBFNet", **layer},
+                  "entity_model": {"class": "EntityNBFNet", **layer}},
+        "task": {"name": "InductiveInference", "num_negative": NUM_NEGATIVE,
+                 "strict_negative": True, "adversarial_temperature": 1, "metric": LP_METRICS},
+        "optimizer": {"class": "AdamW", "lr": LR},
+        "train": {"batch_size": BATCH, "num_epoch": epochs, "log_interval": 100,
+                  "batch_per_epoch": batch_per_epoch},
+        "checkpoint": ckpt,
+    }
+
+
+def rank_tolerance(model, graph, trips, index):
+    """For each rank :func:`collect_rankings` gives ``trips`` (each batch's
+    tail ranks, then its head ranks), how many candidates the filter counts
+    score within SCORE_ATOL + SCORE_RTOL * |positive| of the positive on
+    ``graph``: how far rounding may move that rank."""
+    from ultra_tpu_torch import tasks
+    from ultra_tpu_torch.models.nbfnet import ultra_score_all
+
+    t_mask, h_mask = tasks.strict_negative_mask(index, trips)
+    h, t, r = (torch.as_tensor(trips[:, i], device=graph.device) for i in range(3))
+    num_direct = graph.num_relations // 2
+    near = []
+    with torch.no_grad():
+        for kw, target, mask in ((dict(h_index=h, r_index=r), t, t_mask),
+                                 (dict(h_index=t, r_index=r + num_direct, query_r_index=r),
+                                  h, h_mask)):
+            scores = ultra_score_all(model, graph, **kw)
+            pos = scores.gather(1, target[:, None])
+            close = (scores - pos).abs() <= SCORE_ATOL + SCORE_RTOL * pos.abs()
+            near.append((close.cpu() & torch.as_tensor(mask)).sum(1).numpy())
+    return np.concatenate([part[i:i + BATCH] for i in range(0, len(trips), BATCH)
+                           for part in near])
+
+
+def link_prediction_run(cfg, root, dataset):
+    """The link-prediction entry point at full ``ultra_3g`` width, as
+    ``scripts/torch_run.py`` runs it, on the dataset of
+    :func:`write_lp_dataset` under ``root`` (``build_dataset("FBIngram",
+    ..., version="synth")``, filtered with the inference graph; ``dataset``
+    is its processed cache, loaded) from a ``.pth`` of seed-0 random
+    weights, with the config of :func:`lp_config` (checked against the YAML
+    where jinja2 and PyYAML are installed). Run A: ``run_link_prediction``
+    zero-shot, timed, its launches read around it. Run B: one epoch of
+    LP_STEPS steps, timed by the runner's own epoch log record, three
+    filtered validations and a checkpoint, its launches read around it.
+    Then ``collect_rankings`` of the first LP_RANKED test triples on the
+    card and on the CPU, with the seed-0 weights and with run B's
+    ``model_epoch_1.pth``; meanwhile, where PyYAML is installed, the command
+    line itself in its own process, whose test metrics must be run A's.
+    Returns (the ``[link-prediction]`` record, the launches of runs A and
+    B)."""
+    import ast
+    import logging.handlers
+
+    from ultra_tpu_torch.models.nbfnet import Ultra
+    from ultra_tpu_torch.train import runner
+    from ultra_tpu_torch.train.eval import collect_rankings
+    from ultra_tpu_torch.train.loop import init_ultra_params
+
+    base = root.parent
+    ckpt = base / "ultra_3g_seed0.pth"
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    torch.save({"model": model.state_dict()}, ckpt)
+    zero_shot, fine_tune = lp_config(str(ckpt)), lp_config(str(ckpt), 1, LP_STEPS)
+    try:
+        from ultra_tpu_torch.utils import config as config_lib
+
+        rendered = config_lib.load_config(
+            str(ROOT / "config" / "inductive" / "inference.yaml"),
+            {"dataset": "FBIngram", "version": "synth", "epochs": 0, "bpe": "null",
+             "ckpt": str(ckpt)})
+    except ImportError:  # no jinja2 or PyYAML
+        rendered = None
+    check(rendered is None or rendered == zero_shot,
+          f"inference.yaml renders to {rendered}, not {zero_shot}")
+
+    def run(run_cfg, name):
+        run_cfg = copy.deepcopy(run_cfg)
+        run_cfg["dataset"]["root"] = str(root)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = runner.run_link_prediction(run_cfg, str(base / name),
+                                             checkpoint=run_cfg["checkpoint"], device="cuda")
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0, launch_counts()
+
+    results_a, wall_a, counts_a = run(zero_shot, "zero_shot")
+    # the runner logs each epoch's (epoch, mean loss, seconds to the loss's
+    # synchronise, steps): run B's step time, its first step included
+    log = logging.handlers.BufferingHandler(capacity=10_000)
+    logging.getLogger("ultra_tpu_torch").addHandler(log)
+    try:
+        results_b, wall_b, counts_b = run(fine_tune, "fine_tune")
+    finally:
+        logging.getLogger("ultra_tpu_torch").removeHandler(log)
+    epochs = [r.args for r in log.buffer if r.msg.startswith("epoch ")]
+    check(len(epochs) == 1 and epochs[0][3] == LP_STEPS,
+          f"run B logged epochs {epochs}, want one of {LP_STEPS} steps")
+    _, loss_b, epoch_s, _ = epochs[0]
+
+    train, valid, test = dataset.train, dataset.valid, dataset.test
+    valid_launches = validation_launches(cfg, valid.num_nodes, valid.num_relations,
+                                         valid.target_edge_type.size)
+    test_launches = validation_launches(cfg, test.num_nodes, test.num_relations,
+                                        test.target_edge_type.size)
+    want_a = plus(valid_launches, test_launches)
+    want_b = plus(plus(times(per_step_launches(cfg, train.num_nodes, train.num_relations),
+                             LP_STEPS), times(valid_launches, 2)), test_launches)
+    epoch_ckpt = base / "fine_tune" / "model_epoch_1.pth"
+    trained = (torch.load(epoch_ckpt, weights_only=True, map_location="cpu")["model"]
+               if epoch_ckpt.exists() else {})
+    check(bool(trained) and all(torch.isfinite(v).all() for v in trained.values()),
+          f"{epoch_ckpt} is missing or its weights are not finite")
+
+    # the card's ranks of the first LP_RANKED test triples against the CPU's,
+    # with the seed-0 weights (run A's) and the fine-tuned ones (run B's)
+    filtered = runner.build_filtered_index(dataset, "FBIngram", "InductiveInference")
+    trips = runner.triples_of(test)[:LP_RANKED]
+    weights = {"seed0": model.state_dict(), "fine_tuned": trained}
+
+    def ranker(state, device):
+        ranked = Ultra(cfg)
+        ranked.load_state_dict(state)
+        return ranked.to(device).eval()
+
+    card_graph = runner.prepare_graph(test, device="cuda")
+    ranks = {}
+    for name, state in weights.items():
+        card_model = ranker(state, "cuda")
+        ranks[name] = {"card": collect_rankings(card_model, card_graph, trips, filtered["test"],
+                                                batch_size=BATCH)[0],
+                       "near_ties": rank_tolerance(card_model, card_graph, trips,
+                                                   filtered["test"])}
+    del card_model, card_graph
+    torch.cuda.empty_cache()
+
+    cli = proc = None
+    try:
+        import jinja2  # noqa: F401 - the command line reads the YAML with both
+        import yaml  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        cli_t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "scripts" / "torch_run.py"), "-c",
+             str(ROOT / "config" / "inductive" / "inference.yaml"), "--dataset", "FBIngram",
+             "--version", "synth", "--epochs", "0", "--bpe", "null", "--ckpt", str(ckpt)],
+            cwd=base, env=dict(os.environ, ULTRA_WORKDIR=str(base / "cli")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        cpu_graph = runner.prepare_graph(test, device="cpu")
+        for name, state in weights.items():
+            ranks[name]["cpu"] = collect_rankings(ranker(state, "cpu"), cpu_graph, trips,
+                                                  filtered["test"], batch_size=BATCH)[0]
+        cpu_s = time.perf_counter() - t0
+    finally:
+        if proc is not None:
+            out, err = proc.communicate(timeout=600)
+            printed = [line for line in out.splitlines() if line.startswith("{'valid'")]
+            cli = {"returncode": proc.returncode, "wall_s": time.perf_counter() - cli_t0,
+                   "results": ast.literal_eval(printed[-1]) if printed else None,
+                   "stderr": err[-2000:]}
+    for by in ranks.values():
+        diff = np.abs(by["card"] - by["cpu"])
+        by["max_rank_diff"] = int(diff.max())
+
+    record = {
+        "dataset": dataset.name,
+        "train_graph": {"V": train.num_nodes, "E": int(train.edge_index.shape[1]),
+                        "R": train.num_relations},
+        "inference_graph": {"V": test.num_nodes, "E": int(test.edge_index.shape[1]),
+                            "R": test.num_relations},
+        "valid_triples": int(valid.target_edge_type.size),
+        "test_triples": int(test.target_edge_type.size),
+        "zero_shot": {"wall_s": wall_a, "results": results_a, "launches": as_json(counts_a)},
+        "fine_tune": {"wall_s": wall_b, "steps": LP_STEPS, "epoch_s": epoch_s,
+                      "ms_per_step": 1e3 * epoch_s / LP_STEPS, "loss": loss_b,
+                      "results": results_b, "launches": as_json(counts_b)},
+        "ranks": {"triples": LP_RANKED, "cpu_s": cpu_s,
+                  **{name: {k: v.tolist() if isinstance(v, np.ndarray) else v
+                            for k, v in by.items()} for name, by in ranks.items()}},
+        "cli": None if cli is None else {k: v for k, v in cli.items() if k != "stderr"},
+        "tolerance": f"ranks equal but by the counted candidates within {SCORE_ATOL} + "
+                     f"{SCORE_RTOL} * |positive| of the positive's score on the card",
+    }
+    print("[link-prediction] " + json.dumps(record), flush=True)
+    for name, by in ranks.items():
+        print(f"[link-prediction] ranks {name}: largest card-CPU rank difference "
+              f"{by['max_rank_diff']}, allowed near ties {int(by['near_ties'].min())} to "
+              f"{int(by['near_ties'].max())} a rank", flush=True)
+    check(counts_a == want_a, f"zero-shot run_link_prediction launched {as_json(counts_a)}, "
+                              f"want {as_json(want_a)}")
+    check(counts_b == want_b, f"fine-tuning run_link_prediction launched {as_json(counts_b)}, "
+                              f"want {as_json(want_b)}")
+    # random weights rank a few test triples first, or none: zero-shot, a
+    # hits@k may be 0; after fine-tuning, MRR and every hits@k are above 0
+    for name, results, hits_above_0 in (("zero-shot", results_a, False),
+                                        ("fine-tuning", results_b, True)):
+        for split, metrics in results.items():
+            hits = [metrics[m] for m in LP_METRICS[2:]]
+            check(list(metrics) == LP_METRICS and all(np.isfinite(list(metrics.values()))),
+                  f"{name} {split} metrics {metrics}")
+            check(0 < metrics["mrr"] <= 1 and all(0 <= h <= 1 for h in hits)
+                  and (min(hits) > 0 or not hits_above_0),
+                  f"{name} {split}: MRR or a hits@k out of range: {metrics}")
+    for name, by in ranks.items():
+        check(by["card"].shape == by["cpu"].shape == by["near_ties"].shape == (2 * LP_RANKED,),
+              f"{name} ranks of shapes {by['card'].shape}, {by['cpu'].shape}, "
+              f"{by['near_ties'].shape}")
+        check(bool(np.all(np.abs(by["card"] - by["cpu"]) <= by["near_ties"])),
+              f"{name}: card ranks {by['card'].tolist()} and CPU ranks {by['cpu'].tolist()} "
+              f"differ by more than the near ties {by['near_ties'].tolist()}")
+    if cli is not None:
+        check(cli["returncode"] == 0, f"torch_run.py exited {cli['returncode']}: {cli['stderr']}")
+        check(cli["results"] is not None and cli["results"]["test"] == results_a["test"],
+              f"torch_run.py printed {cli['results']}, want run A's test metrics "
+              f"{results_a['test']}")
+    return record, plus(counts_a, counts_b)
 
 
 def sum_serving(split, cfg):
@@ -1701,10 +2008,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from ultra_tpu_torch.data import kg
     from ultra_tpu_torch.data.kg import split_to_graph
     from ultra_tpu_torch.graph import ROW_PIECE
     from ultra_tpu_torch.models.nbfnet import UltraConfig
     from ultra_tpu_torch.ops import build
+    from ultra_tpu_torch.train.runner import prepare_graph
     from ultra_tpu_torch.utils.benchlib import (
         fb15k237_split, pna_config, uniform_destination_graph,
     )
@@ -1758,6 +2067,19 @@ def main() -> int:
               f"E={rule_graph.relation_graph.csr.col.numel()} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    if {"kernels", "link-prediction"} & set(phases):
+        # written and processed once: [kernels] checks on its inference
+        # graph, and [link-prediction]'s runs read its cache
+        t0 = time.perf_counter()
+        lp_root = write_lp_dataset()
+        lp_dataset = kg.build_dataset("FBIngram", str(lp_root), version="synth").load()
+        lp_graph = prepare_graph(lp_dataset.test, device="cuda")
+        print(f"[graph] link-prediction inference graph V={lp_graph.num_nodes} "
+              f"E={lp_graph.csr.col.numel()} R={lp_graph.num_relations} relation graph: "
+              f"V={lp_graph.relation_graph.num_nodes} "
+              f"E={lp_graph.relation_graph.csr.col.numel()} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     cfg, pna_cfg = UltraConfig(), pna_config()  # ultra_3g, and its PNA variant
     kernels, phase_counts, failures = {}, {}, []
 
@@ -1780,8 +2102,8 @@ def main() -> int:
         print(f"[graph] uniform destinations: max in-degree "
               f"{int(uniform.csr.rowptr.diff().max())} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
-        rows, ok = check_kernels(graph, rule_graph, cfg, torch.Generator().manual_seed(0),
-                                 uniform)
+        rows, ok = check_kernels(graph, rule_graph, lp_graph, cfg,
+                                 torch.Generator().manual_seed(0), uniform)
         kernels.update(rows)
         check(ok, "a kernel disagrees with its plain version (see the [kernel] lines)")
 
@@ -1817,7 +2139,11 @@ def main() -> int:
         rows, phase_counts["gather-probe"] = gather_probe_run(graph)
         kernels.update(rows)
 
+    def link_prediction_phase():
+        _, phase_counts["link-prediction"] = link_prediction_run(cfg, lp_root, lp_dataset)
+
     run("visualize", visualize_phase)
+    run("link-prediction", link_prediction_phase)
     run("gather-probe", gather_probe_phase)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
@@ -1830,9 +2156,9 @@ def main() -> int:
     # each row's launches at its own shape (so on its own graph), counted in
     # each main-path run: serving, training (the timed steps) and
     # train_and_validate of the ultra_3g model, serving and training of the
-    # PNA model
+    # PNA model, attribution, link prediction and the gather probe
     for name, row in kernels.items():
-        wrapper, shape = name.split("/")[0], tuple(row["out_shape"])
+        wrapper, shape = name.split("/")[0], tuple(row["launch_key"])
         row["launches_by_phase"] = {phase: counts.get(wrapper, {}).get(shape, 0)
                                     for phase, counts in phase_counts.items()}
         row["launches"] = sum(row["launches_by_phase"].values())

@@ -123,11 +123,42 @@ def test_synthetic_rule_kg_download_and_process_match_jax(tmp_path):
 
 
 def test_unported_dataset_classes_raise():
-    for name, item in (("FB15k237Inductive", "A6"), ("ILPC2022", "A6"), ("JointDataset", "A9")):
-        assert name in jkg.DATASETS
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            kg.build_dataset(name, "unused")
+    """Every dataset class of the JAX package is ported but the pretraining
+    mixture, which raises naming its ROADMAP item."""
+    assert kg.UNPORTED == {"JointDataset": "A9"}
+    assert "JointDataset" in jkg.DATASETS
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        kg.build_dataset("JointDataset", "unused")
     assert set(kg.DATASETS) | set(kg.UNPORTED) == set(jkg.DATASETS)
+    assert not set(kg.DATASETS) & set(kg.UNPORTED)
+
+
+@pytest.mark.parametrize("limit_vocab,require_known_rel",
+                         [(False, False), (True, False), (False, True), (True, True)])
+def test_load_file_flags_match_jax(tmp_path, limit_vocab, require_known_rel):
+    """``load_file`` into vocabularies that a first file made: MTDEA's
+    ``limit_vocab`` drops the triples with an unseen token, GraIL's
+    ``require_known_rel`` refuses an unseen relation (the port with
+    ValueError, the JAX package with AssertionError); the triples and the
+    grown vocabularies are the JAX package's."""
+    first, second = tmp_path / "first.txt", tmp_path / "second.txt"
+    first.write_text("a\tr0\tb\nb\tr1\tc\n")
+    second.write_text("a\tr1\tc\nq\tr0\ta\nc\tr2\ta\nb\tr0\tz\n")
+
+    def read(load_file):
+        vocab = load_file(str(first), {}, {}, "\t")
+        return load_file(str(second), vocab["inv_entity_vocab"], vocab["inv_rel_vocab"], "\t",
+                         limit_vocab=limit_vocab, require_known_rel=require_known_rel)
+
+    if require_known_rel and not limit_vocab:  # r2 is new
+        with pytest.raises(AssertionError, match="unknown relation 'r2'"):
+            read(jkg.load_file)
+        with pytest.raises(ValueError, match="unknown relation 'r2'"):
+            read(kg.load_file)
+        return
+    got, want = read(kg.load_file), read(jkg.load_file)
+    assert got == want
+    assert len(got["triplets"]) == (1 if limit_vocab else 4)
 
 
 def test_config_renders_as_jax(tmp_path, monkeypatch):

@@ -74,3 +74,13 @@ def test_device_tensor_off_the_kernel_layout_is_refused(monkeypatch):
     with pytest.raises(TypeError, match="2- or 4-byte"):
         gather_lanes(torch.empty(10, 8, dtype=torch.float64, device="meta"),
                      torch.empty(10, 3, dtype=torch.int32, device="meta"))
+
+
+def test_launch_floor_refuses_a_cpu_tensor(monkeypatch):
+    """The empty kernel beside G2 measures the card: it has no plain version,
+    and a tensor on the CPU raises before any launch."""
+    monkeypatch.setattr(gather_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_cuda.gather_lanes_floor(torch.zeros(4, 8), torch.zeros(4, 2, dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        gather_cuda.gather_lanes_floor(torch.zeros(4, 8), torch.zeros(4, 2))

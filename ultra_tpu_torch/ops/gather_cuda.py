@@ -16,8 +16,9 @@ the plain version for a tensor on the CPU and launches the kernel for one on
 a CUDA device, never falling back from one to the other; ``launches`` counts
 each wrapper's kernel launches by output shape and element type since the
 last ``clear()``.
-``scripts/torch_gather_probe.py`` times them on the card; nothing on a model
-path calls them.
+``scripts/torch_gather_probe.py`` times them on the card, and
+:func:`gather_lanes_floor`, an empty kernel on G2's grid, beside G2; nothing
+on a model path calls them.
 """
 
 from __future__ import annotations
@@ -117,3 +118,17 @@ def gather_lanes(x, idx):
 
 
 gather_lanes.launches = collections.Counter()
+
+
+def gather_lanes_floor(x, idx):
+    """Launch, as :func:`gather_lanes` launches G2 for ``x`` and ``idx`` on a
+    CUDA device (through ``ctypes``, on the current stream, on the same
+    grid), a kernel that does nothing; returns nothing. Its device time is
+    the floor under G2's. Counts no launch: it computes nothing."""
+    _check_index("gather_lanes_floor", x, idx, 2)
+    _check_cuda("gather_lanes_floor", x.device, x=x, idx=idx)
+    kernel = _kernel("gather_empty")
+    with torch.cuda.device(x.device):
+        status = kernel(idx.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"gather_empty launch failed with CUDA error {status}")

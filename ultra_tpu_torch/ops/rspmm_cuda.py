@@ -31,7 +31,9 @@ back from one to the other.
 
 Each wrapper's ``launches`` is a :class:`collections.Counter` of its kernel
 launches by output shape ``(rows, F)`` since the last ``clear()``, so a
-caller can tell the entity graph's launches from the relation graph's.
+caller can tell the entity graph's launches from the relation graph's. B2
+counts by ``(V, R, F)``, the graph's nodes before its output shape: every
+relation graph has R = 4, so its output shape alone names no graph.
 """
 
 from __future__ import annotations
@@ -81,9 +83,10 @@ _ARGTYPES = {
     "gather_lanes": [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ],
+    "gather_empty": [ctypes.c_longlong, ctypes.c_void_p],
 }
 # the source of each C entry point that is not named after its own source
-_SOURCE = {"gather_rows": "gather", "gather_lanes": "gather"}
+_SOURCE = {"gather_rows": "gather", "gather_lanes": "gather", "gather_empty": "gather"}
 
 
 def _kernel(name: str):
@@ -298,11 +301,11 @@ def rspmm_sum_drel(seg: TypeSegments, edge_weight, x, g, mul: str = "mul"):
     out = _launch_walk("rspmm_sum_drel", "rspmm_sum_drel", seg, seg.num_types,
                        {"src": seg.src, "dst": seg.dst, "eid": seg.eid}, edge_weight,
                        {"x": x, "g": g}, _MUL_CODE[mul])
-    rspmm_sum_drel.launches[tuple(out.shape)] += 1
+    rspmm_sum_drel.launches[(g.shape[0], *out.shape)] += 1
     return out
 
 
-rspmm_sum_drel.launches = collections.Counter()
+rspmm_sum_drel.launches = collections.Counter()  # launches by (V, R, F)
 
 
 def rspmm_dw_terms(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):

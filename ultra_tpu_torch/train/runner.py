@@ -1,32 +1,38 @@
-"""Fine-tuning with validation, and the helpers the command lines share.
+"""Link prediction from a config: the dataset, the weights, fine-tuning with
+validation, filtered evaluation, and the helpers the command lines share.
 
-Counterpart of ``ultra_tpu/train/runner.py``: ``model_config_from_dict``,
-``prepare_graph`` and ``train_and_validate``. The host samples negatives
-and builds each batch's easy-edge mask (``tasks.py``); the model's device
-runs the step (``train/loop.py::make_train_step``); after every block of
-epochs a filtered validation (``train/eval.py``) scores the model and a
-checkpoint is kept, and the best one's weights are loaded at the end
-(``utils/ckpt.py``). ``run_link_prediction`` and its command line are
-ROADMAP A6.
+Counterpart of ``ultra_tpu/train/runner.py``. :func:`run_link_prediction`
+is what ``scripts/torch_run.py`` and ``scripts/torch_run_many.py`` run: a
+YAML config's dataset, model and weights, an optional fine-tune
+(:func:`train_and_validate`), then filtered valid and test metrics. In
+training the host samples negatives and builds each batch's easy-edge mask
+(``tasks.py``); the model's device runs the step
+(``train/loop.py::make_train_step``); after every block of epochs a
+filtered validation (``train/eval.py``) scores the model and a checkpoint
+is kept, and the best one's weights are loaded at the end
+(``utils/ckpt.py``). The JAX package's multi-host branch is ROADMAP A12.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import logging
 import math
 import os
 import time
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ultra_tpu_torch import tasks
+from ultra_tpu_torch.data import kg
 from ultra_tpu_torch.data.kg import KGDataset, KGSplit, split_to_graph
-from ultra_tpu_torch.graph import Graph, pad_bucket
+from ultra_tpu_torch.graph import Graph, pad_bucket, resolve_device
 from ultra_tpu_torch.models.nbfnet import NBFNetConfig, Ultra, UltraConfig
 from ultra_tpu_torch.train import eval as eval_lib
-from ultra_tpu_torch.train.loop import init_train_state, make_train_step
+from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params, make_train_step
 from ultra_tpu_torch.utils import ckpt as ckpt_lib
 
 logger = logging.getLogger("ultra_tpu_torch")
@@ -79,6 +85,51 @@ def prepare_graph(split: KGSplit, device="cuda") -> Graph:
     return split_to_graph(split, device=device,
                           pad_edges_to=pad_bucket(split.edge_index.shape[1], 2048),
                           pad_rel_edges_bucket=1024)
+
+
+def build_filtered_index(dataset: KGDataset, dataset_name: str,
+                         task_name: str) -> Dict[str, tasks.GraphIndex]:
+    """The validation and test filters: the edges whose tails (or heads) a
+    filtered ranking does not count against a triple (``run.py:263-291``).
+
+    Transductive: every split's targets over the training graph's nodes.
+    ``InductiveInference``: for the datasets of
+    ``kg.INDUCTIVE_FILTER_WITH_INFERENCE``, one filter for both, the
+    inference graph with the validation and test targets, sized by the test
+    split; for the others, the test graph with its targets, and the
+    training graph with the validation targets sized by the validation
+    split (HM's and MTDEA's validation splits have more nodes than the
+    training graph)."""
+    train, valid, test = dataset.train, dataset.valid, dataset.test
+    build = tasks.GraphIndex.build
+    if task_name == "InductiveInference":
+        if dataset_name in kg.INDUCTIVE_FILTER_WITH_INFERENCE:
+            ei = np.concatenate(
+                [valid.edge_index, valid.target_edge_index, test.target_edge_index], axis=1)
+            et = np.concatenate([valid.edge_type, valid.target_edge_type, test.target_edge_type])
+            idx = build(ei, et, test.num_nodes, test.num_relations)
+            return {"valid": idx, "test": idx}
+        return {
+            "valid": build(np.concatenate([train.edge_index, valid.target_edge_index], axis=1),
+                           np.concatenate([train.edge_type, valid.target_edge_type]),
+                           valid.num_nodes, valid.num_relations),
+            "test": build(np.concatenate([test.edge_index, test.target_edge_index], axis=1),
+                          np.concatenate([test.edge_type, test.target_edge_type]),
+                          test.num_nodes, test.num_relations),
+        }
+    ei = np.concatenate(
+        [train.target_edge_index, valid.target_edge_index, test.target_edge_index], axis=1)
+    et = np.concatenate([train.target_edge_type, valid.target_edge_type, test.target_edge_type])
+    idx = build(ei, et, train.num_nodes, train.num_relations)
+    return {"valid": idx, "test": idx}
+
+
+def default_metrics(dataset_name: str, metrics: Sequence[str]) -> List[str]:
+    """``metrics``, each on the tail direction alone (``<metric>-tail``) for
+    the datasets of ``kg.TAIL_ONLY_EVAL``."""
+    if dataset_name in kg.TAIL_ONLY_EVAL:
+        return [f"{m}-tail" for m in metrics]
+    return list(metrics)
 
 
 def triples_of(split: KGSplit) -> np.ndarray:
@@ -180,3 +231,87 @@ def train_and_validate(
         tracker.update(epoch + 1, val_metrics["mrr"], state)
 
     return tracker.load_best(state.model)
+
+
+def run_link_prediction(
+    cfg: dict,
+    workdir: str,
+    seed: int = 1024,
+    checkpoint: Optional[str] = None,
+    device="cuda",
+) -> Dict[str, Dict[str, float]]:
+    """A full run as ``scripts/torch_run.py`` makes it: build the dataset
+    (``cfg["dataset"]``: its ``class``, ``root`` and constructor keys), the
+    model (``cfg["model"]``) with the weights of ``checkpoint`` (a
+    reference-layout ``.pth``) or fresh ones drawn from ``seed``, and the
+    graph of each split on ``device``; fine-tune for ``cfg["train"]``'s
+    epochs (none at 0: zero-shot); then evaluate the valid and test splits,
+    filtered, with ``cfg["task"]``'s metrics at the configured batch size.
+    Returns ``{"valid": metrics, "test": metrics}``, each also logged.
+
+    If fine-tuning runs out of device memory, it starts again from the
+    weights the run started with, with both models recomputing their convs
+    in the backward (``remat``); out of memory with remat already on, or any
+    other error, is raised. A process group of more than one process
+    raises: that is the JAX package's multi-host branch, ROADMAP A12."""
+    device = resolve_device(device)
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "run_link_prediction across processes (the multi-host branch) is ROADMAP A12")
+    os.makedirs(workdir, exist_ok=True)
+    ds_cfg = dict(cfg["dataset"])
+    ds_name = ds_cfg.pop("class")
+    root = os.path.expanduser(ds_cfg.pop("root", os.path.join(workdir, "kg-datasets")))
+    dataset = kg.build_dataset(ds_name, root, **ds_cfg).load()
+
+    ultra_cfg = model_config_from_dict(cfg["model"])
+    if checkpoint:
+        model = Ultra(ultra_cfg)
+        model.load_state_dict(ckpt_lib.load_model_checkpoint(checkpoint))
+        model = model.to(device)
+    else:
+        model = init_ultra_params(ultra_cfg, torch.Generator().manual_seed(seed), device)
+    graphs = {split: prepare_graph(getattr(dataset, split), device=device)
+              for split in ("train", "valid", "test")}
+    task_name = cfg["task"].get("name", "TransductiveInference")
+    filtered = build_filtered_index(dataset, ds_name, task_name)
+    metrics = default_metrics(ds_name, cfg["task"].get("metric", ("mr", "mrr", "hits@10")))
+    batch_size = int(cfg["train"].get("batch_size", 8))
+
+    # steps update the weights in place before memory may run out, so the
+    # retry starts from a host copy of the first ones; zero-shot takes no step
+    initial = ({k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+               if int(cfg["train"].get("num_epoch", 0)) > 0 else None)
+    try:
+        model = train_and_validate(cfg, model, graphs, dataset, filtered, workdir, seed=seed)
+        failure = None
+    except torch.cuda.OutOfMemoryError as exc:
+        if ultra_cfg.relation_model.remat and ultra_cfg.entity_model.remat:
+            raise
+        failure = str(exc)
+    if failure is not None:
+        # out of the except block, the traceback no longer holds the failed
+        # step's tensors; free them before the retry allocates its own
+        logger.warning(
+            "train step OOMed HBM (%s...); retrying with remat: yes — set "
+            "model.{relation_model,entity_model}.remat explicitly to avoid "
+            "the doubled first compile", failure[:120],
+        )
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Ultra(dataclasses.replace(
+            ultra_cfg, relation_model=dataclasses.replace(ultra_cfg.relation_model, remat=True),
+            entity_model=dataclasses.replace(ultra_cfg.entity_model, remat=True)))
+        model.load_state_dict(initial)
+        model = train_and_validate(cfg, model.to(device), graphs, dataset, filtered, workdir,
+                                   seed=seed)
+
+    results = {}
+    for split in ("valid", "test"):
+        results[split] = eval_lib.evaluate(
+            model, graphs[split], triples_of(getattr(dataset, split)), filtered[split],
+            batch_size=batch_size, metrics=metrics)
+        logger.warning("%s metrics: %s", split, results[split])
+    return results

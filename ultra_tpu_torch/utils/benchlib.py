@@ -141,12 +141,15 @@ def gather_probe(graph, seed=0):
     value for value. Each time (median device ms, :func:`device_ms`) stands
     beside its bound, its plain version's and that of the PyTorch call that
     computes the same function with int64 indices (``index_select``,
-    ``gather``), which nothing in the package calls. Returns the record:
+    ``gather``), which nothing in the package calls; G2's also beside
+    ``launch_floor_ms``, an empty kernel's on G2's grid
+    (``gather_cuda.gather_lanes_floor``). Returns the record:
     ``"gathers"`` maps a name to its row (``out_key``, the launch counter's
     key of its output), ``"equal"`` says whether every output equalled its
     plain version's."""
     from ultra_tpu_torch.ops.gather_cuda import (
-        _key, gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain,
+        _key, gather_lanes, gather_lanes_floor, gather_lanes_plain, gather_rows,
+        gather_rows_plain,
     )
     from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd
 
@@ -177,9 +180,11 @@ def gather_probe(graph, seed=0):
     lane_idx = torch.randint(0, LANE_SHAPE[1], LANE_SHAPE, generator=gen,
                              dtype=torch.int32).cuda()
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        row(f"gather_lanes/{tag}/{LANE_SHAPE[0]}x{LANE_SHAPE[1]}",
-            "scripts/aot_compile_probe.py:126", gather_lanes, gather_lanes_plain, torch.gather,
-            rand(*LANE_SHAPE).to(dtype), lane_idx, 1)
+        name = f"gather_lanes/{tag}/{LANE_SHAPE[0]}x{LANE_SHAPE[1]}"
+        x = rand(*LANE_SHAPE).to(dtype)
+        row(name, "scripts/aot_compile_probe.py:126", gather_lanes, gather_lanes_plain,
+            torch.gather, x, lane_idx, 1)
+        rows[name]["launch_floor_ms"] = device_ms(lambda: gather_lanes_floor(x, lane_idx))
 
     feat, csr = PROBE_F, graph.csr
     rel, x = rand(graph.num_relations, feat), rand(graph.num_nodes, feat)
