@@ -26,7 +26,9 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    at F=512 on it and on its relation graph, ``[link-prediction]``'s
    training graph; and B1 at
    validation's widths (F=1024 on the entity graph, 4096 on the relation
-   graph) on ``[link-prediction]``'s inference graph. B1, B3, B4 and
+   graph) on ``[link-prediction]``'s inference graph; and B1 at
+   ``[clqa]``'s widths on its query graph (F=512 on the entity graph, 4096
+   on the relation graph). B1, B3, B4 and
    B6 walk their CSR's piece table (``graph.ROW_PIECE``) and B2 and B5 the
    type segments' (``graph.segment_piece``): B1, B3, B4 and B6 are also
    timed on a graph with uniformly drawn destinations (``uniform_ms``), all
@@ -76,13 +78,25 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    command line itself where PyYAML is installed, in its own process while
    this one runs the CPU references, whose test metrics must be the
    zero-shot run's;
-11. runs the gather probe (``[gather-probe]``,
+11. answers complex queries zero-shot (``[clqa]``) as
+   ``scripts/torch_run_query.py`` runs
+   ``config/ultraquery/transductive_synth.yaml`` (its ``run``), on the
+   repo's BetaE-format dataset (see CLQA_ROOT), from a ``.pth`` of random
+   weights in UltraQuery's layout: every valid and test query, timed, with
+   the launches of B1 asserted against the projection schedule; the card's
+   ranks of a few test queries of each type held against the CPU's; and
+   the HTTP server (``ultra_tpu_torch/server.py``) on the card over the
+   same graph: both endpoints against direct calls, malformed requests
+   refused with 400, and each endpoint's median latency;
+12. runs the gather probe (``[gather-probe]``,
    ``utils/benchlib.py::gather_probe``, the function
    ``scripts/torch_gather_probe.py`` runs): G1 and G2 at the TPU probes'
    shapes and G1 over the entity graph's edge sources, each equal to its
    plain version, timed beside it and the PyTorch call that computes the
-   same function, and an empty kernel on G2's grid, the floor under G2;
-12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   same function; G2 also at 2, 4 and 8 lanes a thread, beside an empty
+   kernel on its grid (the floor under G2) and on the grid it took before
+   its redesign, and beside its walk storing its indices alone;
+13. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises before the last line is printed.
@@ -123,7 +137,7 @@ KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
 WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
             "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv",
-          "visualize", "link-prediction", "gather-probe")
+          "visualize", "link-prediction", "clqa", "gather-probe")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -221,6 +235,23 @@ SYNTHRULE = dict(num_nodes=5000, num_base_rel=12, num_comp_rel=6, num_base_tripl
 LP_INFERENCE = "synthrule-v4000-b18-c9-e30000-s1"
 LP_TRIPLES, LP_STEPS, LP_RANKED = 1024, 8, 16
 LP_METRICS = ["mr", "mrr", "hits@1", "hits@3", "hits@10"]
+
+# [clqa]: UltraQuery zero-shot on the repo's BetaE-format query dataset
+# (query-datasets-synth-held/FB15k-237-betae: 4,000 entities, 120 relations
+# with inverses, 76,800 training triples as the message graph, 1,400 valid
+# and 1,400 test queries of 14 types), as
+# config/ultraquery/transductive_synth.yaml runs it (batch 8, threshold 0.8,
+# product logic, ultra_3g widths). The card's filtered ranks of the first
+# CLQA_RANKED test queries of each type are held against the CPU's; an
+# answer's probability on the card within CLQA_PROB_ATOL of the CPU's (12
+# f32 layers a projection, up to 3 projections chained, sums in other
+# orders; the threshold cuts no probability of these weights: all lie below
+# 0.71), so a rank may move by the candidates within twice that of the
+# answer. The HTTP server answers CLQA_HTTP_REQUESTS timed requests to each
+# endpoint.
+CLQA_ROOT = "query-datasets-synth-held"
+CLQA_METRICS = ["mrr", "hits@1", "hits@3", "hits@10", "mape"]
+CLQA_RANKED, CLQA_PROB_ATOL, CLQA_HTTP_REQUESTS = 8, 1e-4, 20
 
 
 class SmokeFailure(RuntimeError):
@@ -780,7 +811,7 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
     return ok
 
 
-def check_kernels(graph, rule_graph, lp_graph, cfg, gen, uniform):
+def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform):
     """Every kernel wrapper against its plain version at each shape the
     serving, training, validation and attribution paths give it: F = 512
     (a batch of 8, D = 64) for training and serving, 1024 for validation's
@@ -791,7 +822,9 @@ def check_kernels(graph, rule_graph, lp_graph, cfg, gen, uniform):
     ``[visualize]`` explains a prediction on, and the training graph of
     ``[link-prediction]``) F = 64 for attribution and F = 512 for
     fine-tuning; on ``lp_graph`` (``[link-prediction]``'s inference graph)
-    validation's F = 1024 and 4096; then :func:`piece_checks` with
+    validation's F = 1024 and 4096; on ``clqa_graph`` (``[clqa]``'s query
+    graph) F = 512 for a batch's projections and 4096 for the precompute;
+    then :func:`piece_checks` with
     ``uniform``, the graph with uniformly drawn destinations. Returns
     ({row name: row}, ok); a row's ``launch_key`` is the launch-count key of
     its launches."""
@@ -806,7 +839,10 @@ def check_kernels(graph, rule_graph, lp_graph, cfg, gen, uniform):
     # and the relation gradient the v2 or the v1 kernel (:1375-1392); the
     # min/max gradients run the v2 kernels with v2 plans, else the v1 ones
     # (rspmm_pallas.py:852-963). The rule-KG's graphs run attribution and
-    # [link-prediction]'s fine-tuning, the inference graph validation.
+    # [link-prediction]'s fine-tuning, the inference graph validation, the
+    # query graph [clqa]'s projections (the JAX package attaches the v2 plan
+    # to a query graph and the v1 plan to its relation graph:
+    # query/trainer.py:83-136).
     entity_fwd, relation_fwd = ("ultra_tpu/ops/rspmm_pallas_v2.py:508",
                                 "ultra_tpu/ops/rspmm_pallas.py:283")
     for tag, g_, fwd_feats, dx_feats, drel_replaces, minmax_replaces, fwd_replaces in (
@@ -826,6 +862,9 @@ def check_kernels(graph, rule_graph, lp_graph, cfg, gen, uniform):
          "ultra_tpu/ops/rspmm_pallas.py:381", None, relation_fwd),
         ("inference", lp_graph, (2 * train_feat,), (), None, None, entity_fwd),
         ("inference-relation", lp_graph.relation_graph, (PRECOMPUTE_CHUNK * dim,), (), None,
+         None, relation_fwd),
+        ("query", clqa_graph, (train_feat,), (), None, None, entity_fwd),
+        ("query-relation", clqa_graph.relation_graph, (PRECOMPUTE_CHUNK * dim,), (), None,
          None, relation_fwd),
     ):
         keep = torch.rand(g_.edge_weight.shape, generator=gen) >= 0.1
@@ -1608,7 +1647,8 @@ def gather_probe_run(graph):
             g["plain_ms"], (g["bound_ms"], g["bound_by"]), g["max_abs_err"],
             "equal to the plain version", library_ms=g["library_ms"],
             library_call=g["library_call"],
-            **{k: g[k] for k in ("launch_floor_ms",) if k in g})
+            **{k: g[k] for k in ("lanes", "launch_floor_ms", "flat_grid_floor_ms",
+                                 "index_only_ms", "by_lanes") if k in g})
     check(record["equal"], "a gather differs from its plain version (see [gather-probe])")
     check(all(counts[name] for name in ("gather_rows", "gather_lanes")),
           f"the gather probe launched {as_json(counts)}")
@@ -1876,6 +1916,317 @@ def link_prediction_run(cfg, root, dataset):
     return record, plus(counts_a, counts_b)
 
 
+def clqa_config(ckpt):
+    """``config/ultraquery/transductive_synth.yaml`` rendered with
+    ``--dataset FB15k237LogicalQuery --root <CLQA_ROOT> --epochs 0 --bs 8
+    --bpe null --threshold 0.8 --ultra_ckpt null --qe_ckpt <ckpt>``, as a
+    dict: the card's machine may have no jinja2 or PyYAML."""
+    layer = {"input_dim": 64, "hidden_dims": [64] * 6, "message_func": "distmult",
+             "aggregate_func": "sum", "short_cut": True, "layer_norm": True}
+    return {
+        "output_dir": "./output",
+        "dataset": {"class": "FB15k237LogicalQuery", "root": str(ROOT / CLQA_ROOT)},
+        "model": {"class": "UltraQuery", "logic": "product", "dropout_ratio": 0.25,
+                  "threshold": 0.8, "more_dropout": 0.0,
+                  "model": {"class": "Ultra", "relation_model": {"class": "RelNBFNet", **layer},
+                            "entity_model": {"class": "QueryNBFNet", **layer}}},
+        "task": {"name": "ComplexQuery", "adversarial_temperature": 0.2,
+                 "metric": CLQA_METRICS},
+        "optimizer": {"class": "AdamW", "lr": LR},
+        "train": {"batch_size": BATCH, "num_epoch": 0, "log_interval": 20,
+                  "batch_per_epoch": None},
+        "ultra_ckpt": None,
+        "ultraquery_ckpt": ckpt,
+    }
+
+
+def clqa_launches(cfg, dataset, graph):
+    """What zero-shot evaluation of ``dataset``'s valid and test queries
+    launches, by wrapper and output shape: per split, the precompute's
+    chunks of PRECOMPUTE_CHUNK relations through the relation model, and
+    per batch of BATCH queries (the last one padded by repeating its last
+    query) the entity model once for each round of its projection schedule
+    (``query/executor.py::projection_schedule``; no pad rounds)."""
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.executor import projection_schedule
+
+    dim = cfg.entity_model.input_dim
+    chunks = -(-graph.num_relations // PRECOMPUTE_CHUNK)
+    counts = {name: {} for name in WRAPPERS}
+    rounds = 0
+    for lo, hi in dataset.split_ranges()[1:]:
+        counts = plus(counts, times(forward_launches(cfg.relation_model, graph.num_relations,
+                                                     PRECOMPUTE_CHUNK * dim), chunks))
+        for start in range(lo, hi, BATCH):
+            take = np.arange(start, min(start + BATCH, hi))
+            take = np.concatenate([take, np.repeat(take[-1:], BATCH - len(take))])
+            rounds += projection_schedule(ops.decompose(dataset.queries[take])[0])[3]
+    entity = forward_launches(cfg.entity_model, graph.num_nodes, BATCH * dim)
+    return plus(counts, times(entity, rounds)), rounds
+
+
+def clqa_ranks(model, graph, dataset, indices, qcfg):
+    """(filtered ranks of the hard answers, every probability (B, V), the
+    hard answers' mask (B, V)) of ``dataset``'s queries ``indices`` on
+    ``graph``'s device, in batches of BATCH, as ``evaluate_queries`` ranks
+    them; the ranks follow the mask's row-major order."""
+    from ultra_tpu_torch.query import metrics as qmetrics
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.trainer import answers_to_mask, make_query_forward_grouped
+    from ultra_tpu_torch.train.eval import precompute_relation_representations
+
+    fwd = make_query_forward_grouped(model, qcfg)
+    rel_reprs = precompute_relation_representations(model, graph)
+    preds = []
+    for start in range(0, len(indices), BATCH):
+        kind, operand = ops.decompose(dataset.queries[indices[start:start + BATCH]])
+        preds.append(fwd(graph, kind, operand, rel_reprs).cpu().numpy())
+    pred = np.concatenate(preds)
+    v = graph.num_nodes
+    easy = answers_to_mask([dataset.easy_answers[i] for i in indices], v)
+    hard = answers_to_mask([dataset.hard_answers[i] for i in indices], v)
+    rank = qmetrics.batch_evaluate(pred, easy, hard)[0]
+    return rank, 1.0 / (1.0 + np.exp(-pred.astype(np.float64))), hard
+
+
+def http_call(addr, method, path, payload=None, raw=None):
+    """(status, decoded JSON answer, client milliseconds) of one request."""
+    from http.client import HTTPConnection
+
+    conn = HTTPConnection(*addr, timeout=120)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=raw if raw is not None else
+                 (None if payload is None else json.dumps(payload)))
+    resp = conn.getresponse()
+    out = json.loads(resp.read())
+    ms = 1e3 * (time.perf_counter() - t0)
+    conn.close()
+    return resp.status, out, ms
+
+
+def clqa_http(model, graph, dataset, smi):
+    """``make_http_server`` on port 0 over an ``UltraPredictor`` of
+    ``model`` on ``graph`` (the card's): /healthz, /v1/meta, a /v1/predict
+    of BATCH queries in tail and head mode against ``predict_tails``, a
+    /v1/query of one query of each of the dataset's types against the
+    executor called directly, malformed requests against 400, then
+    CLQA_HTTP_REQUESTS timed requests to each endpoint. Returns the
+    record."""
+    import threading
+
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.datasets import STRUCT2TYPE
+    from ultra_tpu_torch.query.executor import QueryConfig
+    from ultra_tpu_torch.serve import UltraPredictor
+    from ultra_tpu_torch.server import PredictionService, make_http_server
+
+    pred = UltraPredictor(model, graph, batch_size=BATCH, device="cuda")
+    service = PredictionService(pred, qcfg=QueryConfig(logic="product", dropout_ratio=0.0,
+                                                       threshold=0.8))
+    httpd = make_http_server(service, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    addr = httpd.server_address
+    rng = np.random.default_rng(0)
+    v, num_rel = graph.num_nodes, graph.num_relations
+    try:
+        health = http_call(addr, "GET", "/healthz")[:2]
+        meta = http_call(addr, "GET", "/v1/meta")[1]
+
+        h = rng.integers(0, v, BATCH)
+        r = rng.integers(0, num_rel // 2, BATCH)
+        modes = ["tail", "head"] * (BATCH // 2)
+        status, predicted, _ = http_call(addr, "POST", "/v1/predict", {"queries": [
+            {"head": int(a), "relation": int(b), "mode": m, "k": TOPK}
+            for a, b, m in zip(h, r, modes)]})
+        direct_s, direct_i = pred.predict_tails(
+            h, np.where(np.array(modes) == "head", r + num_rel // 2, r), k=TOPK)
+        predict_equal = status == 200 and all(
+            res["entities"] == direct_i[i].tolist()
+            and res["scores"] == [round(float(x), 6) for x in direct_s[i]]
+            for i, res in enumerate(predicted["results"]))
+
+        def nested(struct):
+            if struct in ("e", "r"):
+                return int(rng.integers(v if struct == "e" else num_rel))
+            return {"n": -2, "u": -1}.get(struct) if isinstance(struct, str) else \
+                [nested(x) for x in struct]
+
+        type2struct = {t: st for st, t in STRUCT2TYPE.items()}
+        queries = [nested(type2struct[t]) for t in dataset.id2type]
+        status, answered, _ = http_call(addr, "POST", "/v1/query",
+                                        {"queries": queries, "k": TOPK})
+        from ultra_tpu_torch.server import _as_tuples
+
+        progs = [ops.from_nested(_as_tuples(q)) for q in queries]
+        kind, operand = ops.decompose(ops.pad_queries(progs, max(map(len, progs))))
+        fwd, rel_reprs = service._query_forward()
+        with torch.no_grad():
+            prob = torch.sigmoid(fwd(graph, kind, operand, rel_reprs).double())
+            top_p, top_i = (t.cpu().numpy() for t in torch.topk(prob, TOPK, dim=-1))
+        query_equal = status == 200 and all(
+            res["entities"] == top_i[i].tolist()
+            and res["probs"] == [round(float(x), 6) for x in top_p[i]]
+            for i, res in enumerate(answered["results"]))
+
+        malformed = {
+            "empty": ("/v1/predict", {"queries": []}, None),
+            "head out of range": ("/v1/predict", {"queries": [{"head": v, "relation": 0}]},
+                                  None),
+            "boolean id": ("/v1/predict", {"queries": [{"head": True, "relation": 0}]}, None),
+            "entity out of range": ("/v1/query", {"queries": [[v, [0]]]}, None),
+            "one-branch intersection": ("/v1/query", {"queries": [[[3, [1]]]]}, None),
+            "bad JSON": ("/v1/query", None, "{not json"),
+        }
+        refused = {name: http_call(addr, "POST", path, payload, raw)[0]
+                   for name, (path, payload, raw) in malformed.items()}
+
+        latency = {}
+        for path, payload in (
+                ("/v1/predict", {"queries": [{"head": int(a), "relation": int(b), "k": TOPK}
+                                             for a, b in zip(h, r)]}),
+                ("/v1/query", {"queries": queries, "k": TOPK})):
+            ms = []
+            for _ in range(CLQA_HTTP_REQUESTS):
+                status, _, t = http_call(addr, "POST", path, payload)
+                check(status == 200, f"{path} answered {status}")
+                ms.append(t)
+            latency[path] = {"p50_ms": statistics.median(ms), "min_ms": min(ms),
+                             "max_ms": max(ms), "queries": len(payload["queries"])}
+        server_side = http_call(addr, "GET", "/v1/meta")[1]["latency_ms"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    record = {"health": list(health), "meta": meta, "predict_equal": predict_equal,
+              "query_equal": query_equal, "query_types": list(dataset.id2type),
+              "refused": refused, "latency": latency, "server_side_latency_ms": server_side,
+              "card": smi}
+    print("[clqa] http " + json.dumps(record), flush=True)
+    for path, lat in latency.items():
+        print(f"[clqa] {path} p50 {lat['p50_ms']:.2f} ms a request of {lat['queries']} "
+              f"queries ({smi})", flush=True)
+    check(not thread.is_alive(), "the HTTP server's thread did not stop")
+    check(health == (200, {"status": "ok"}) and meta["num_entities"] == v,
+          f"/healthz {health}, /v1/meta {meta}")
+    check(predict_equal, "/v1/predict differs from predict_tails")
+    check(query_equal, "/v1/query differs from the executor called directly")
+    check(all(status == 400 for status in refused.values()),
+          f"malformed requests were answered {refused}, want 400")
+    return record
+
+
+def clqa_run(cfg, dataset, graph, smi):
+    """UltraQuery zero-shot at ``ultra_3g`` width, as
+    ``scripts/torch_run_query.py`` runs it (its ``run``, with
+    :func:`clqa_config`, from a ``.pth`` of seed-0 random weights in
+    UltraQuery's ``model.model.*`` layout): every valid and test query
+    answered on the card, timed, its launches read around it and held
+    against :func:`clqa_launches`; the card's ranks of the first
+    CLQA_RANKED test queries of each type held against the CPU's; then the
+    HTTP server (:func:`clqa_http`) on ``graph``. Returns (the ``[clqa]``
+    record, the evaluation's launches)."""
+    import importlib.util
+
+    from ultra_tpu_torch.models.nbfnet import Ultra
+    from ultra_tpu_torch.query.executor import QueryConfig
+    from ultra_tpu_torch.train.loop import init_ultra_params
+
+    base = ROOT / "build" / "chip_smoke" / "clqa"
+    base.mkdir(parents=True, exist_ok=True)
+    ckpt = base / "ultraquery_seed0.pth"
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    torch.save({"model": {f"model.model.{k}": w for k, w in model.state_dict().items()}}, ckpt)
+    run_cfg = clqa_config(str(ckpt))
+    try:
+        from ultra_tpu_torch.utils import config as config_lib
+
+        rendered = config_lib.load_config(
+            str(ROOT / "config" / "ultraquery" / "transductive_synth.yaml"),
+            {"dataset": "FB15k237LogicalQuery", "root": str(ROOT / CLQA_ROOT), "epochs": 0,
+             "bs": BATCH, "bpe": "null", "threshold": 0.8, "ultra_ckpt": "null",
+             "qe_ckpt": str(ckpt)})
+    except ImportError:  # no jinja2 or PyYAML
+        rendered = None
+    check(rendered is None or rendered == run_cfg,
+          f"transductive_synth.yaml renders to {rendered}, not {run_cfg}")
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_run_query", ROOT / "scripts" / "torch_run_query.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = cli.run(run_cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want, rounds = clqa_launches(cfg, dataset, graph)
+    batches = sum(-(-int(hi - lo) // BATCH) for lo, hi in dataset.split_ranges()[1:])
+
+    # the card's ranks of CLQA_RANKED test queries of each type against the CPU's
+    lo, hi = dataset.split_ranges()[2]
+    picked = np.concatenate([lo + np.nonzero(dataset.types[lo:hi] == t)[0][:CLQA_RANKED]
+                             for t in range(len(dataset.id2type))])
+    qcfg = QueryConfig(logic="product", dropout_ratio=0.0, threshold=0.8)
+    card_model = Ultra(cfg)
+    card_model.load_state_dict(model.state_dict())
+    card_model = card_model.cuda().eval()
+    card_rank, card_prob, hard = clqa_ranks(card_model, graph, dataset, picked, qcfg)
+    t0 = time.perf_counter()
+    from ultra_tpu_torch.query.trainer import prepare_query_graph
+
+    cpu_rank, cpu_prob, _ = clqa_ranks(model.eval(),
+                                       prepare_query_graph(dataset.graphs[2], "cpu"),
+                                       dataset, picked, qcfg)
+    cpu_s = time.perf_counter() - t0
+    # per hard answer, the other candidates within 2 * CLQA_PROB_ATOL of it on the card
+    rows, cols = np.nonzero(hard)
+    card_p, cpu_p = card_prob[rows, cols], cpu_prob[rows, cols]
+    near = (np.abs(card_prob[rows] - card_p[:, None]) <= 2 * CLQA_PROB_ATOL).sum(axis=1) - 1
+    rank_diff = np.abs(card_rank - cpu_rank)
+
+    clqa_http(card_model, graph, dataset, smi)  # prints its own record
+    record = {
+        "dataset": dataset.name,
+        "graph": {"V": graph.num_nodes, "E": int(graph.csr.col.numel()),
+                  "R": graph.num_relations,
+                  "rel_graph_E": int(graph.relation_graph.csr.col.numel())},
+        "queries": {split: int(hi - lo) for split, (lo, hi)
+                    in zip(("valid", "test"), dataset.split_ranges()[1:])},
+        "types": list(dataset.id2type), "batches": batches, "rounds": rounds,
+        "wall_s": wall_s, "ms_per_batch": 1e3 * wall_s / batches, "results": results,
+        "launches": as_json(counts), "want_launches": as_json(want),
+        "ranks": {"queries": len(picked), "answers": int(len(card_rank)),
+                  "max_rank_diff": int(rank_diff.max()),
+                  "moved": int((rank_diff > 0).sum()),
+                  "near_ties_max": int(near.max()), "answers_with_near_ties": int((near > 0).sum()),
+                  "max_prob_diff": float(np.abs(card_p - cpu_p).max()), "cpu_s": cpu_s},
+        "tolerance": f"answer probabilities within {CLQA_PROB_ATOL}; ranks equal but by the "
+                     f"candidates within {2 * CLQA_PROB_ATOL} of the answer on the card",
+    }
+    print("[clqa] " + json.dumps(record), flush=True)
+    for split, metrics in results.items():
+        print(f"[clqa] {split} metrics ({record['queries'][split]} queries): "
+              + json.dumps({k: metrics[k] for k in CLQA_METRICS}), flush=True)
+    check(counts == want, f"zero-shot CLQA launched {as_json(counts)}, want {as_json(want)}")
+    for split, metrics in results.items():
+        check(all(np.isfinite(list(metrics.values()))), f"{split} metrics {metrics}")
+        check(0 < metrics["mrr"] <= 1 and all(0 <= metrics[m] <= 1 for m in CLQA_METRICS[1:4]),
+              f"{split}: MRR or a hits@k out of range: {metrics}")
+        check(all(f"[{t}] mrr" in metrics for t in dataset.id2type),
+              f"{split} metrics lack a type: {sorted(metrics)}")
+    check(card_rank.shape == cpu_rank.shape == near.shape and len(card_rank) > 0,
+          f"ranks of shapes {card_rank.shape}, {cpu_rank.shape}, {near.shape}")
+    check(float(np.abs(card_p - cpu_p).max()) <= CLQA_PROB_ATOL,
+          f"card and CPU answer probabilities differ by {np.abs(card_p - cpu_p).max()!r}")
+    check(bool(np.all(rank_diff <= near)),
+          f"card and CPU ranks differ by more than the near ties at "
+          f"{np.nonzero(rank_diff > near)[0].tolist()}")
+    return record, counts
+
+
 def sum_serving(split, cfg):
     """The serving path at full width: ultra_3g, random weights from a seed,
     written in the reference .pth layout and served from it. Returns (the
@@ -2080,6 +2431,20 @@ def main() -> int:
               f"E={lp_graph.relation_graph.csr.col.numel()} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    if {"kernels", "clqa"} & set(phases):
+        # [kernels] checks B1 on the query graph, [clqa] answers on it
+        t0 = time.perf_counter()
+        from ultra_tpu_torch.query.datasets import build_query_dataset
+        from ultra_tpu_torch.query.trainer import prepare_query_graph
+
+        clqa_dataset = build_query_dataset("FB15k237LogicalQuery", str(ROOT / CLQA_ROOT)).load()
+        clqa_graph = prepare_query_graph(clqa_dataset.graphs[2], device="cuda")
+        print(f"[graph] query graph V={clqa_graph.num_nodes} E={clqa_graph.csr.col.numel()} "
+              f"R={clqa_graph.num_relations} relation graph: "
+              f"V={clqa_graph.relation_graph.num_nodes} "
+              f"E={clqa_graph.relation_graph.csr.col.numel()}; queries "
+              f"{clqa_dataset.num_samples} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     cfg, pna_cfg = UltraConfig(), pna_config()  # ultra_3g, and its PNA variant
     kernels, phase_counts, failures = {}, {}, []
 
@@ -2102,7 +2467,7 @@ def main() -> int:
         print(f"[graph] uniform destinations: max in-degree "
               f"{int(uniform.csr.rowptr.diff().max())} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
-        rows, ok = check_kernels(graph, rule_graph, lp_graph, cfg,
+        rows, ok = check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg,
                                  torch.Generator().manual_seed(0), uniform)
         kernels.update(rows)
         check(ok, "a kernel disagrees with its plain version (see the [kernel] lines)")
@@ -2142,8 +2507,12 @@ def main() -> int:
     def link_prediction_phase():
         _, phase_counts["link-prediction"] = link_prediction_run(cfg, lp_root, lp_dataset)
 
+    def clqa_phase():
+        _, phase_counts["clqa"] = clqa_run(cfg, clqa_dataset, clqa_graph, smi)
+
     run("visualize", visualize_phase)
     run("link-prediction", link_prediction_phase)
+    run("clqa", clqa_phase)
     run("gather-probe", gather_probe_phase)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
@@ -2156,7 +2525,8 @@ def main() -> int:
     # each row's launches at its own shape (so on its own graph), counted in
     # each main-path run: serving, training (the timed steps) and
     # train_and_validate of the ultra_3g model, serving and training of the
-    # PNA model, attribution, link prediction and the gather probe
+    # PNA model, attribution, link prediction, complex queries and the
+    # gather probe
     for name, row in kernels.items():
         wrapper, shape = name.split("/")[0], tuple(row["launch_key"])
         row["launches_by_phase"] = {phase: counts.get(wrapper, {}).get(shape, 0)

@@ -20,7 +20,13 @@ measures:
    cost them;
 3. with ``torch.profiler``, one edge-importance attribution call
    (``models/visualize.py::edge_gradients``, one query) of the same model,
-   over 10 queries.
+   over 10 queries;
+4. with ``torch.profiler``, a batch of 8 complex queries of 3 projections
+   each (``3in``, ``ip``, ``pni`` and the like: the first test queries of
+   the repo's BetaE-format dataset ``query-datasets-synth-held``) answered
+   by the same model on that dataset's graph with the round-grouped
+   executor (``query/trainer.py::make_query_forward_grouped``, threshold
+   0.8), over 10 batches.
 
 Prints one JSON object and writes it to ``--out``.
 """
@@ -158,6 +164,25 @@ def main() -> int:
     calls = iter(np.concatenate([queries[:1], queries]))  # the warm-up call, then 10
     result["attribution"] = profile(
         lambda: edge_gradients(model, graph, *(int(a) for a in next(calls))), PROFILED_BATCHES)
+
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.datasets import build_query_dataset
+    from ultra_tpu_torch.query.executor import QueryConfig
+    from ultra_tpu_torch.query.trainer import make_query_forward_grouped, prepare_query_graph
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "query-datasets-synth-held")
+    dataset = build_query_dataset("FB15k237LogicalQuery", root).load()
+    lo, hi = dataset.split_ranges()[2]
+    kind, operand = ops.decompose(dataset.queries[lo:hi])
+    deep = lo + np.nonzero((kind == ops.K_PROJECTION).sum(axis=1) == 3)[0][::100][:BATCH]
+    kind, operand = ops.decompose(dataset.queries[deep])
+    query_graph = prepare_query_graph(dataset.graphs[2], device="cuda")
+    fwd = make_query_forward_grouped(model, QueryConfig(threshold=0.8))
+    query_reprs = precompute_relation_representations(model, query_graph)
+    result["clqa_batch"] = profile(
+        lambda: fwd(query_graph, kind, operand, query_reprs).cpu(), PROFILED_BATCHES)
+    result["clqa_batch"]["types"] = [dataset.id2type[t] for t in dataset.types[deep]]
 
     text = json.dumps(result, indent=1)
     print(text)

@@ -84,3 +84,44 @@ def test_launch_floor_refuses_a_cpu_tensor(monkeypatch):
         gather_cuda.gather_lanes_floor(torch.zeros(4, 8), torch.zeros(4, 2, dtype=torch.int32))
     with pytest.raises(TypeError, match="int32"):
         gather_cuda.gather_lanes_floor(torch.zeros(4, 8), torch.zeros(4, 2))
+
+
+def test_lane_launch_at_the_probe_shape():
+    """G2's grid at the TPU probes' (512, 128): as few blocks as cover the
+    rows, 8 whole rows of 32 threads a block at 4 lanes a thread."""
+    assert gather_cuda.lane_launch(512, 128) == (64, 32, 8)
+    assert gather_cuda.lane_launch(512, 128, 2) == (128, 64, 4)
+    assert gather_cuda.lane_launch(512, 128, 8) == (32, 16, 16)
+    for bad in ((0, 4, 4), (4, 0, 4), (4, 4, 3)):
+        with pytest.raises(ValueError, match="lane_launch"):
+            gather_cuda.lane_launch(*bad)
+
+
+@pytest.mark.parametrize("rows, k, lanes", [(512, 128, 4), (512, 128, 2), (512, 128, 8),
+                                            (1, 1, 2), (3, 5, 4), (7, 1000, 8), (300, 33, 2)])
+def test_lane_launch_covers_every_output_once(rows, k, lanes):
+    """The kernel's walk over lane_launch's grid (row blockIdx.x * rows a
+    block + threadIdx.y; runs of ``lanes`` from threadIdx.x * lanes, a
+    block's row width apart), emulated: every output written exactly once,
+    at most 256 threads a block, no block without a row."""
+    grid, per_row, block_rows = gather_cuda.lane_launch(rows, k, lanes)
+    assert per_row * block_rows <= gather_cuda.LANE_BLOCK_THREADS
+    assert (grid - 1) * block_rows < rows <= grid * block_rows
+    written = np.zeros((rows, k), dtype=np.int64)
+    for block in range(grid):
+        for ty in range(block_rows):
+            row = block * block_rows + ty
+            if row >= rows:
+                continue
+            for tx in range(per_row):
+                for j in range(tx * lanes, k, per_row * lanes):
+                    written[row, j:j + lanes] += 1
+    assert (written == 1).all()
+
+
+def test_index_walk_refuses_a_cpu_tensor(monkeypatch):
+    """G2's index-only walk is a probe of the card: a tensor on the CPU, or
+    indices that are not 2-D int32, raise before any launch."""
+    monkeypatch.setattr(gather_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_cuda.gather_lanes_indices(torch.zeros(4, 2, dtype=torch.int32), torch.float32)

@@ -173,6 +173,12 @@ def entity_nbfnet_features(
     batch = torch.arange(b, device=h_index.device)
     query = relation_representations[batch, r_index]  # (B, D)
     boundary = scatter_boundary(h_index, query, graph.num_nodes)
+    return _node_features(model, graph, boundary, query, relation_representations)
+
+
+def _node_features(model: NBFNet, graph: Graph, boundary, query, relation_representations):
+    """Bellman-Ford from ``boundary`` (V, B, D); returns (V, B, F) node
+    features [last hidden (or every hidden) ‖ query]."""
     hiddens = bellmanford(
         model, graph, boundary, query, relation_input=relation_representations
     )
@@ -204,6 +210,19 @@ def entity_nbfnet_score_all(
     feature = entity_nbfnet_features(
         model, graph, relation_representations, h_index, r_index
     )
+    return model.mlp(feature).squeeze(-1).T
+
+
+def query_nbfnet_apply(
+    model: NBFNet, graph: Graph, node_features, relation_representations, query
+):
+    """UltraQuery's entity reasoner (QueryNBFNet, ``models.py:258-275`` of the
+    reference): Bellman-Ford from the dense (V, B, D) boundary
+    ``node_features`` (a fuzzy set of nodes times the query), with
+    ``relation_representations`` (B, R, D) as the relation input, then the
+    MLP on [last hidden ‖ query] (B, D). Returns (B, V) scores. UltraQuery
+    runs it with an :class:`Ultra`'s ``entity_model``."""
+    feature = _node_features(model, graph, node_features, query, relation_representations)
     return model.mlp(feature).squeeze(-1).T
 
 

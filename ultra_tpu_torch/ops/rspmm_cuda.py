@@ -81,12 +81,18 @@ _ARGTYPES = {
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ],
     "gather_lanes": [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
-    "gather_empty": [ctypes.c_longlong, ctypes.c_void_p],
+    "gather_lanes_indices": [ctypes.c_void_p] * 2 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ],
+    "gather_empty": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 # the source of each C entry point that is not named after its own source
-_SOURCE = {"gather_rows": "gather", "gather_lanes": "gather", "gather_empty": "gather"}
+_SOURCE = {"gather_rows": "gather", "gather_lanes": "gather", "gather_lanes_indices": "gather",
+           "gather_empty": "gather"}
 
 
 def _kernel(name: str):

@@ -141,15 +141,20 @@ def gather_probe(graph, seed=0):
     value for value. Each time (median device ms, :func:`device_ms`) stands
     beside its bound, its plain version's and that of the PyTorch call that
     computes the same function with int64 indices (``index_select``,
-    ``gather``), which nothing in the package calls; G2's also beside
+    ``gather``), which nothing in the package calls. G2's also beside
     ``launch_floor_ms``, an empty kernel's on G2's grid
-    (``gather_cuda.gather_lanes_floor``). Returns the record:
+    (``gather_cuda.gather_lanes_floor``), ``flat_grid_floor_ms``, an empty
+    kernel's on the grid G2 took before its redesign (256 blocks of 256
+    threads at (512, 128)), ``index_only_ms``, G2's walk storing its indices
+    (``gather_cuda.gather_lanes_indices``, checked bit for bit), and
+    ``by_lanes``, G2 and its floor at each of 2, 4 and 8 lanes a thread
+    (each output equal to the plain version's). Returns the record:
     ``"gathers"`` maps a name to its row (``out_key``, the launch counter's
     key of its output), ``"equal"`` says whether every output equalled its
     plain version's."""
     from ultra_tpu_torch.ops.gather_cuda import (
-        _key, gather_lanes, gather_lanes_floor, gather_lanes_plain, gather_rows,
-        gather_rows_plain,
+        LANES_PER_THREAD, _key, gather_lanes, gather_lanes_floor, gather_lanes_indices,
+        gather_lanes_plain, gather_rows, gather_rows_plain, launch_empty,
     )
     from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd
 
@@ -179,12 +184,32 @@ def gather_probe(graph, seed=0):
             rand(PROBE_V, PROBE_F).to(dtype), idx, 0)
     lane_idx = torch.randint(0, LANE_SHAPE[1], LANE_SHAPE, generator=gen,
                              dtype=torch.int32).cuda()
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    # the grid G2 took before its redesign: a thread an element, 256 a block
+    flat_grid = (min(-(-lane_idx.numel() // 256), 132 * 16), 256, 1)
+    for dtype, tag, bits in ((torch.float32, "f32", torch.int32),
+                             (torch.bfloat16, "bf16", torch.int16)):
         name = f"gather_lanes/{tag}/{LANE_SHAPE[0]}x{LANE_SHAPE[1]}"
         x = rand(*LANE_SHAPE).to(dtype)
         row(name, "scripts/aot_compile_probe.py:126", gather_lanes, gather_lanes_plain,
             torch.gather, x, lane_idx, 1)
-        rows[name]["launch_floor_ms"] = device_ms(lambda: gather_lanes_floor(x, lane_idx))
+        want = gather_lanes_plain(x, lane_idx)
+        by_lanes = {}
+        for lanes in (2, 4, 8):
+            by_lanes[lanes] = {
+                "equal": bool(torch.equal(gather_lanes(x, lane_idx, lanes), want)),
+                "ms": (rows[name]["ms"] if lanes == LANES_PER_THREAD
+                       else device_ms(lambda: gather_lanes(x, lane_idx, lanes))),
+                "floor_ms": device_ms(lambda: gather_lanes_floor(x, lane_idx, lanes)),
+            }
+        indices = gather_lanes_indices(lane_idx, dtype)
+        rows[name].update(
+            lanes=LANES_PER_THREAD, by_lanes=by_lanes,
+            launch_floor_ms=by_lanes[LANES_PER_THREAD]["floor_ms"],
+            flat_grid_floor_ms=device_ms(lambda: launch_empty(x.device, *flat_grid)),
+            index_only_ms=device_ms(lambda: gather_lanes_indices(lane_idx, dtype)),
+            index_only_equal=bool(torch.equal(indices.view(bits), lane_idx.to(bits))))
+        rows[name]["equal"] &= rows[name]["index_only_equal"] and all(
+            r["equal"] for r in by_lanes.values())
 
     feat, csr = PROBE_F, graph.csr
     rel, x = rand(graph.num_relations, feat), rand(graph.num_nodes, feat)
