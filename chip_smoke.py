@@ -28,8 +28,11 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    validation's widths (F=1024 on the entity graph, 4096 on the relation
    graph) on ``[link-prediction]``'s inference graph; and B1 at
    ``[clqa]``'s widths on its query graph (F=512 on the entity graph, 4096
-   on the relation graph). B1, B3, B4 and
-   B6 walk their CSR's piece table (``graph.ROW_PIECE``) and B2 and B5 the
+   on the relation graph); and B1 (forward and input gradient) and B2 at
+   the training paths' widths: on each ``[pretrain]`` member and its
+   relation graph at a batch of 32 (F=2048) and at validation's widths,
+   and on ``[clqa-training]``'s query graph and its relation graph at a
+   batch of 8 (F=512) and a micro-batch of 4. B1, B3, B4 and B6 walk their CSR's piece table (``graph.ROW_PIECE``) and B2 and B5 the
    type segments' (``graph.segment_piece``): B1, B3, B4 and B6 are also
    timed on a graph with uniformly drawn destinations (``uniform_ms``), all
    six are held against their plain versions on layouts whose rows sit on
@@ -55,7 +58,8 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    configuration the same way: the entity model aggregates with PNA (sum,
    sum of squares, max and min per layer: B1 and B3, and in training B4
    and B5), the relation model with sum. Its step's gradients are held to a
-   bound on the median over the tensors (see MINMAX_GRAD_MEDIAN);
+   bound on the median over the tensors (see MINMAX_GRAD_MEDIAN), on a
+   batch of PNA_CHECK_BATCH rows;
 8. holds a ``max`` conv and a ``rotate`` conv (its sum runs B1 at twice the
    width) on the card against the same conv on the CPU;
 9. explains predictions (``[visualize]``): the edge gradients of the
@@ -88,7 +92,23 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    the HTTP server (``ultra_tpu_torch/server.py``) on the card over the
    same graph: both endpoints against direct calls, malformed requests
    refused with 400, and each endpoint's median latency;
-12. runs the gather probe (``[gather-probe]``,
+12. pretrains on a mixture (``[pretrain]``) as ``scripts/torch_pretrain.py``
+   runs ``config/transductive/pretrain_synth.yaml`` (its ``run``; the repo's
+   three rule-KGs, batch 32, 128 strict negatives, validation of 300
+   triples a member) for one epoch of a few dozen steps, timed, its
+   launches read around it; then steps on each member, timed with their
+   peak memory and the host's sampling, the first timed step's launches
+   asserted, and one step of the smallest member held against the CPU;
+13. trains UltraQuery (``[clqa-training]``) as ``scripts/torch_run_query.py``
+   runs ``transductive_synth.yaml`` with ``--epochs 1`` (its ``run``), per
+   slot and with grouped projections and grad_accum 2, each run's launches
+   held against the projection schedules of its steps and evaluations;
+   each kind of query step (per slot, grouped, grouped with grad_accum 2)
+   held against the same step on the CPU on the same dropout plan, then
+   timed with its host planning and peak memory, its launches asserted;
+   and ``pretrain_queries`` over a ``JointQueryDataset`` of the repo's set
+   and a member written by ``data/synthetic_queries.py``;
+14. runs the gather probe (``[gather-probe]``,
    ``utils/benchlib.py::gather_probe``, the function
    ``scripts/torch_gather_probe.py`` runs): G1 and G2 at the TPU probes'
    shapes and G1 over the entity graph's edge sources, each equal to its
@@ -96,7 +116,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    same function; G2 also at 2, 4 and 8 lanes a thread, beside an empty
    kernel on its grid (the floor under G2) and on the grid it took before
    its redesign, and beside its walk storing its indices alone;
-13. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises before the last line is printed.
@@ -110,7 +130,9 @@ import argparse
 import collections
 import copy
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -137,7 +159,7 @@ KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
 WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
             "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv",
-          "visualize", "link-prediction", "clqa", "gather-probe")
+          "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "gather-probe")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -187,6 +209,12 @@ LOSS_RTOL, GRAD_REL_TO_MAX, GRAD_ATOL = 1e-5, 1e-4, 1e-7
 # weights) and TF32 moves it (0.027), so the bound is on the median over
 # the tensors, with a loose bound on the worst tensor against gross faults.
 MINMAX_GRAD_MEDIAN, MINMAX_GRAD_WORST = 5e-3, 0.5
+# The PNA step held against the CPU takes a batch of PNA_CHECK_BATCH rows:
+# the CPU's PNA step at a full batch took 116 s of the run, and its cost
+# goes with the batch. The readings above were at a full batch; at 4 rows
+# on an H100 (PERF.md) the median read 8.9e-4, TF32 0.021, the moved
+# weights 4.5e-4; at 2 rows 2.8e-3, too near the bound.
+PNA_CHECK_BATCH = 4
 # B3 against its plain version in f32: equal, value for value (a min or a
 # max is exact, and both compute each message with the same two roundings);
 # B4, B5 and B6 against plain versions that route in f32 exactly as the
@@ -252,6 +280,40 @@ LP_METRICS = ["mr", "mrr", "hits@1", "hits@3", "hits@10"]
 CLQA_ROOT = "query-datasets-synth-held"
 CLQA_METRICS = ["mrr", "hits@1", "hits@3", "hits@10", "mape"]
 CLQA_RANKED, CLQA_PROB_ATOL, CLQA_HTTP_REQUESTS = 8, 1e-4, 20
+
+# [pretrain]: config/transductive/pretrain_synth.yaml, the mixture of the
+# repo's three rule-KGs PRETRAIN_MEMBERS (kg-datasets/: 2,906, 3,732 and
+# 2,070 entities; 136,778, 181,496 and 85,864 message edges; 72, 54 and 90
+# relations with inverses) at ultra_3g width, batch PRETRAIN_BATCH, 128
+# strict negatives, fast_test 300 as shipped, run through
+# scripts/torch_pretrain.py's function with --epochs 1 --bpe PRETRAIN_STEPS;
+# then PRETRAIN_WARM warm and PRETRAIN_TIMED timed steps on each member, and
+# one step of the smallest member held against the CPU.
+PRETRAIN_MEMBERS = [
+    {"class": "SyntheticRuleKG", "num_nodes": 3000, "num_base_rel": 24, "num_comp_rel": 12,
+     "num_base_triples": 24000, "seed": 0},
+    {"class": "SyntheticRuleKG", "num_nodes": 4000, "num_base_rel": 18, "num_comp_rel": 9,
+     "num_base_triples": 30000, "seed": 1},
+    {"class": "SyntheticRuleKG", "num_nodes": 2200, "num_base_rel": 30, "num_comp_rel": 15,
+     "num_base_triples": 18000, "seed": 2},
+]
+PRETRAIN_BATCH, PRETRAIN_NEGATIVE = 32, 128
+PRETRAIN_STEPS, PRETRAIN_WARM, PRETRAIN_TIMED = 36, 2, 5
+
+# [clqa-training]: config/ultraquery/transductive_synth.yaml with --epochs 1
+# --bpe CLQA_TRAIN_STEPS on CLQA_ROOT's 640 training queries (batch 8,
+# traversal dropout 0.25), through scripts/torch_run_query.py's function:
+# per slot as shipped, and with grouped projections and grad_accum 2; then
+# CLQA_TRAIN_WARM warm and CLQA_TRAIN_TIMED timed steps of each step kind
+# (per slot; grouped; grouped with grad_accum 2), the first held against the
+# CPU on the same plan; then pretrain_queries over a JointQueryDataset of
+# CLQA_ROOT's set and one member written by data/synthetic_queries.py
+# (QUERY_MIX_MEMBER), QUERY_MIX_STEPS steps, fast_test QUERY_MIX_FAST_TEST.
+CLQA_TRAIN_STEPS, CLQA_TRAIN_WARM, CLQA_TRAIN_TIMED = 12, 2, 6
+QUERY_MIX_MEMBER = dict(name="NELL-betae", num_nodes=2000, num_direct_rel=40,
+                        num_triples=16000, queries_per_type=8, train_queries_per_type=32,
+                        seed=1, categories=10)
+QUERY_MIX_STEPS, QUERY_MIX_FAST_TEST = 8, 64
 
 
 class SmokeFailure(RuntimeError):
@@ -811,7 +873,8 @@ def piece_checks(graph, uniform, rows, feat, dim, gen):
     return ok
 
 
-def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform):
+def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform,
+                  training_graphs=()):
     """Every kernel wrapper against its plain version at each shape the
     serving, training, validation and attribution paths give it: F = 512
     (a batch of 8, D = 64) for training and serving, 1024 for validation's
@@ -824,7 +887,9 @@ def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform):
     fine-tuning; on ``lp_graph`` (``[link-prediction]``'s inference graph)
     validation's F = 1024 and 4096; on ``clqa_graph`` (``[clqa]``'s query
     graph) F = 512 for a batch's projections and 4096 for the precompute;
-    then :func:`piece_checks` with
+    the sum kernels at the shapes of ``training_graphs`` (see
+    :func:`training_shapes`: ``[pretrain]``'s members, ``[clqa-training]``'s
+    query graph); then :func:`piece_checks` with
     ``uniform``, the graph with uniformly drawn destinations. Returns
     ({row name: row}, ok); a row's ``launch_key`` is the launch-count key of
     its launches."""
@@ -895,12 +960,45 @@ def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform):
         for name, source, timed, kernel, plain, layout, a, b, bound in cases:
             case_rows, case_ok = hold(name, source, timed, kernel, plain, layout, w, a, b,
                                       bound)
+            for row in case_rows:
+                if tag in TAG_PHASES:
+                    row["phases"] = TAG_PHASES[tag]
             rows.update((row["name"], row) for row in case_rows)
             ok &= case_ok
         if minmax_replaces:
             minmax_rows, minmax_ok = hold_minmax(tag, g_, train_feat, gen, minmax_replaces)
             rows.update(minmax_rows)
             ok &= minmax_ok
+        torch.cuda.empty_cache()
+    for tag, g_, fwd_feats, dx_feats, drel_feats, replaces, phases in training_graphs:
+        keep = torch.rand(g_.edge_weight.shape, generator=gen) >= 0.1
+        w = (g_.edge_weight.cpu() * keep).cuda()
+        rand = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+        fwd_replaces, drel_replaces = replaces
+        cases = (
+            [(f"rspmm_sum_fwd/{tag}/F{f}", fwd_src, fwd_replaces, k.rspmm_sum_fwd,
+              k.rspmm_sum_fwd_plain, g_.csr, rspmm_bound_ms) for f in fwd_feats]
+            + [(f"rspmm_sum_dx/{tag}/F{f}", fwd_src, fwd_replaces, k.rspmm_sum_dx,
+                k.rspmm_sum_dx_plain, g_.csr_src, rspmm_bound_ms) for f in dx_feats]
+        )
+        for name, source, replaces_, kernel, plain, layout, bound in cases:
+            feat = int(name.rsplit("F", 1)[1])
+            case_rows, case_ok = hold(name, source, {"mul": replaces_}, kernel, plain, layout,
+                                      w, rand(g_.num_relations, feat),
+                                      rand(g_.num_nodes, feat), bound)
+            for row in case_rows:
+                row["phases"] = phases
+                rows[row["name"]] = row
+            ok &= case_ok
+        for feat in drel_feats:
+            case_rows, case_ok = hold(
+                f"rspmm_sum_drel/{tag}/F{feat}", drel_src, {"mul": drel_replaces},
+                k.rspmm_sum_drel, k.rspmm_sum_drel_plain, g_.segments, w,
+                rand(g_.num_nodes, feat), rand(g_.num_nodes, feat), drel_bound_ms)
+            for row in case_rows:
+                row["phases"] = phases
+                rows[row["name"]] = row
+            ok &= case_ok
         torch.cuda.empty_cache()
     for g_, tag, feats in ((graph, "entity", (dim, train_feat)), (rule_graph, "rulekg", (dim,))):
         dw_rows, dw_ok = hold_dw(g_, gen, tag, feats)
@@ -911,6 +1009,45 @@ def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform):
     print(f"[kernel] piece checks (uniform graph, piece boundaries, determinism): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rows, ok
+
+
+# rows whose launch keys (output shapes) other phases' graphs can share: a
+# row counts the launches of these phases only (rows of other tags count
+# every phase's). The rule-KG of [link-prediction]'s inference graph is also
+# a [pretrain] member, and [pretrain]'s validation runs its graphs at
+# [clqa]'s and [link-prediction]'s widths.
+TAG_PHASES = {"inference": ("link-prediction",), "inference-relation": ("link-prediction",),
+              "query": ("clqa", "clqa-training"), "query-relation": ("clqa", "clqa-training")}
+
+
+def training_shapes(cfg, member_graphs, query_graph):
+    """The training paths' sum-kernel shapes for :func:`check_kernels`:
+    (tag, graph, forward widths, input-gradient widths, relation-gradient
+    widths, (replaced forward, replaced relation gradient), phases). Each
+    ``[pretrain]`` member's graph at a batch's F = PRETRAIN_BATCH * 64
+    (forward, both gradients) and validation's widths (its entity graph at
+    F = 2 * PRETRAIN_BATCH // 8 * 64, its relation graph at the
+    precompute's); ``[clqa-training]``'s query graph at a batch's F = 512
+    and a micro-batch's under grad_accum 2, 256 (the query graph's forward
+    at 512 has its row from ``[clqa]``)."""
+    dim = cfg.entity_model.input_dim
+    feat, micro = BATCH * dim, BATCH // 2 * dim
+    pre_feat = PRETRAIN_BATCH * dim
+    valid_feat = 2 * max(PRETRAIN_BATCH // 8, 1) * dim
+    entity = ("ultra_tpu/ops/rspmm_pallas_v2.py:508", "ultra_tpu/ops/rspmm_pallas_v2.py:1054")
+    relation = ("ultra_tpu/ops/rspmm_pallas.py:283", "ultra_tpu/ops/rspmm_pallas.py:381")
+    out = []
+    for i, g_ in enumerate(member_graphs):
+        out += [(f"member{i}", g_, (pre_feat, valid_feat), (pre_feat,), (pre_feat,), entity,
+                 ("pretrain",)),
+                (f"member{i}-relation", g_.relation_graph, (pre_feat, PRECOMPUTE_CHUNK * dim),
+                 (pre_feat,), (pre_feat,), relation, ("pretrain",))]
+    if query_graph is not None:
+        out += [("query", query_graph, (micro,), (feat, micro), (feat, micro), entity,
+                 TAG_PHASES["query"]),
+                ("query-relation", query_graph.relation_graph, (feat, micro), (feat, micro),
+                 (feat, micro), relation, TAG_PHASES["query"])]
+    return out
 
 
 def serve(split, ckpt, device):
@@ -984,15 +1121,16 @@ def forward_launches(model_cfg, num_rows, feat):
     return counts
 
 
-def per_step_launches(cfg, num_nodes, num_rel):
-    """What autograd asks of the rspmm in one step, by launch key (the
-    output shape; B2's with the graph's nodes before it): a
+def per_step_launches(cfg, num_nodes, num_rel, batch=BATCH):
+    """What autograd asks of the rspmm in one step of ``batch`` rows (one
+    projection of a query step), by launch key (the output shape; B2's with
+    the graph's nodes before it): a
     forward, a relation gradient and an input gradient of each rspmm call of
     every layer of both models, except the input gradients of the relation
     model's first layer, whose input is a constant boundary. The relation
     graph has ``num_rel`` nodes and 4 edge types; the entity graph
     ``num_nodes`` nodes and ``num_rel`` edge types."""
-    feat = BATCH * cfg.entity_model.input_dim
+    feat = batch * cfg.entity_model.input_dim
     counts = plus(forward_launches(cfg.relation_model, num_rel, feat),
                   forward_launches(cfg.entity_model, num_nodes, feat))
     for model, rows, types, dx_layers in (
@@ -1038,15 +1176,16 @@ def moved_by_one_ulp(model, seed=5):
     return moved
 
 
-def train_steps(split, graph, cfg, tag="training"):
+def train_steps(split, graph, cfg, tag="training", check_batch=BATCH):
     """One step held against the same step on the CPU, the same step with
     TF32 matrix products as a control of that comparison, the same step on
     the card from weights moved by one unit in the last place (how far
     rounding alone moves the gradients), then WARM_STEPS warm and
     TIMED_STEPS timed steps on the card, each with its own sampled batch
-    and easy-edge mask. Prints the ``[tag]`` record, then checks. Returns
-    (whether the TF32 control passed the gradient check, the timed steps'
-    launches)."""
+    and easy-edge mask. The held step takes a batch of ``check_batch`` rows
+    (the CPU's step costs in proportion to it), the others BATCH. Prints the
+    ``[tag]`` record, then checks. Returns (whether the TF32 control passed
+    the gradient check, the timed steps' launches)."""
     from ultra_tpu_torch import tasks
     from ultra_tpu_torch.data.kg import split_to_graph
     from ultra_tpu_torch.models.nbfnet import Ultra
@@ -1059,8 +1198,8 @@ def train_steps(split, graph, cfg, tag="training"):
     rng = np.random.default_rng(1)
     t0 = time.perf_counter()
     batches = []
-    for _ in range(1 + WARM_STEPS + TIMED_STEPS):
-        pos = triples[rng.choice(len(triples), BATCH, replace=False)]
+    for i in range(1 + WARM_STEPS + TIMED_STEPS):
+        pos = triples[rng.choice(len(triples), check_batch if i == 0 else BATCH, replace=False)]
         batch = tasks.negative_sampling(index, pos, NUM_NEGATIVE, strict=True, rng=rng)
         batches.append((batch, tasks.easy_edge_weights(index, batch, graph.num_edges_padded)))
     sample_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
@@ -1154,7 +1293,8 @@ def train_steps(split, graph, cfg, tag="training"):
 
     top = lambda ratio: dict(sorted(ratio.items(), key=lambda kv: -kv[1])[:5])
     record = {
-        "batch": BATCH, "num_negative": NUM_NEGATIVE, "edges_masked_per_batch": masked,
+        "batch": BATCH, "check_batch": check_batch, "num_negative": NUM_NEGATIVE,
+        "edges_masked_per_batch": masked,
         "sample_ms_per_batch": sample_ms,
         "step_ms_median": statistics.median(lat), "step_ms_min": min(lat),
         "step_ms_max": max(lat), "steps_per_s": TIMED_STEPS / total_s,
@@ -1179,7 +1319,9 @@ def train_steps(split, graph, cfg, tag="training"):
     print(f"[{tag}] " + json.dumps(record), flush=True)
 
     want = per_step_launches(cfg, graph.num_nodes, graph.num_relations)
-    check(first_counts == want, f"one train step launched {first_counts}, want {want}")
+    want_first = per_step_launches(cfg, graph.num_nodes, graph.num_relations, batch=check_batch)
+    check(first_counts == want_first,
+          f"one train step launched {first_counts}, want {want_first}")
     check(timed_counts == times(want, TIMED_STEPS),
           f"{TIMED_STEPS} timed steps launched {timed_counts}")
     check(all(np.isfinite(losses)), f"a step's loss is not finite: {losses}")
@@ -1916,11 +2058,11 @@ def link_prediction_run(cfg, root, dataset):
     return record, plus(counts_a, counts_b)
 
 
-def clqa_config(ckpt):
+def clqa_config(ckpt, epochs=0, bpe=None):
     """``config/ultraquery/transductive_synth.yaml`` rendered with
-    ``--dataset FB15k237LogicalQuery --root <CLQA_ROOT> --epochs 0 --bs 8
-    --bpe null --threshold 0.8 --ultra_ckpt null --qe_ckpt <ckpt>``, as a
-    dict: the card's machine may have no jinja2 or PyYAML."""
+    ``--dataset FB15k237LogicalQuery --root <CLQA_ROOT> --epochs <epochs>
+    --bs 8 --bpe <bpe> --threshold 0.8 --ultra_ckpt null --qe_ckpt
+    <ckpt>``, as a dict: the card's machine may have no jinja2 or PyYAML."""
     layer = {"input_dim": 64, "hidden_dims": [64] * 6, "message_func": "distmult",
              "aggregate_func": "sum", "short_cut": True, "layer_norm": True}
     return {
@@ -1933,16 +2075,17 @@ def clqa_config(ckpt):
         "task": {"name": "ComplexQuery", "adversarial_temperature": 0.2,
                  "metric": CLQA_METRICS},
         "optimizer": {"class": "AdamW", "lr": LR},
-        "train": {"batch_size": BATCH, "num_epoch": 0, "log_interval": 20,
-                  "batch_per_epoch": None},
+        "train": {"batch_size": BATCH, "num_epoch": epochs, "log_interval": 20,
+                  "batch_per_epoch": bpe},
         "ultra_ckpt": None,
         "ultraquery_ckpt": ckpt,
     }
 
 
-def clqa_launches(cfg, dataset, graph):
+def clqa_launches(cfg, dataset, graph, splits=(1, 2)):
     """What zero-shot evaluation of ``dataset``'s valid and test queries
-    launches, by wrapper and output shape: per split, the precompute's
+    (``splits``, indices into ``split_ranges``) launches, by wrapper and
+    output shape: per split, the precompute's
     chunks of PRECOMPUTE_CHUNK relations through the relation model, and
     per batch of BATCH queries (the last one padded by repeating its last
     query) the entity model once for each round of its projection schedule
@@ -1954,7 +2097,7 @@ def clqa_launches(cfg, dataset, graph):
     chunks = -(-graph.num_relations // PRECOMPUTE_CHUNK)
     counts = {name: {} for name in WRAPPERS}
     rounds = 0
-    for lo, hi in dataset.split_ranges()[1:]:
+    for lo, hi in (dataset.split_ranges()[i] for i in splits):
         counts = plus(counts, times(forward_launches(cfg.relation_model, graph.num_relations,
                                                      PRECOMPUTE_CHUNK * dim), chunks))
         for start in range(lo, hi, BATCH):
@@ -2126,8 +2269,6 @@ def clqa_run(cfg, dataset, graph, smi):
     CLQA_RANKED test queries of each type held against the CPU's; then the
     HTTP server (:func:`clqa_http`) on ``graph``. Returns (the ``[clqa]``
     record, the evaluation's launches)."""
-    import importlib.util
-
     from ultra_tpu_torch.models.nbfnet import Ultra
     from ultra_tpu_torch.query.executor import QueryConfig
     from ultra_tpu_torch.train.loop import init_ultra_params
@@ -2151,10 +2292,7 @@ def clqa_run(cfg, dataset, graph, smi):
     check(rendered is None or rendered == run_cfg,
           f"transductive_synth.yaml renders to {rendered}, not {run_cfg}")
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_run_query", ROOT / "scripts" / "torch_run_query.py")
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
+    cli = load_script("torch_run_query")
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2225,6 +2363,430 @@ def clqa_run(cfg, dataset, graph, smi):
           f"card and CPU ranks differ by more than the near ties at "
           f"{np.nonzero(rank_diff > near)[0].tolist()}")
     return record, counts
+
+
+def load_script(name):
+    """``scripts/<name>.py`` as a module (its functions, not its ``main``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class LogLines:
+    """The messages logged to the port's logger while in the block."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+        self.logger = logging.getLogger("ultra_tpu_torch")
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def without_zeros(counts):
+    return {name: {k: n for k, n in by_shape.items() if n} for name, by_shape in counts.items()}
+
+
+def grad_ratio(card, cpu):
+    """({tensor: max|err| / max|grad_cpu|}, every tensor within
+    GRAD_REL_TO_MAX of its largest entry plus GRAD_ATOL) of two models'
+    ``.grad``."""
+    cpu_grads = dict(cpu.named_parameters())
+    ratio, ok = {}, True
+    for k, p in card.named_parameters():
+        got, want = p.grad.detach().cpu(), cpu_grads[k].grad
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        ok &= err <= GRAD_REL_TO_MAX * scale + GRAD_ATOL
+        ratio[k] = err / max(scale, 1e-30)
+    return ratio, ok
+
+
+def pretrain_config(epochs, bpe):
+    """``config/transductive/pretrain_synth.yaml`` rendered with ``--epochs
+    <epochs> --bpe <bpe>``, as a dict (the card's machine may have no jinja2
+    or PyYAML), its root made absolute."""
+    layer = {"input_dim": 64, "hidden_dims": [64] * 6, "message_func": "distmult",
+             "aggregate_func": "sum", "short_cut": True, "layer_norm": True}
+    cfg = {
+        "output_dir": "./output",
+        "dataset": {"class": "JointDataset", "graphs": [dict(m) for m in PRETRAIN_MEMBERS],
+                    "root": "./kg-datasets/"},
+        "model": {"class": "Ultra", "relation_model": {"class": "RelNBFNet", **layer},
+                  "entity_model": {"class": "EntityNBFNet", **layer}},
+        "task": {"name": "MultiGraphPretraining", "num_negative": PRETRAIN_NEGATIVE,
+                 "strict_negative": True, "adversarial_temperature": 1,
+                 "metric": ["mr", "mrr", "hits@1", "hits@3", "hits@10"]},
+        "optimizer": {"class": "AdamW", "lr": LR},
+        "train": {"batch_size": PRETRAIN_BATCH, "num_epoch": epochs, "log_interval": 100,
+                  "batch_per_epoch": bpe, "fast_test": 300},
+    }
+    try:
+        from ultra_tpu_torch.utils import config as config_lib
+
+        rendered = config_lib.load_config(
+            str(ROOT / "config" / "transductive" / "pretrain_synth.yaml"),
+            {"epochs": epochs, "bpe": bpe})
+    except ImportError:  # no jinja2 or PyYAML
+        rendered = None
+    check(rendered is None or rendered == cfg,
+          f"pretrain_synth.yaml renders to {rendered}, not {cfg}")
+    cfg["dataset"]["root"] = str(ROOT / "kg-datasets")
+    return cfg
+
+
+def pretrain_run(cfg, graphs):
+    """Pretraining on the mixture at ``ultra_3g`` width: ``run`` of
+    ``scripts/torch_pretrain.py`` (what the command line runs) on
+    :func:`pretrain_config` with PRETRAIN_STEPS steps, timed, its launches
+    read around it; then, on ``graphs`` (the members' PretrainGraphs on the
+    card), the host's sampling timed over the mixture's draws, one step of
+    the smallest member held against the same step on the CPU (loss to
+    LOSS_RTOL, each gradient to GRAD_REL_TO_MAX of its tensor's largest
+    entry), and PRETRAIN_WARM + PRETRAIN_TIMED steps on each member, timed,
+    with their peak memory and the first timed step's launches asserted
+    (:func:`per_step_launches` at batch PRETRAIN_BATCH). Returns (the
+    ``[pretrain]`` record, the run's launches)."""
+    from ultra_tpu_torch.models.nbfnet import Ultra
+    from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params, make_train_step
+    from ultra_tpu_torch.train.runner import prepare_graph
+
+    cli = load_script("torch_pretrain")
+    run_cfg = pretrain_config(1, PRETRAIN_STEPS)
+    workdir = ROOT / "build" / "chip_smoke" / "pretrain"
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with LogLines() as log:
+        trained = cli.run(run_cfg, str(workdir), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    run_record = {"wall_s": wall_s, "steps": PRETRAIN_STEPS,
+                  "log": [l for l in log if "avg" in l or "valid[" in l],
+                  "files": sorted(os.listdir(workdir))}
+
+    # the host's sampling and masks, over the mixture's draws
+    rng = np.random.default_rng(1)
+    by_member = {gi: [] for gi in range(len(graphs.datasets))}
+    host_ms = []
+    need = 1 + PRETRAIN_WARM + PRETRAIN_TIMED
+    while min(len(b) for b in by_member.values()) < need and len(host_ms) < 400:
+        t0 = time.perf_counter()
+        gi, batch, ew = graphs.sample(rng, PRETRAIN_BATCH, PRETRAIN_NEGATIVE, True, False)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        by_member[gi].append((batch, ew))
+    check(min(len(b) for b in by_member.values()) >= need,
+          f"{len(host_ms)} draws gave {[len(b) for b in by_member.values()]} batches a member")
+
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    state = init_train_state(model, lr=LR, weight_decay=WEIGHT_DECAY)
+    step = make_train_step(adversarial_temperature=1.0, num_negative=PRETRAIN_NEGATIVE)
+    on_card = lambda b: tuple(torch.as_tensor(a, device="cuda") for a in b)  # noqa: E731
+
+    # one step of the smallest member on the card and the CPU
+    small = min(range(len(graphs.datasets)),
+                key=lambda gi: graphs.datasets[gi].train.edge_index.shape[1])
+    batch = by_member[small][0]
+    card_loss = float(step(state, graphs.train_graphs[small], *on_card(batch)))
+    t0 = time.perf_counter()
+    cpu_model = Ultra(cfg)
+    cpu_model.load_state_dict(init)
+    cpu_state = init_train_state(cpu_model, lr=LR, weight_decay=WEIGHT_DECAY)
+    cpu_loss = float(step(cpu_state, prepare_graph(graphs.datasets[small].train, device="cpu"),
+                          *(torch.as_tensor(a) for a in batch)))
+    cpu_s = time.perf_counter() - t0
+    ratio, grads_ok = grad_ratio(state.model, cpu_model)
+    worst = max(ratio, key=ratio.get)
+    del cpu_model, cpu_state
+
+    members, launches_ok = [], True
+    for gi, d in enumerate(graphs.datasets):
+        g = graphs.train_graphs[gi]
+        batches = [on_card(b) for b in by_member[gi][1:need]]
+        losses = [step(state, g, *b) for b in batches[:PRETRAIN_WARM]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        for j, b in enumerate(batches[PRETRAIN_WARM:]):
+            if j == 0:
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(step(state, g, *b))
+            torch.cuda.synchronize()
+            lat.append(1e3 * (time.perf_counter() - t0))
+            if j == 0:
+                first = launch_counts()
+        want = per_step_launches(cfg, g.num_nodes, g.num_relations, batch=PRETRAIN_BATCH)
+        launches_ok &= first == want
+        members.append({
+            "name": d.name, "V": g.num_nodes, "E": int(g.csr.col.numel()),
+            "R": g.num_relations, "rel_graph_E": int(g.relation_graph.csr.col.numel()),
+            "step_ms_median": statistics.median(lat), "step_ms_min": min(lat),
+            "step_ms_max": max(lat), "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "losses": [float(l) for l in losses], "launches_per_step": as_json(first),
+            "want_launches_per_step": as_json(want)})
+
+    record = {
+        "run": run_record, "members": members,
+        "host_ms_per_step": {"median": statistics.median(host_ms), "min": min(host_ms),
+                             "max": max(host_ms), "draws": len(host_ms)},
+        "cpu_step": {"member": graphs.datasets[small].name, "card_loss": card_loss,
+                     "cpu_loss": cpu_loss, "loss_abs_err": abs(card_loss - cpu_loss),
+                     "grad_err_over_max": {"worst": worst, "value": ratio[worst],
+                                           "median": statistics.median(ratio.values())},
+                     "cpu_s": cpu_s},
+        "launches": as_json(counts),
+        "tolerance": f"loss rtol {LOSS_RTOL}; per tensor max|err| <= {GRAD_REL_TO_MAX} * "
+                     f"max|grad_cpu| + {GRAD_ATOL}",
+    }
+    print("[pretrain] " + json.dumps(record), flush=True)
+    check({"model_latest.pth", "model_final.pth", "model_epoch_1.pth"} <= set(
+        run_record["files"]), f"pretraining wrote {run_record['files']}")
+    check(all(torch.isfinite(p).all() for p in trained.parameters()),
+          "pretrained weights not finite")
+    check(any("avg valid mrr" in l for l in log), "pretraining logged no validation")
+    for gi, g in enumerate(graphs.train_graphs):
+        check(counts["rspmm_sum_fwd"].get(
+            (g.num_nodes, PRETRAIN_BATCH * cfg.entity_model.input_dim), 0) > 0,
+              f"member {gi} took no step in the run")
+    check(launches_ok, "a member's step launched other kernels than per_step_launches says: "
+                       + json.dumps([(m["launches_per_step"], m["want_launches_per_step"])
+                                     for m in members]))
+    check(all(np.isfinite(m["losses"]).all() for m in members), "a step's loss is not finite")
+    check(abs(card_loss - cpu_loss) <= LOSS_RTOL * abs(cpu_loss),
+          f"card loss {card_loss!r} vs CPU {cpu_loss!r}")
+    check(grads_ok, f"card and CPU gradients differ; worst {worst}: {ratio[worst]!r}")
+    return record, counts
+
+
+def query_step_passes(kind, grouped, accum):
+    """The projection passes of one query train step on the batch
+    ``kind``, as [(passes, rows a pass)]: per slot, one for each slot where
+    some query projects; grouped, one for each round of each of the
+    ``gcd(B, accum)`` micro-batches' schedules."""
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.executor import projection_schedule
+
+    b = kind.shape[0]
+    if grouped:
+        micro = math.gcd(b, accum)
+        return [(projection_schedule(kind[rows])[3], b // micro)
+                for rows in np.split(np.arange(b), micro)]
+    return [(int((kind == ops.K_PROJECTION).any(axis=0).sum()), b)]
+
+
+def query_step_launches(cfg, kind, grouped, accum, num_nodes, num_rel):
+    """What one query train step on the batch ``kind`` launches: a step's
+    launches (:func:`per_step_launches`) for each projection pass
+    (:func:`query_step_passes`) at its rows."""
+    counts = {name: {} for name in WRAPPERS}
+    for n, rows in query_step_passes(kind, grouped, accum):
+        counts = plus(counts, times(per_step_launches(cfg, num_nodes, num_rel, batch=rows), n))
+    return counts
+
+
+CLQA_STEP_KINDS = (("per-slot", False, 1), ("grouped", True, 1), ("grouped-accum2", True, 2))
+
+
+def clqa_training_run(cfg, dataset):
+    """UltraQuery training at ``ultra_3g`` width on the repo's BetaE data:
+    ``run`` of ``scripts/torch_run_query.py`` (what the command line runs)
+    with :func:`clqa_config` at --epochs 1 --bpe CLQA_TRAIN_STEPS, per slot
+    and grouped with grad_accum 2, each timed with its launches held
+    against the projection schedule (its steps, the epoch's validation, the
+    final evaluation); then each step kind of CLQA_STEP_KINDS on batches
+    drawn from the training queries: the first step held against the same
+    step on the CPU on the same dropout plan, then CLQA_TRAIN_WARM warm and
+    CLQA_TRAIN_TIMED timed steps with the host's planning (the symbolic
+    machine, the masker and the masks' copy to the card) timed apart, peak
+    memory, and the launches of each timed step asserted
+    (:func:`query_step_launches`); then ``run`` on a JointQueryDataset of
+    the repo's set and a generated member (QUERY_MIX_MEMBER). Returns (the
+    ``[clqa-training]`` record, the three runs' launches)."""
+    from ultra_tpu_torch.data.synthetic_queries import write_betae_dataset
+    from ultra_tpu_torch.models.nbfnet import Ultra
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.executor import (
+        QueryConfig, graphs_for_slots, projection_schedule, simulate_symbolic,
+        simulate_symbolic_grouped,
+    )
+    from ultra_tpu_torch.query.trainer import (
+        answers_to_mask, dropout_planner, graph_host, make_grouped_query_train_step,
+        make_query_train_step, prepare_query_graph,
+    )
+    from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params
+
+    base = ROOT / "build" / "chip_smoke" / "clqa_training"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    model0 = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ckpt = base / "ultraquery_seed0.pth"
+    torch.save({"model": {f"model.model.{k}": w for k, w in model0.state_dict().items()}}, ckpt)
+    cli = load_script("torch_run_query")
+    graph = prepare_query_graph(dataset.graphs[0], device="cuda")
+    v, r = graph.num_nodes, graph.num_relations
+    (tr_lo, tr_hi), (va_lo, va_hi), _ = dataset.split_ranges()
+    total = {name: {} for name in WRAPPERS}
+    runs = {}
+
+    # the command line's function, per slot and grouped with grad_accum 2
+    for mode, extra in (("per-slot", {}), ("grouped-accum2", {"grouped_projections": True,
+                                                               "grad_accum": 2})):
+        run_cfg = clqa_config(str(ckpt), epochs=1, bpe=CLQA_TRAIN_STEPS)
+        run_cfg["train"].update(extra)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with LogLines() as log:
+            results = cli.run(run_cfg, seed=0, device="cuda", workdir=str(base / mode))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        total = plus(total, counts)
+        perm = np.random.default_rng(0).permutation(np.arange(tr_lo, tr_hi))
+        want = {name: {} for name in WRAPPERS}
+        for step in range(CLQA_TRAIN_STEPS):
+            kind = ops.decompose(dataset.queries[perm[step * BATCH:(step + 1) * BATCH]])[0]
+            want = plus(want, query_step_launches(cfg, kind, "grouped" in mode,
+                                                  extra.get("grad_accum", 1), v, r))
+        want = plus(plus(want, clqa_launches(cfg, dataset, graph, splits=(1,))[0]),
+                    clqa_launches(cfg, dataset, graph)[0])
+        runs[mode] = {"wall_s": wall_s, "launches": as_json(counts),
+                      "log": [l for l in log if "avg bce" in l or "valid after" in l],
+                      "results": {split: {k: m[k] for k in CLQA_METRICS}
+                                  for split, m in results.items()}}
+        check(without_zeros(counts) == without_zeros(want),
+              f"{mode} run launched {as_json(counts)}, want {as_json(want)}")
+        for split, m in results.items():
+            check(all(np.isfinite(list(m.values()))) and 0 < m["mrr"] <= 1,
+                  f"{mode} {split} metrics {m}")
+        check({"model_latest.pth", "model_epoch_1.pth"} <= set(os.listdir(base / mode)),
+              f"{mode} wrote {os.listdir(base / mode)}")
+
+    # each step kind: a step against the CPU, then timed steps
+    qg = dataset.graphs[0]
+    cpu_graph = prepare_query_graph(qg, device="cpu")
+    host = graph_host(qg, graph)
+    t0 = time.perf_counter()
+    planner = dropout_planner(host, graph)
+    planner_s = time.perf_counter() - t0
+    qcfg = QueryConfig(logic="product", threshold=0.8, dropout_ratio=0.25)
+    rng = np.random.default_rng(1)
+    batches = []
+    for _ in range(1 + CLQA_TRAIN_WARM + CLQA_TRAIN_TIMED):
+        take = rng.choice(np.arange(tr_lo, tr_hi), BATCH, replace=False)
+        kind, operand = ops.decompose(dataset.queries[take])
+        batches.append((kind, operand, answers_to_mask([dataset.easy_answers[i] for i in take],
+                                                       v).astype(np.float32)))
+    steps, all_ok = {}, True
+    for mode, grouped, accum in CLQA_STEP_KINDS:
+        step_fn = (make_grouped_query_train_step(qcfg, 0.2, grad_accum=accum) if grouped
+                   else make_query_train_step(qcfg, 0.2))
+
+        def plan(kind, operand):
+            if grouped:
+                return simulate_symbolic_grouped(kind, operand, *projection_schedule(kind), host,
+                                                 qcfg, rng, planner)
+            return simulate_symbolic(kind, operand, host, qcfg, rng, planner=planner)
+
+        kind, operand, target = batches[0]
+        first_plan = plan(kind, operand)
+        card = Ultra(cfg)
+        card.load_state_dict(model0.state_dict())
+        state = init_train_state(card.cuda(), lr=LR, weight_decay=WEIGHT_DECAY)
+        card_loss = float(step_fn(state, graphs_for_slots(graph, first_plan), kind, operand,
+                                  target))
+        t0 = time.perf_counter()
+        cpu = Ultra(cfg)
+        cpu.load_state_dict(model0.state_dict())
+        cpu_loss = float(step_fn(init_train_state(cpu, lr=LR, weight_decay=WEIGHT_DECAY),
+                                 graphs_for_slots(cpu_graph, first_plan), kind, operand, target))
+        cpu_s = time.perf_counter() - t0
+        ratio, grads_ok = grad_ratio(state.model, cpu)
+        worst = max(ratio, key=ratio.get)
+
+        losses, plan_ms, lat, launches_ok, peak = [], [], [], True, None
+        for j, (kind, operand, target) in enumerate(batches[1:]):
+            timed = j >= CLQA_TRAIN_WARM
+            if j == CLQA_TRAIN_WARM:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            slot_graphs = graphs_for_slots(graph, plan(kind, operand))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reset_launch_counts()
+            losses.append(float(step_fn(state, slot_graphs, kind, operand, target)))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if timed:
+                plan_ms.append(1e3 * (t1 - t0))
+                lat.append(1e3 * (t2 - t1))
+                launches_ok &= without_zeros(launch_counts()) == without_zeros(
+                    query_step_launches(cfg, kind, grouped, accum, v, r))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        steps[mode] = {
+            "step_ms_median": statistics.median(lat), "step_ms_min": min(lat),
+            "step_ms_max": max(lat), "host_plan_ms_median": statistics.median(plan_ms),
+            "host_plan_ms_max": max(plan_ms), "peak_mem_mib": peak, "losses": losses,
+            "passes_per_step": [query_step_passes(k, grouped, accum)
+                                for k, _, _ in batches[1 + CLQA_TRAIN_WARM:]],
+            "launches_as_schedule": launches_ok,
+            "cpu_step": {"card_loss": card_loss, "cpu_loss": cpu_loss,
+                         "loss_abs_err": abs(card_loss - cpu_loss), "worst": worst,
+                         "value": ratio[worst], "median": statistics.median(ratio.values()),
+                         "cpu_s": cpu_s}}
+        all_ok &= (grads_ok and launches_ok and abs(card_loss - cpu_loss)
+                   <= LOSS_RTOL * abs(cpu_loss) and bool(np.isfinite(losses).all()))
+
+    # pretrain_queries over the repo's set and a generated member
+    mix_root = base / "query_mix"
+    shutil.copytree(ROOT / CLQA_ROOT / "FB15k-237-betae", mix_root / "FB15k-237-betae")
+    t0 = time.perf_counter()
+    write_betae_dataset(str(mix_root), **QUERY_MIX_MEMBER)
+    gen_s = time.perf_counter() - t0
+    mix_cfg = clqa_config(str(ckpt), epochs=1, bpe=QUERY_MIX_STEPS)
+    mix_cfg["dataset"] = {"class": "JointQueryDataset", "root": str(mix_root),
+                          "graphs": ["FB15k237", "NELL995"]}
+    mix_cfg["train"]["fast_test"] = QUERY_MIX_FAST_TEST
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with LogLines() as log:
+        mix_results = cli.run(mix_cfg, seed=0, device="cuda", workdir=str(base / "mixture"))
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    mix_counts = launch_counts()
+    total = plus(total, mix_counts)
+    runs["mixture"] = {"wall_s": mix_s, "generate_s": gen_s, "launches": as_json(mix_counts),
+                       "log": [l for l in log if "step" in l or "valid" in l],
+                       "results": {name: {k: m[k] for k in CLQA_METRICS}
+                                   for name, m in mix_results.items()}}
+
+    record = {"graph": {"V": v, "E": int(graph.csr.col.numel()), "R": r,
+                        "rel_graph_E": int(graph.relation_graph.csr.col.numel())},
+              "train_queries": int(tr_hi - tr_lo), "valid_queries": int(va_hi - va_lo),
+              "planner_s": planner_s, "runs": runs, "steps": steps,
+              "tolerance": f"loss rtol {LOSS_RTOL}; per tensor max|err| <= {GRAD_REL_TO_MAX} "
+                           f"* max|grad_cpu| + {GRAD_ATOL}"}
+    print("[clqa-training] " + json.dumps(record), flush=True)
+    check(all_ok, "a step kind failed its CPU check or its launches: " + json.dumps(steps))
+    check(len(mix_results) == 2 and all(
+        np.isfinite(list(m.values())).all() and 0 < m["mrr"] <= 1
+        for m in mix_results.values()), f"mixture test metrics {mix_results}")
+    check(any("avg valid mrr" in l for l in log), "the mixture logged no validation")
+    return record, total
 
 
 def sum_serving(split, cfg):
@@ -2431,7 +2993,21 @@ def main() -> int:
               f"E={lp_graph.relation_graph.csr.col.numel()} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    if {"kernels", "clqa"} & set(phases):
+    member_graphs = query_train_graph = None
+    if {"kernels", "pretrain"} & set(phases):
+        # [kernels] checks B1 and B2 at the members' training shapes, [pretrain] trains on them
+        t0 = time.perf_counter()
+        from ultra_tpu_torch.train.pretrain import PretrainGraphs
+
+        member_graphs = PretrainGraphs(
+            kg.JointDataset(str(ROOT / "kg-datasets"), PRETRAIN_MEMBERS).load(), device="cuda")
+        print("[graph] pretraining members " + ", ".join(
+            f"{d.name}: V={g.num_nodes} E={g.csr.col.numel()} R={g.num_relations} relation "
+            f"graph E={g.relation_graph.csr.col.numel()}"
+            for d, g in zip(member_graphs.datasets, member_graphs.train_graphs))
+            + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    if {"kernels", "clqa", "clqa-training"} & set(phases):
         # [kernels] checks B1 on the query graph, [clqa] answers on it
         t0 = time.perf_counter()
         from ultra_tpu_torch.query.datasets import build_query_dataset
@@ -2444,6 +3020,7 @@ def main() -> int:
               f"V={clqa_graph.relation_graph.num_nodes} "
               f"E={clqa_graph.relation_graph.csr.col.numel()}; queries "
               f"{clqa_dataset.num_samples} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        query_train_graph = prepare_query_graph(clqa_dataset.graphs[0], device="cuda")
 
     cfg, pna_cfg = UltraConfig(), pna_config()  # ultra_3g, and its PNA variant
     kernels, phase_counts, failures = {}, {}, []
@@ -2468,7 +3045,9 @@ def main() -> int:
               f"{int(uniform.csr.rowptr.diff().max())} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
         rows, ok = check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg,
-                                 torch.Generator().manual_seed(0), uniform)
+                                 torch.Generator().manual_seed(0), uniform,
+                                 training_shapes(cfg, member_graphs.train_graphs,
+                                                 query_train_graph))
         kernels.update(rows)
         check(ok, "a kernel disagrees with its plain version (see the [kernel] lines)")
 
@@ -2487,7 +3066,7 @@ def main() -> int:
 
     def pna_training_phase():
         tf32_ok, phase_counts["pna-training"] = train_steps(split, graph, pna_cfg,
-                                                           "pna-training")
+                                                           "pna-training", PNA_CHECK_BATCH)
         check(not tf32_ok, "the TF32 control passed the PNA card-vs-CPU gradient check")
 
     run("kernels", kernel_phase)
@@ -2510,9 +3089,17 @@ def main() -> int:
     def clqa_phase():
         _, phase_counts["clqa"] = clqa_run(cfg, clqa_dataset, clqa_graph, smi)
 
+    def pretrain_phase():
+        _, phase_counts["pretrain"] = pretrain_run(cfg, member_graphs)
+
+    def clqa_training_phase():
+        _, phase_counts["clqa-training"] = clqa_training_run(cfg, clqa_dataset)
+
     run("visualize", visualize_phase)
     run("link-prediction", link_prediction_phase)
     run("clqa", clqa_phase)
+    run("pretrain", pretrain_phase)
+    run("clqa-training", clqa_training_phase)
     run("gather-probe", gather_probe_phase)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
@@ -2530,7 +3117,8 @@ def main() -> int:
     for name, row in kernels.items():
         wrapper, shape = name.split("/")[0], tuple(row["launch_key"])
         row["launches_by_phase"] = {phase: counts.get(wrapper, {}).get(shape, 0)
-                                    for phase, counts in phase_counts.items()}
+                                    for phase, counts in phase_counts.items()
+                                    if phase in row.get("phases", phase_counts)}
         row["launches"] = sum(row["launches_by_phase"].values())
         if row["on_path"]:
             check(row["launches"] > 0, f"{name} was not launched on its path")

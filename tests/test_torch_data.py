@@ -123,14 +123,18 @@ def test_synthetic_rule_kg_download_and_process_match_jax(tmp_path):
 
 
 def test_unported_dataset_classes_raise():
-    """Every dataset class of the JAX package is ported but the pretraining
-    mixture, which raises naming its ROADMAP item."""
-    assert kg.UNPORTED == {"JointDataset": "A9"}
-    assert "JointDataset" in jkg.DATASETS
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        kg.build_dataset("JointDataset", "unused")
-    assert set(kg.DATASETS) | set(kg.UNPORTED) == set(jkg.DATASETS)
-    assert not set(kg.DATASETS) & set(kg.UNPORTED)
+    """Every dataset class of the JAX package is ported, the pretraining
+    mixture too: ``build_dataset`` gives a ``JointDataset`` of the named
+    members, as the JAX package's does (its loading is
+    ``test_torch_pretrain.py::test_joint_dataset_matches_jax``)."""
+    assert not hasattr(kg, "UNPORTED")
+    assert set(kg.DATASETS) == set(jkg.DATASETS)
+    members = ["FB15k237", {"class": "SyntheticRuleKG", "seed": 3}]
+    got = kg.build_dataset("JointDataset", "unused", graphs=members)
+    want = jkg.build_dataset("JointDataset", "unused", graphs=members)
+    assert isinstance(got, kg.JointDataset)
+    assert (got.root, got.graph_names) == (want.root, want.graph_names)
+    assert set(kg.JointDataset.datasets_map) == set(jkg.JointDataset.datasets_map)
 
 
 @pytest.mark.parametrize("limit_vocab,require_known_rel",

@@ -275,10 +275,23 @@ def test_query_datasets_match_jax(tmp_path, family):
     assert_same_query_dataset(got, want)
 
 
-def test_joint_query_dataset_is_refused():
-    with pytest.raises(NotImplementedError, match="A10"):
-        qds.build_query_dataset("JointQueryDataset", "/nonexistent", graphs=["FB15k237"])
-    assert set(qds.QUERY_DATASETS) | set(qds.UNPORTED) == set(jds.QUERY_DATASETS)
+def test_joint_query_dataset_is_refused(tmp_path):
+    """The query pretraining mixture is ported: ``build_query_dataset``
+    gives a ``JointQueryDataset`` whose members load as the JAX package's
+    (two BetaE fixtures under the names its map gives FB15k-237 and NELL995;
+    its training is ``test_torch_query_train.py``)."""
+    assert not hasattr(qds, "UNPORTED")
+    assert set(qds.QUERY_DATASETS) == set(jds.QUERY_DATASETS)
+    assert set(qds.JointQueryDataset.datasets_map) == set(jds.JointQueryDataset.datasets_map)
+    root = str(tmp_path)
+    write_transductive_fixture(root, name="FB15k-237-betae")
+    write_transductive_fixture(root, name="NELL-betae")
+    members = ["FB15k237", "NELL995"]
+    got = qds.build_query_dataset("JointQueryDataset", root, graphs=members).load()
+    want = jds.build_query_dataset("JointQueryDataset", root, graphs=members).load()
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert_same_query_dataset(a, b)
 
 
 # -- metrics -----------------------------------------------------------------

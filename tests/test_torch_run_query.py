@@ -5,7 +5,8 @@ BetaE pickle fixture of ``tests/test_query_datasets.py``: its valid and
 test metrics against the JAX package's ``evaluate_queries`` on the same
 weights (a seeded JAX parameter tree, carried across with
 ``params_from_jax`` and saved as the checkpoint the script loads), within
-1e-6; and its refusals (training, ``ULTRA_DIST``).
+1e-6; a training run's against the JAX ``train_queries``; and its refusal
+of ``ULTRA_DIST``.
 """
 
 import ast
@@ -81,11 +82,108 @@ def test_run_query_cli_matches_jax_evaluate_queries(fixture):
 
 @pytest.mark.parametrize("case", ["training", "ULTRA_DIST"])
 def test_run_query_cli_refusals(fixture, case):
-    root, ckpt, _, _, base = fixture
-    env = dict(os.environ, ULTRA_WORKDIR=str(base / "refused"))
+    """``ULTRA_DIST`` is refused (ROADMAP A12). Training is ported: with
+    ``--epochs 1`` the command line trains (traversal dropout, one step a
+    batch of 2 of the fixture's 2 training queries) and then evaluates; its
+    valid and test metrics equal the JAX package's ``train_queries`` and
+    ``evaluate_queries`` from the same weights and seed, within 1e-6, and
+    it leaves its checkpoints in the working directory."""
+    root, ckpt, params, jcfg, base = fixture
+    workdir = base / ("trained" if case == "training" else "refused")
+    env = dict(os.environ, ULTRA_WORKDIR=str(workdir))
+    env.pop("ULTRA_RESUME_FROM", None)
     if case == "ULTRA_DIST":
         env["ULTRA_DIST"] = "localhost:1234,2,0"
-    proc = subprocess.run(command(root, ckpt, epochs=1 if case == "training" else 0),
-                          capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
-    assert proc.returncode != 0
-    assert ("A10" if case == "training" else "A12") in proc.stderr
+        proc = subprocess.run(command(root, ckpt), capture_output=True, text=True,
+                              timeout=300, cwd=REPO, env=env)
+        assert proc.returncode != 0
+        assert "A12" in proc.stderr
+        return
+
+    proc = subprocess.run(command(root, ckpt, epochs=1), capture_output=True, text=True,
+                          timeout=600, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    assert "epoch 0: avg bce" in proc.stderr
+    assert {"model_latest.pth", "model_epoch_1.pth"} <= set(os.listdir(workdir))
+
+    from ultra_tpu.query.trainer import train_queries
+    from ultra_tpu.utils import config as jconfig
+
+    cfg = jconfig.load_config(CONFIG, context={
+        "dataset": "FB15k237LogicalQuery", "root": root, "epochs": 1, "bs": 2, "bpe": "null",
+        "threshold": 0.8, "ultra_ckpt": "null", "qe_ckpt": ckpt})
+    ds = jds.build_query_dataset("FB15k237LogicalQuery", root).load()
+    qcfg = JQueryConfig(threshold=0.8)
+    trained = train_queries(cfg, jcfg, qcfg, params, ds, str(base / "jax-trained"), seed=1024)
+    for split, (lo, hi) in zip(("valid", "test"), ds.split_ranges()[1:]):
+        qg = ds.graphs[("train", "valid", "test").index(split)]
+        want = evaluate_queries(trained, jcfg, qcfg, prepare_query_graph(qg), ds,
+                                np.arange(lo, hi), batch_size=2, metric_names=METRICS,
+                                restrict_nodes=qg.restrict_nodes)
+        assert list(got[split]) == list(want)
+        np.testing.assert_allclose(np.array(list(got[split].values())),
+                                   np.array(list(want.values())), rtol=0, atol=1e-6)
+
+
+def test_run_query_many_cli_matches_jax(fixture):
+    """``scripts/torch_run_query_many.py --device cpu`` against
+    ``scripts/run_query_many.py``, each in its own process from one
+    checkpoint: the same CSV columns and metrics (both round to 4
+    decimals)."""
+    import csv
+
+    root, ckpt, _, _, base = fixture
+    rows = {}
+    for script, extra in (("run_query_many.py", []), ("torch_run_query_many.py",
+                                                      ["--device", "cpu"])):
+        out = str(base / f"{script}.csv")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(REPO, "scripts", script), "-c",
+             os.path.join(REPO, "config", "ultraquery", "transductive.yaml"), "-d",
+             "FB15k237LogicalQuery", "--qe_ckpt", ckpt, "--threshold", "0.8", "--bs", "2",
+             "--root", root, "--output", out, *extra],
+            capture_output=True, text=True, timeout=600, cwd=REPO,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        with open(out) as f:
+            (rows[script],) = list(csv.DictReader(f))
+    got, want = rows["torch_run_query_many.py"], rows["run_query_many.py"]
+    assert list(got) == list(want) and got["dataset"] == want["dataset"]
+    for k in want:
+        if k not in ("dataset", "time_s"):
+            assert abs(float(got[k]) - float(want[k])) <= 1e-4 + 1e-9, k
+
+
+def test_run_query_cli_pretrains_a_mixture_as_jax(fixture):
+    """A ``JointQueryDataset`` config (``config/ultraquery/pretrain_mixture.yaml``:
+    grouped projections, grad_accum 2) on three BetaE fixtures: the port's
+    command line pretrains on the members and logs each member's test
+    metrics as ``scripts/run_query.py`` does, from one checkpoint, within
+    1e-4 (the logs print 4 decimals)."""
+    import re
+
+    _, ckpt, _, _, base = fixture
+    root = str(base / "mixture")
+    for name in ("FB15k-237-betae", "NELL-betae", "FB15k-betae"):
+        write_transductive_fixture(root, name=name)
+    logs = {}
+    for script, extra in (("run_query.py", []), ("torch_run_query.py", ["--device", "cpu"])):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(REPO, "scripts", script), "-c",
+             os.path.join(REPO, "config", "ultraquery", "pretrain_mixture.yaml"), "--root", root,
+             "--epochs", "1", "--bs", "2", "--bpe", "3", "--fast_test", "2", "--ultra_ckpt",
+             "null", "--qe_ckpt", ckpt, *extra],
+            capture_output=True, text=True, timeout=600, cwd=REPO,
+            env=dict(os.environ, JAX_PLATFORMS="cpu", ULTRA_WORKDIR=str(base / script)))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        logs[script] = proc.stderr
+    member = r"test metrics \[([\w-]+)\]:((?:\n.*  [\w@\[\] ]+: [0-9.]+)+)"
+    got, want = (re.findall(member, logs[s]) for s in ("torch_run_query.py", "run_query.py"))
+    assert [m for m, _ in got] == [m for m, _ in want] == [
+        "FB15k-237-betae", "NELL-betae", "FB15k-betae"]
+    for (_, a), (_, b) in zip(got, want):
+        a, b = re.findall(r"  ([\w@\[\] ]+): ([0-9.]+)", a), re.findall(r"  ([\w@\[\] ]+): ([0-9.]+)", b)
+        assert [k for k, _ in a] == [k for k, _ in b] and len(a) > 5
+        np.testing.assert_allclose([float(v) for _, v in a], [float(v) for _, v in b], rtol=0,
+                                   atol=1e-4 + 1e-9)

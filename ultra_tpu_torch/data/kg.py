@@ -15,8 +15,8 @@ inductive families: :class:`InductiveDataset` (four files, a training graph
 and an inference graph with vocabularies of their own; InGram's FB, WK and
 NL, ILPC2022 and HM), :class:`GrailInductiveDataset` (FB15k237, WN18RR and
 NELL's GraIL splits) and :class:`MTDEAInductive` (FBNELL, Metafam and
-WikiTopics MT1-MT4). The pretraining mixture (``JointDataset``) is ROADMAP
-A9: :func:`build_dataset` raises for it. Downloads use urllib and fail with
+WikiTopics MT1-MT4); and the pretraining mixture :class:`JointDataset`,
+whose members are any of these. Downloads use urllib and fail with
 a clear message with no network; raw files placed under the dataset's
 ``raw`` directory are used as they are.
 """
@@ -28,7 +28,7 @@ import os
 import shutil
 import urllib.request
 import zipfile
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -781,18 +781,44 @@ class SyntheticRuleKG(TransductiveDataset):
                     f.write(f"e{h}\tr{r}\te{t}\n")
 
 
+class JointDataset:
+    """The pretraining mixture (``datasets.py:1051-1095``): ``graphs`` names
+    its members, each a name of :attr:`datasets_map` or a dict of a
+    :data:`DATASETS` class and its constructor keys (``{class:
+    SyntheticRuleKG, seed: 3, ...}``). :meth:`load` returns the members'
+    :class:`KGDataset` records in order."""
+
+    datasets_map = {
+        cls.__name__: cls for cls in (
+            FB15k237, WN18RR, CoDExSmall, CoDExMedium, CoDExLarge, NELL995,
+            ConceptNet100k, DBpedia100k, YAGO310, AristoV4, SyntheticRuleKG,
+        )
+    }
+
+    def __init__(self, root: str, graphs: Sequence):
+        self.root = root
+        self.graph_names = list(graphs)
+
+    def load(self) -> List[KGDataset]:
+        out = []
+        for g in self.graph_names:
+            if isinstance(g, str):
+                out.append(self.datasets_map[g](self.root).load())
+            else:
+                keys = dict(g)
+                out.append(DATASETS[keys.pop("class")](self.root, **keys).load())
+        return out
+
+
 DATASETS: Dict[str, type] = {
     cls.__name__: cls for cls in (
         FB15k237, WN18RR, CoDExSmall, CoDExMedium, CoDExLarge, NELL995, ConceptNet100k,
         DBpedia100k, YAGO310, Hetionet, AristoV4, WDsinger, NELL23k, FB15k237_10,
         FB15k237_20, FB15k237_50, FB15k237Inductive, WN18RRInductive, NELLInductive,
         ILPC2022, HM, FBIngram, WKIngram, NLIngram, FBNELL, Metafam, WikiTopicsMT1,
-        WikiTopicsMT2, WikiTopicsMT3, WikiTopicsMT4, SyntheticRuleKG,
+        WikiTopicsMT2, WikiTopicsMT3, WikiTopicsMT4, SyntheticRuleKG, JointDataset,
     )
 }
-
-# the JAX package's other dataset classes, and the ROADMAP item that ports them
-UNPORTED = {"JointDataset": "A9"}
 
 # datasets whose evaluation protocol is tail-only (README.md:264; run.py:133)
 TAIL_ONLY_EVAL = {"WDsinger", "NELL23k", "FB15k237_10", "FB15k237_20", "FB15k237_50"}
@@ -804,9 +830,6 @@ INDUCTIVE_FILTER_WITH_INFERENCE = {"ILPC2022", "FBIngram", "WKIngram", "NLIngram
 
 def build_dataset(name: str, root: str, **kwargs):
     """Name-and-keys dataset factory (``util.py:144-164``)."""
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"dataset class {name!r} is not ported yet (ROADMAP {UNPORTED[name]})")
     return DATASETS[name](root, **kwargs)
 
 

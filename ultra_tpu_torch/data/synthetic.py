@@ -154,6 +154,32 @@ def rule_kg_splits(
     return train, valid, test, {"rules": rules, "num_direct_rel": num_base_rel + num_comp_rel}
 
 
+def rule_kg_dataset(
+    name: str,
+    num_nodes: int,
+    num_base_rel: int,
+    num_comp_rel: int,
+    num_base_triples: int,
+    seed: int = 0,
+    **kw,
+):
+    """:func:`rule_kg_splits` packaged as a ``data/kg.py::KGDataset``: the
+    training triples with their inverses are the message graph of all three
+    splits, each split's triples its targets (``datasets.py:240-353``)."""
+    from ultra_tpu_torch.data import kg
+
+    train, valid, test, meta = rule_kg_splits(
+        num_nodes, num_base_rel, num_comp_rel, num_base_triples, seed=seed, **kw)
+    num_rel = meta["num_direct_rel"]
+    msg_ei, msg_et = with_inverses(train, num_rel)
+
+    def split(trip):
+        return kg.KGSplit(msg_ei, msg_et, num_nodes, 2 * num_rel,
+                          trip[:, :2].T.copy(), trip[:, 2].copy())
+
+    return kg.KGDataset(name, split(train), split(valid), split(test))
+
+
 def with_inverses(triples: np.ndarray, num_direct_rel: int):
     """edge_index (2, 2T), edge_type (2T): originals then inverses
     (t, h, r + num_direct_rel)."""

@@ -12,11 +12,11 @@ library, a copy rather than an import; the reference's
   ``restrict_nodes`` masks evaluation's scoring, and training keeps 10
   patterns; :class:`InductiveFB15k237QueryExtendedEval` re-answers the
   training queries on the larger graphs;
-- :class:`WikiTopicsQuery`: 11 topics, a test graph disjoint from training.
+- :class:`WikiTopicsQuery`: 11 topics, a test graph disjoint from training;
+- :class:`JointQueryDataset`: the pretraining mixture of any of these.
 
-The pretraining mixture (``JointQueryDataset``) belongs to query training,
-ROADMAP A10: :func:`build_query_dataset` raises for it. Query programs
-become padded postfix int64 arrays (``query/ops.py``) at load time.
+Query programs become padded postfix int64 arrays (``query/ops.py``) at
+load time.
 Downloads go through ``data/kg.py::download`` and fail with a clear message
 with no network; raw files placed under the dataset's directory are used as
 they are.
@@ -29,7 +29,7 @@ import os
 import pickle
 import zipfile
 from collections import defaultdict
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -419,6 +419,32 @@ class InductiveFB15k237QueryExtendedEval(InductiveFB15k237Query):
         )
 
 
+class JointQueryDataset:
+    """The query pretraining mixture (``datasets_query.py:637-709``, only
+    partly wired in the reference): ``graphs`` names its members from
+    :attr:`datasets_map`, each built with the same constructor keys;
+    :meth:`load` returns their :class:`QueryDataset` records in order."""
+
+    datasets_map = {
+        "FB15k237": FB15k237LogicalQuery,
+        "FB15k": FB15kLogicalQuery,
+        "NELL995": NELL995LogicalQuery,
+        **{f"FB_{v}": (lambda root, v=v, **kw: InductiveFB15k237Query(root, v, **kw))
+           for v in (550, 300, 217, 175, 150, 134, 122, 113, 106)},
+        **{f"WT_{t}": (lambda root, t=t, **kw: WikiTopicsQuery(root, t, **kw))
+           for t in ("art", "award", "edu", "health", "infra", "loc", "org", "people", "sci",
+                     "sport", "tax")},
+    }
+
+    def __init__(self, root, graphs: Sequence[str], **kwargs):
+        self.root = root
+        self.graph_names = list(graphs)
+        self.kwargs = kwargs
+
+    def load(self) -> List[QueryDataset]:
+        return [self.datasets_map[g](self.root, **self.kwargs).load() for g in self.graph_names]
+
+
 QUERY_DATASETS = {
     "FB15kLogicalQuery": FB15kLogicalQuery,
     "FB15k237LogicalQuery": FB15k237LogicalQuery,
@@ -426,16 +452,10 @@ QUERY_DATASETS = {
     "InductiveFB15k237Query": InductiveFB15k237Query,
     "InductiveFB15k237QueryExtendedEval": InductiveFB15k237QueryExtendedEval,
     "WikiTopicsQuery": WikiTopicsQuery,
+    "JointQueryDataset": JointQueryDataset,
 }
-
-# the JAX package's other query dataset classes, and the ROADMAP item that
-# ports them
-UNPORTED = {"JointQueryDataset": "A10 (query training; the mixture of A9)"}
 
 
 def build_query_dataset(name: str, root: str, **kwargs):
     """Name-and-keys factory of the query datasets."""
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"query dataset class {name!r} is not ported yet (ROADMAP {UNPORTED[name]})")
     return QUERY_DATASETS[name](root, **kwargs)

@@ -1,21 +1,32 @@
-"""UltraQuery's evaluation: the query graph on a device, the forward
-functions and filtered complex-query evaluation.
+"""UltraQuery's training and evaluation: the query graph on a device, the
+loss, the train steps, the training loop, the forward functions and
+filtered complex-query evaluation.
 
-Counterpart of the answering half of ``ultra_tpu/query/trainer.py``
-(``prepare_query_graph``, ``answers_to_mask``, ``make_query_forward``,
-``make_query_forward_grouped``, ``evaluate_queries``; the reference's
-``run_query.py:157-264``). The training half (``query_bce_loss``, the train
-step, ``train_queries``) is ROADMAP A10. Evaluation ranks each query's hard
-answers among all nodes with its easy answers filtered (``query/metrics.py``)
-and rolls the ranks into per-type, EPFO and negation metrics.
+Counterpart of ``ultra_tpu/query/trainer.py`` (the reference's
+``run_query.py:53-264``). Training draws a batch of queries, plans its
+traversal dropout on the host (``query/executor.py::simulate_symbolic``,
+or ``simulate_symbolic_grouped`` with ``train.grouped_projections``) and
+takes a step on the per-slot (or per-round) graphs; the loss is BCE over all
+nodes against the easy answers, positives weighted 1/num_positive a query,
+negatives by a self-adversarial softmax (``run_query.py:96-113``).
+Evaluation ranks each query's hard answers among all nodes with its easy
+answers filtered (``query/metrics.py``) and rolls the ranks into per-type,
+EPFO and negation metrics. The JAX package's data-parallel steps and its
+per-rank dropout are ROADMAP A12; its log of XLA compile variants has no
+counterpart.
 """
 
 from __future__ import annotations
 
+import logging
+import math
+import os
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ultra_tpu_torch import tasks
 from ultra_tpu_torch.graph import Graph, make_graph
@@ -24,9 +35,14 @@ from ultra_tpu_torch.query import metrics as qmetrics
 from ultra_tpu_torch.query import ops
 from ultra_tpu_torch.query.datasets import QueryDataset, QueryGraph
 from ultra_tpu_torch.query.executor import (
-    QueryConfig, execute, execute_grouped, projection_schedule,
+    DropoutPlanner, QueryConfig, execute, execute_grouped, graphs_for_slots,
+    projection_schedule, simulate_symbolic, simulate_symbolic_grouped,
 )
 from ultra_tpu_torch.train.eval import precompute_relation_representations
+from ultra_tpu_torch.train.loop import TrainState, init_train_state
+from ultra_tpu_torch.utils import ckpt as ckpt_lib
+
+logger = logging.getLogger("ultra_tpu_torch")
 
 
 def prepare_query_graph(qg: QueryGraph, device="cuda") -> Graph:
@@ -51,6 +67,110 @@ def answers_to_mask(answers: Sequence[np.ndarray], num_nodes: int) -> np.ndarray
         if len(a):
             out[i, a] = True
     return out
+
+
+def graph_host(qg: QueryGraph, graph: Graph) -> dict:
+    """The host arrays the symbolic machine reads of the query graph ``qg``,
+    whose device graph is ``graph``."""
+    return {"edge_index": qg.edge_index, "edge_type": qg.edge_type,
+            "num_nodes": qg.num_nodes, "num_relations": qg.num_relations,
+            "e_pad": graph.num_edges_padded, "inverse_rel_plus_one": qg.inverse_rel_plus_one}
+
+
+def dropout_planner(host: dict, graph: Graph) -> DropoutPlanner:
+    """The :class:`DropoutPlanner` of the base graph ``graph`` (its host
+    arrays ``host``). Its relation-graph masks are read by edge position, so
+    the masker's relation edges must be ``graph.relation_graph``'s, in its
+    order: both come from ``tasks.build_relation_graph_arrays``, and this
+    holds them equal."""
+    planner = DropoutPlanner(host)
+    rel, masker = graph.relation_graph, planner.masker
+    m = masker.num_rel_edges
+    assert m <= rel.num_edges_padded and not rel.edge_weight[m:].any()
+    assert np.array_equal(rel.edge_index[:, :m].cpu().numpy(),
+                          np.stack([masker.rel_src, masker.rel_dst]))
+    assert np.array_equal(rel.edge_type[:m].cpu().numpy(), masker.rel_type)
+    return planner
+
+
+def query_bce_loss(pred, target, adversarial_temperature: float):
+    """pred (B, V) logits, target (B, V) in {0, 1} (the easy answers): BCE
+    with positives weighted 1/num_positive and negatives by a softmax over
+    the row's negative logits at ``adversarial_temperature`` (no gradient
+    through the weights), or uniformly at 0 (``run_query.py:96-113``)."""
+    loss = F.binary_cross_entropy_with_logits(pred, target, reduction="none")
+    is_pos = target > 0.5
+    is_neg = ~is_pos
+    num_pos = is_pos.sum(dim=-1, keepdim=True).clamp_min(1)
+    pos_w = torch.where(is_pos, 1.0 / num_pos, 0.0)
+    if adversarial_temperature > 0:
+        logits = torch.where(is_neg, pred.detach() / adversarial_temperature, -torch.inf)
+        neg_w = torch.where(is_neg, torch.softmax(logits, dim=-1), 0.0)
+    else:
+        num_neg = is_neg.sum(dim=-1, keepdim=True).clamp_min(1)
+        neg_w = torch.where(is_neg, 1.0 / num_neg, 0.0)
+    weight = pos_w + neg_w
+    return ((loss * weight).sum(dim=-1) / weight.sum(dim=-1)).mean()
+
+
+def make_query_train_step(qcfg: QueryConfig, adversarial_temperature: float = 1.0):
+    """``step(state, slot_graphs, kind, operand, target) -> loss``: one
+    update through :func:`execute` on the per-slot graphs
+    (:func:`~ultra_tpu_torch.query.executor.graphs_for_slots`); ``kind``,
+    ``operand`` (``ops.decompose``) and ``target`` (B, V) f32 host arrays.
+    The loss is a 0-d tensor on the device; the gradients stay in
+    ``.grad``."""
+
+    def step(state: TrainState, slot_graphs, kind, operand, target):
+        device = slot_graphs[0].device
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        on = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        pred = execute(model, qcfg, list(slot_graphs), on(kind), on(operand))
+        loss = query_bce_loss(pred, on(target), adversarial_temperature)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return step
+
+
+def make_grouped_query_train_step(qcfg: QueryConfig, adversarial_temperature: float = 1.0,
+                                  grad_accum: int = 1):
+    """``step(state, round_graphs, kind, operand, target) -> loss``: one
+    update through :func:`execute_grouped`, the projections grouped into
+    rounds (``train.grouped_projections``), one graph a round
+    (``simulate_symbolic_grouped``). Host arrays as for
+    :func:`make_query_train_step`; the schedule is made here from ``kind``.
+
+    ``grad_accum`` > 1 runs ``gcd(B, grad_accum)`` equal micro-batches of
+    consecutive queries one after another on the same round graphs and
+    averages their gradients before the one update: the full batch's step,
+    in less memory (the loss is a mean over queries). A micro-batch runs the
+    rounds its own deepest query needs."""
+
+    def step(state: TrainState, round_graphs, kind, operand, target):
+        device = round_graphs[0].device
+        model = state.model.train()
+        kind, operand, target = np.asarray(kind), np.asarray(operand), np.asarray(target)
+        accum = math.gcd(kind.shape[0], grad_accum)
+        state.optimizer.zero_grad(set_to_none=True)
+        on = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        loss = 0.0
+        for rows in np.split(np.arange(kind.shape[0]), accum):
+            round_of, has_proj, arg_slot, n_rounds = projection_schedule(kind[rows])
+            pred = execute_grouped(model, qcfg, list(round_graphs[:n_rounds]), on(kind[rows]),
+                                   on(operand[rows]), on(round_of), on(has_proj),
+                                   on(arg_slot), n_rounds)
+            micro = query_bce_loss(pred, on(target[rows]), adversarial_temperature)
+            (micro / accum).backward()
+            loss = loss + micro.detach()
+        state.optimizer.step()
+        state.step += 1
+        return loss / accum
+
+    return step
 
 
 def make_query_forward(model: Ultra, qcfg: QueryConfig):
@@ -146,3 +266,104 @@ def evaluate_queries(
                                             all_types, all_num_pred)]
     return qmetrics.evaluate(*vectors, metric_names, dataset.id2type)
 
+
+
+def make_step(cfg: dict, qcfg: QueryConfig, grouped: bool):
+    """The train step ``cfg`` asks for: grouped (with ``train.grad_accum``)
+    or per slot."""
+    adv_temp = float(cfg["task"].get("adversarial_temperature", 0.2))
+    if grouped:
+        return make_grouped_query_train_step(
+            qcfg, adv_temp, grad_accum=int(cfg["train"].get("grad_accum", 1)))
+    return make_query_train_step(qcfg, adv_temp)
+
+
+def plan_and_step(step_fn, state, grouped, base_graph, host, planner, qcfg, rng, kind,
+                  operand, target):
+    """Plan one batch's traversal dropout on the host from ``rng``, as the
+    JAX loop draws it, put its masks on the device and take the step."""
+    if grouped:
+        round_of, has_proj, arg_slot, n_rounds = projection_schedule(kind)
+        plan = simulate_symbolic_grouped(kind, operand, round_of, has_proj, arg_slot, n_rounds,
+                                         host, qcfg, rng, planner)
+    else:
+        plan = simulate_symbolic(kind, operand, host, qcfg, rng, training=True,
+                                 planner=planner)
+    return step_fn(state, graphs_for_slots(base_graph, plan), kind, operand, target)
+
+
+def train_queries(cfg: dict, model: Ultra, qcfg: QueryConfig, dataset: QueryDataset,
+                  workdir: str, seed: int = 1024) -> Ultra:
+    """Train ``model`` on ``dataset``'s training queries as ``cfg`` says
+    (``run_query.py:53-155``) and return it with the best validation
+    checkpoint's weights.
+
+    ``cfg`` has the YAML's sections: ``train`` (``num_epoch``,
+    ``batch_size``, ``batch_per_epoch``, ``grouped_projections``,
+    ``grad_accum``, ``fast_test``), ``task`` (``adversarial_temperature``),
+    ``optimizer`` (``lr``) and ``resume_from``. The graphs go on the model's
+    device. Each epoch ends with ``workdir/model_latest.pth``; without
+    ``resume_from``, ``$ULTRA_RESUME_FROM`` names a checkpoint to resume
+    from when that file exists. ``train.data_parallel`` and
+    ``task.per_rank_traversal_dropout`` are ROADMAP A12 and raise."""
+    train_cfg, task_cfg = cfg["train"], cfg["task"]
+    num_epoch = int(train_cfg.get("num_epoch", 0))
+    if num_epoch == 0:
+        return model
+    if train_cfg.get("data_parallel") or task_cfg.get("per_rank_traversal_dropout"):
+        raise NotImplementedError("data-parallel query training and per-rank traversal "
+                                  "dropout are ROADMAP A12")
+    batch_size = int(train_cfg.get("batch_size", 8))
+    batch_per_epoch = train_cfg.get("batch_per_epoch") or None
+    fast_test = train_cfg.get("fast_test")
+    grouped = bool(train_cfg.get("grouped_projections", False))
+    device = next(model.parameters()).device
+
+    qg_train = dataset.graphs[0]
+    base_graph = prepare_query_graph(qg_train, device=device)
+    host = graph_host(qg_train, base_graph)
+    valid_graph = prepare_query_graph(dataset.graphs[1], device=device)
+    planner = dropout_planner(host, base_graph)
+
+    state = init_train_state(model, lr=float(cfg["optimizer"].get("lr", 5e-4)))
+    ckpt_lib.resume(cfg, state, "query train")
+    step_fn = make_step(cfg, qcfg, grouped)
+
+    (tr_lo, tr_hi), (va_lo, va_hi), _ = dataset.split_ranges()
+    train_idx = np.arange(tr_lo, tr_hi)
+    valid_idx = np.arange(va_lo, va_hi)
+    rng = np.random.default_rng(seed)
+    tracker = ckpt_lib.BestModelTracker(workdir)
+    steps_per_epoch = batch_per_epoch or math.ceil(len(train_idx) / batch_size)
+    epoch_block = math.ceil(num_epoch / 10)
+    v = base_graph.num_nodes
+
+    epoch = 0
+    for block_start in range(0, num_epoch, epoch_block):
+        for epoch in range(block_start, min(num_epoch, block_start + epoch_block)):
+            t0 = time.time()
+            losses = []
+            perm = rng.permutation(train_idx)
+            for step in range(steps_per_epoch):
+                take = perm[(step * batch_size) % len(perm):][:batch_size]
+                while len(take) < batch_size:  # wrap (tiny datasets: repeat)
+                    take = np.concatenate([take, perm[: batch_size - len(take)]])
+                kind, operand = ops.decompose(dataset.queries[take])
+                target = answers_to_mask([dataset.easy_answers[i] for i in take],
+                                         v).astype(np.float32)
+                losses.append(plan_and_step(step_fn, state, grouped, base_graph, host, planner,
+                                            qcfg, rng, kind, operand, target))
+            logger.warning("epoch %d: avg bce %.6f (%.1fs)", epoch,
+                           float(torch.stack(losses).mean()), time.time() - t0)
+            ckpt_lib.save_train_state(os.path.join(workdir, "model_latest.pth"), state)
+
+        idx = valid_idx
+        if fast_test is not None and fast_test < len(idx):
+            idx = np.random.default_rng(1024).choice(idx, size=fast_test, replace=False)
+        val = evaluate_queries(state.model, qcfg, valid_graph, dataset, idx,
+                               batch_size=batch_size, metric_names=("mrr",),
+                               restrict_nodes=dataset.graphs[1].restrict_nodes)
+        logger.warning("valid after epoch %d: mrr %.4f", epoch, val["mrr"])
+        tracker.update(epoch + 1, val["mrr"], state)
+
+    return tracker.load_best(state.model)

@@ -1,5 +1,5 @@
 """Edge matching, negative sampling, easy-edge masks, relation-graph
-construction and ranking.
+construction (and its masks under traversal dropout) and ranking.
 
 Counterpart of ``ultra_tpu/tasks.py``. Edge matching, sampling, masks and
 the relation graph are host work in numpy, with the JAX package's
@@ -237,6 +237,114 @@ def build_relation_graph_arrays(edge_index, edge_type, num_nodes, num_relations,
         [np.full(p.shape[1], i) for i, p in enumerate(parts)]
     )
     return rel_edge_index.astype(np.int64), rel_edge_type.astype(np.int64)
+
+
+class RelGraphMasker:
+    """The relation graph after traversal dropout, as a weight mask over the
+    base relation graph's edges, in time linear in the dropped edges.
+
+    Dropout only removes edges, and the relation graph's edges are monotone
+    in the edges of the graph, so each dropout round's relation graph (the
+    rebuild of ``ultraquery.py:201-203``) is a subset of the base one. The
+    pairwise counts of shared incidences ``C[type][r1, r2]`` are taken once
+    (four R x R products of the dense node-by-relation incidence matrices);
+    a round applies the low-rank update
+
+        C' = C - Rm^T M - M^T Rm + Rm^T Rm,
+
+    where ``Rm`` holds the (node, relation) incidences the round's dropped
+    edges empty (an incidence empties when all its edges drop). A base
+    relation edge survives when its count stays positive. Weight 0 is an
+    absent edge for every kernel, so the base relation graph's layouts serve
+    every round. ``rel_edge_index`` and ``rel_edge_type`` must be the arrays
+    the base relation graph was built from, in their order (by default
+    :func:`build_relation_graph_arrays` of the edges, which is deterministic).
+    """
+
+    def __init__(self, edge_index, edge_type, num_nodes, num_relations,
+                 rel_edge_index=None, rel_edge_type=None):
+        ei = np.asarray(edge_index, dtype=np.int64)
+        et = np.asarray(edge_type, dtype=np.int64)
+        v, r = int(num_nodes), int(num_relations)
+        self.num_relations = r
+        # each edge's incidence keys, and each incidence's edge count
+        self.hkey = ei[0] * r + et
+        self.tkey = ei[1] * r + et
+        self.hk_uniq, self.hk_cnt = np.unique(self.hkey, return_counts=True)
+        self.tk_uniq, self.tk_cnt = np.unique(self.tkey, return_counts=True)
+        # dense incidences (counts up to num_nodes < 2**24 are exact in f32)
+        h = np.zeros((v, r), np.float32)
+        h[ei[0], et] = 1.0
+        t = np.zeros((v, r), np.float32)
+        t[ei[1], et] = 1.0
+        self.h_inc, self.t_inc = h, t
+        if rel_edge_index is None:
+            rel_edge_index, rel_edge_type = build_relation_graph_arrays(ei, et, v, r)
+        self.rel_src = np.asarray(rel_edge_index[0], dtype=np.int64)
+        self.rel_dst = np.asarray(rel_edge_index[1], dtype=np.int64)
+        self.rel_type = np.asarray(rel_edge_type, dtype=np.int64)
+        c = np.stack([h.T @ h, t.T @ t, h.T @ t, t.T @ h])  # h2h, t2t, h2t, t2h
+        self.base_counts = c[self.rel_type, self.rel_src, self.rel_dst]
+        assert (self.base_counts >= 1.0).all(), "base rel edge with zero count"
+
+    @property
+    def num_rel_edges(self) -> int:
+        return len(self.rel_type)
+
+    def edge_weights(self, dropped_ids: np.ndarray) -> np.ndarray:
+        """(M,) float32 over the base relation graph's edges once the edges
+        ``dropped_ids`` are dropped: 1.0 where an edge survives, else 0.0."""
+        r = self.num_relations
+        m = self.num_rel_edges
+        dropped_ids = np.asarray(dropped_ids)
+        if len(dropped_ids) == 0:
+            return np.ones(m, np.float32)
+
+        def emptied(keys, uq, cnt):
+            dk, dcnt = np.unique(keys, return_counts=True)
+            gone = dk[cnt[np.searchsorted(uq, dk)] == dcnt]
+            return gone // r, gone % r
+
+        hn, hr = emptied(self.hkey[dropped_ids], self.hk_uniq, self.hk_cnt)
+        tn, tr = emptied(self.tkey[dropped_ids], self.tk_uniq, self.tk_cnt)
+        if len(hn) == 0 and len(tn) == 0:
+            return np.ones(m, np.float32)
+
+        h, t = self.h_inc, self.t_inc
+        # Rm_a^T Rm_b on removed-incidence matrices compacted to their nodes
+        nodes = np.unique(np.concatenate([hn, tn]))
+        rh = np.zeros((len(nodes), r), np.float32)
+        rt = np.zeros((len(nodes), r), np.float32)
+        rh[np.searchsorted(nodes, hn), hr] = 1.0
+        rt[np.searchsorted(nodes, tn), tr] = 1.0
+
+        def rows_accum2(rel_of_row, nodes_of_row):
+            """Rm^T H and Rm^T T: the removed nodes' incidence rows summed
+            onto their removed relation's row (a sort and a reduceat)."""
+            out = np.zeros((r, 2 * r), np.float32)
+            if len(rel_of_row) == 0:
+                return out[:, :r], out[:, r:]
+            order = np.argsort(rel_of_row, kind="stable")
+            rel_s = rel_of_row[order]
+            n_s = nodes_of_row[order]
+            rows = np.concatenate([h[n_s], t[n_s]], axis=1)
+            starts = np.nonzero(np.r_[True, rel_s[1:] != rel_s[:-1]])[0]
+            out[rel_s[starts]] = np.add.reduceat(rows, starts, axis=0)
+            return out[:, :r], out[:, r:]
+
+        a_hh, a_ht = rows_accum2(hr, hn)  # Rh^T H, Rh^T T
+        a_th, a_tt = rows_accum2(tr, tn)  # Rt^T H, Rt^T T
+        rh_rh = rh.T @ rh
+        rt_rt = rt.T @ rt
+        rh_rt = rh.T @ rt
+        d_c = np.stack([
+            a_hh + a_hh.T - rh_rh,  # h2h: Rh^T H + H^T Rh - Rh^T Rh
+            a_tt + a_tt.T - rt_rt,  # t2t
+            a_ht + a_th.T - rh_rt,  # h2t: Rh^T T + H^T Rt - Rh^T Rt
+            a_th + a_ht.T - rh_rt.T,  # t2h
+        ])
+        new_counts = self.base_counts - d_c[self.rel_type, self.rel_src, self.rel_dst]
+        return (new_counts > 0.5).astype(np.float32)
 
 
 def build_relation_graph(

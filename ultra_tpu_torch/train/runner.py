@@ -174,14 +174,7 @@ def train_and_validate(
     strict = bool(task_cfg.get("strict_negative", True))
 
     state = init_train_state(model, lr=float(cfg["optimizer"].get("lr", 5e-4)))
-    resume_from = cfg.get("resume_from")
-    if not resume_from:
-        env_resume = os.environ.get("ULTRA_RESUME_FROM")
-        if env_resume and os.path.exists(env_resume):
-            resume_from = env_resume
-    if resume_from:
-        ckpt_lib.load_train_state(resume_from, state)
-        logger.warning("resumed train state from %s", resume_from)
+    ckpt_lib.resume(cfg, state)
     step_fn = make_train_step(adversarial_temperature=adv_temp, num_negative=num_negative,
                               grad_accum=int(train_cfg.get("grad_accum", 1)))
 
@@ -233,6 +226,40 @@ def train_and_validate(
     return tracker.load_best(state.model)
 
 
+def retry_with_remat(train, model: Ultra, what: str = "train"):
+    """``train(model)``, and if it runs out of device memory, ``train`` of
+    the same model with both parts recomputing their convs in the backward
+    (``remat``) from the weights ``model`` started with, on its device. Out
+    of memory with remat already on, or any other error, is raised. Returns
+    what ``train`` returns."""
+    cfg = model.cfg
+    # steps update the weights in place before memory may run out, so the
+    # retry starts from a host copy of the first ones
+    initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    device = next(model.parameters()).device
+    try:
+        return train(model)
+    except torch.cuda.OutOfMemoryError as exc:
+        if cfg.relation_model.remat and cfg.entity_model.remat:
+            raise
+        failure = str(exc)
+    # out of the except block, the traceback no longer holds the failed
+    # step's tensors; free them before the retry allocates its own
+    logger.warning(
+        "%s step OOMed HBM (%s...); retrying with remat: yes — set "
+        "model.{relation_model,entity_model}.remat explicitly to avoid "
+        "the doubled first compile", what, failure[:120],
+    )
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Ultra(dataclasses.replace(
+        cfg, relation_model=dataclasses.replace(cfg.relation_model, remat=True),
+        entity_model=dataclasses.replace(cfg.entity_model, remat=True)))
+    model.load_state_dict(initial)
+    return train(model.to(device))
+
+
 def run_link_prediction(
     cfg: dict,
     workdir: str,
@@ -279,34 +306,10 @@ def run_link_prediction(
     metrics = default_metrics(ds_name, cfg["task"].get("metric", ("mr", "mrr", "hits@10")))
     batch_size = int(cfg["train"].get("batch_size", 8))
 
-    # steps update the weights in place before memory may run out, so the
-    # retry starts from a host copy of the first ones; zero-shot takes no step
-    initial = ({k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-               if int(cfg["train"].get("num_epoch", 0)) > 0 else None)
-    try:
-        model = train_and_validate(cfg, model, graphs, dataset, filtered, workdir, seed=seed)
-        failure = None
-    except torch.cuda.OutOfMemoryError as exc:
-        if ultra_cfg.relation_model.remat and ultra_cfg.entity_model.remat:
-            raise
-        failure = str(exc)
-    if failure is not None:
-        # out of the except block, the traceback no longer holds the failed
-        # step's tensors; free them before the retry allocates its own
-        logger.warning(
-            "train step OOMed HBM (%s...); retrying with remat: yes — set "
-            "model.{relation_model,entity_model}.remat explicitly to avoid "
-            "the doubled first compile", failure[:120],
-        )
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-        model = Ultra(dataclasses.replace(
-            ultra_cfg, relation_model=dataclasses.replace(ultra_cfg.relation_model, remat=True),
-            entity_model=dataclasses.replace(ultra_cfg.entity_model, remat=True)))
-        model.load_state_dict(initial)
-        model = train_and_validate(cfg, model.to(device), graphs, dataset, filtered, workdir,
-                                   seed=seed)
+    if int(cfg["train"].get("num_epoch", 0)) > 0:  # zero-shot takes no step
+        model = retry_with_remat(
+            lambda m: train_and_validate(cfg, m, graphs, dataset, filtered, workdir, seed=seed),
+            model)
 
     results = {}
     for split in ("valid", "test"):

@@ -9,6 +9,7 @@ exact resume.
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional
 
@@ -39,6 +40,21 @@ def load_train_state(path: str, state: TrainState) -> TrainState:
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     return state
+
+
+def resume(cfg: dict, state: TrainState, what: str = "train") -> None:
+    """Load ``cfg["resume_from"]`` into ``state``; without it,
+    ``$ULTRA_RESUME_FROM`` when that file exists (a supervisor relaunching a
+    run sets it before the first checkpoint is written)."""
+    resume_from = cfg.get("resume_from")
+    if not resume_from:
+        env_resume = os.environ.get("ULTRA_RESUME_FROM")
+        if env_resume and os.path.exists(env_resume):
+            resume_from = env_resume
+    if resume_from:
+        load_train_state(resume_from, state)
+        logging.getLogger("ultra_tpu_torch").warning("resumed %s state from %s", what,
+                                                     resume_from)
 
 
 def load_model_checkpoint(path: str):
