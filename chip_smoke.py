@@ -108,7 +108,16 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    timed with its host planning and peak memory, its launches asserted;
    and ``pretrain_queries`` over a ``JointQueryDataset`` of the repo's set
    and a member written by ``data/synthetic_queries.py``;
-14. runs the gather probe (``[gather-probe]``,
+14. runs multi-process training (``[distributed]``, see DIST_STEPS): a
+   1-rank group (nccl) through ``train_distributed`` and
+   ``evaluate_distributed`` at ultra_3g width on the FB15k-237-shaped graph
+   against the same schedule in one process; then 2 ranks over gloo on the
+   one card, as subprocesses of this script: data=2 steps, edge=2 score and
+   train steps (sum, and PNA at a small batch: B1-B5 on each rank's block of
+   the edges) and a data=2 grouped query step, each against the same global
+   batch in one process, with each rank's launches, milliseconds a step and
+   bytes and milliseconds of all-reduce a step;
+15. runs the gather probe (``[gather-probe]``,
    ``utils/benchlib.py::gather_probe``, the function
    ``scripts/torch_gather_probe.py`` runs): G1 and G2 at the TPU probes'
    shapes and G1 over the entity graph's edge sources, each equal to its
@@ -116,7 +125,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    same function; G2 also at 2, 4 and 8 lanes a thread, beside an empty
    kernel on its grid (the floor under G2) and on the grid it took before
    its redesign, and beside its walk storing its indices alone;
-15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+16. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises before the last line is printed.
@@ -128,7 +137,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -159,7 +170,8 @@ KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
 WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
             "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv",
-          "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "gather-probe")
+          "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "distributed",
+          "gather-probe")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -2909,17 +2921,548 @@ def sum_serving(split, cfg):
 
 
 
+# [distributed]: multi-process runs (parallel/, train/distributed.py). (a) A
+# 1-rank group (nccl for the card's tensors, gloo for the host's) through
+# train_distributed for DIST_TRAIN_STEPS steps of BATCH rows and
+# evaluate_distributed of DIST_VALID triples, held against the same schedule
+# in one process on the card (the same weights, batches and kernels: equal
+# within LOSS_RTOL). (b) 2 ranks over gloo, both on the one card (nccl takes
+# one rank a device), as subprocesses of this script: data=2 steps (4 rows a
+# rank), edge=2 score and train steps for the sum model (BATCH rows) and for
+# the PNA model (DIST_PNA_BATCH rows), and one data=2 grouped query step on
+# [clqa-training]'s set, each held against the same global batch in this
+# process on the card: the first step's loss within LOSS_RTOL and its
+# gradients as [training]'s (the PNA step's: see summed_in_halves), the later
+# losses within
+# DIST_LATER_LOSS_RTOL (AdamW moves each weight by about lr whatever the
+# size of its gradient, so a tiny gradient's rounding moves a weight), the
+# scores within SCORE_RTOL/SCORE_ATOL; each rank's launches as the step's
+# launches predict on its rows (a block keeps every node, so the keys are
+# the whole graph's); gloo's MAX and MIN all-reduce of CUDA tensors checked
+# against the host's answer first, and each rank's block of the edges, whose
+# rows with no live edge B1 must write 0 and B3 -inf and +inf.
+DIST_STEPS, DIST_TRAIN_STEPS, DIST_VALID, DIST_PNA_BATCH = 3, 4, 64, PNA_CHECK_BATCH
+DIST_LATER_LOSS_RTOL, DIST_TIMEOUT_S = 1e-4, 300
+# The PNA step's gradients are not a continuous function of the order of its
+# sums: a min/max gradient goes whole to every edge that ties, and two
+# messages equal in exact arithmetic tie in f32 or not as their sums were
+# associated. Two ranks add each aggregate's halves apart, which moves the
+# 6-layer step's gradients by a median of 0.027 of each tensor's largest
+# entry from one process's (PERF.md). So the 2-rank PNA step is held to
+# [training]'s per-tensor bound against the same step in this process with
+# each aggregate over the entity graph summed in the same halves
+# (summed_in_halves), and to its loss, its scores and MINMAX_GRAD_WORST on
+# its worst tensor against the plain one-process step, whose median is
+# reported beside that of a step from weights moved by one ulp.
+
+
+def dist_batches(split, graph, n, batch, seed):
+    """(the training graph's index, ``n`` (batch, easy-edge mask) pairs of
+    ``batch`` rows drawn from ``seed``): the same in every process."""
+    from ultra_tpu_torch import tasks
+    from ultra_tpu_torch.train.runner import triples_of
+
+    index = tasks.GraphIndex.build(split.edge_index, split.edge_type, split.num_nodes,
+                                   split.num_relations)
+    triples, rng, out = triples_of(split), np.random.default_rng(seed), []
+    for _ in range(n):
+        pos = triples[rng.choice(len(triples), batch, replace=False)]
+        b = tasks.negative_sampling(index, pos, NUM_NEGATIVE, strict=True, rng=rng)
+        out.append((b, tasks.easy_edge_weights(index, b, graph.num_edges_padded)))
+    return index, out
+
+
+def dist_inputs(split, graph, dataset, query_graph):
+    """Every rank's and the reference's inputs: the sum steps' batches, the
+    PNA step's, the (h, t, r) rows to score, and a query batch of BATCH
+    training queries with its grouped dropout plan."""
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.executor import (
+        QueryConfig, projection_schedule, simulate_symbolic_grouped,
+    )
+    from ultra_tpu_torch.query.trainer import answers_to_mask, dropout_planner, graph_host
+
+    _, batches = dist_batches(split, graph, DIST_STEPS, BATCH, seed=2)
+    _, pna_batches = dist_batches(split, graph, 1, DIST_PNA_BATCH, seed=3)
+    score = batches[0][0][:, 0].copy()
+    (tr_lo, tr_hi), _, _ = dataset.split_ranges()
+    take = np.random.default_rng(1).choice(np.arange(tr_lo, tr_hi), BATCH, replace=False)
+    kind, operand = ops.decompose(dataset.queries[take])
+    target = answers_to_mask([dataset.easy_answers[i] for i in take],
+                             query_graph.num_nodes).astype(np.float32)
+    host = graph_host(dataset.graphs[0], query_graph)
+    qcfg = QueryConfig(logic="product", threshold=0.8, dropout_ratio=0.25)
+    plan = simulate_symbolic_grouped(kind, operand, *projection_schedule(kind), host, qcfg,
+                                     np.random.default_rng(4), dropout_planner(host, query_graph))
+    return {"batches": batches, "pna_batches": pna_batches, "score": score,
+            "query": (kind, operand, target, plan), "qcfg": qcfg}
+
+
+def dist_query_set(device):
+    """[clqa-training]'s dataset and its training query graph on ``device``."""
+    from ultra_tpu_torch.query.datasets import build_query_dataset
+    from ultra_tpu_torch.query.trainer import prepare_query_graph
+
+    dataset = build_query_dataset("FB15k237LogicalQuery", str(ROOT / CLQA_ROOT)).load()
+    return dataset, prepare_query_graph(dataset.graphs[0], device=device)
+
+
+def score_launches(cfg, num_nodes, num_rel, batch):
+    """Forward launches of a score step: both directions, each a pass of the
+    relation and of the entity model."""
+    feat = batch * cfg.entity_model.input_dim
+    return times(plus(forward_launches(cfg.relation_model, num_rel, feat),
+                      forward_launches(cfg.entity_model, num_nodes, feat)), 2)
+
+
+def distributed_rank(rank, port, out, device="cuda"):
+    """One of [distributed]'s two gloo ranks (``--distributed-rank``): each
+    mode's losses, first gradients, scores, milliseconds a step, bytes and
+    seconds of all-reduce a step and launches, saved to ``out``."""
+    import torch.distributed as dist
+
+    from ultra_tpu_torch.data.kg import split_to_graph
+    from ultra_tpu_torch.graph import resolve_device
+    from ultra_tpu_torch.models.nbfnet import UltraConfig
+    from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd
+    from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd
+    from ultra_tpu_torch.parallel import dp, multihost
+    from ultra_tpu_torch.parallel.mesh import make_mesh, shard_graph
+    from ultra_tpu_torch.query.executor import graphs_for_slots
+    from ultra_tpu_torch.query.trainer import make_grouped_query_train_step
+    from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params
+    from ultra_tpu_torch.utils.benchlib import fb15k237_split, pna_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")  # one card for both
+    device = resolve_device(multihost.rank_device(device))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    record = {"rank": rank, "backend": str(dist.get_backend()), "device": str(device)}
+
+    # gloo's MAX and MIN of CUDA tensors, against the answer on the host
+    probe = torch.arange(4.0, device=device) * (1 - 2 * rank) + rank
+    got = {op: dp.all_reduce(probe.clone(), op, None).cpu().tolist() for op in ("max", "min")}
+    want = {"max": [1.0, 1.0, 2.0, 3.0], "min": [0.0, 0.0, -1.0, -2.0]}
+    record["minmax_probe"] = {"got": got, "ok": got == want,
+                              "tensor_device": str(probe.device)}
+
+    t0 = time.perf_counter()
+    split = fb15k237_split("realistic", seed=0)
+    graph = split_to_graph(split, device=device)
+    dataset, query_graph = dist_query_set(device)
+    inputs = dist_inputs(split, graph, dataset, query_graph)
+    data_mesh, edge_mesh = make_mesh(data=2), make_mesh(data=1, edge=2)
+    block = shard_graph(graph, edge_mesh)
+    record["setup_s"] = time.perf_counter() - t0
+    empty = block.csr.rowptr.diff() == 0
+    gen = torch.Generator().manual_seed(rank)
+    rel = torch.randn(graph.num_relations, 512, generator=gen).to(device)
+    x = torch.randn(graph.num_nodes, 512, generator=gen).to(device)
+    written = bool((rspmm_sum_fwd(block.csr, block.edge_weight, rel, x)[empty] == 0).all())
+    for is_min, fill in ((False, float("-inf")), (True, float("inf"))):
+        ext = rspmm_minmax_fwd(block.csr, block.edge_weight, rel, x, is_min=is_min)
+        written &= bool((ext[empty] == fill).all() and torch.isfinite(ext[~empty]).all())
+    record["block"] = {"live_edges": int(block.csr.col.numel()),
+                       "padded_edges": block.num_edges_padded,
+                       "empty_rows": int(empty.sum()), "empty_rows_written": written}
+    v, r = graph.num_nodes, graph.num_relations
+
+    total = [{n: {} for n in WRAPPERS}]
+
+    def counted():
+        """This call's launches since the last reset, also added to the rank's total."""
+        counts = launch_counts()
+        total[0] = plus(total[0], counts)
+        return counts
+
+    def timed(run_step):
+        """(loss, ms, bytes and ms of all-reduce) of one step, each
+        all-reduce timed (the device synchronised around it)."""
+        before = dict(dp.stats)
+        sync()
+        t1 = time.perf_counter()
+        with dp.timed_collectives():
+            loss = float(run_step())
+        sync()
+        return (loss, 1e3 * (time.perf_counter() - t1), dp.stats["bytes"] - before["bytes"],
+                1e3 * (dp.stats["seconds"] - before["seconds"]))
+
+    def record_mode(name, rows, stepped, launches_ok, grads, **extra):
+        losses, lat, sent, coll = map(list, zip(*stepped))
+        record[name] = dict(extra, rows=rows, losses=losses, step_ms=lat,
+                            allreduce_bytes=sent, allreduce_ms=coll,
+                            launches_ok=launches_ok, grads=grads)
+
+    def steps(name, cfg, mesh, g_, batches, rows, score=False):
+        model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device=device)
+        state = init_train_state(model, lr=LR, weight_decay=WEIGHT_DECAY)
+        extra = {}
+        if score:
+            reset_launch_counts()
+            t_pred, h_pred = dp.make_sharded_score_step(mesh)(model, g_, inputs["score"][:rows])
+            sync()
+            extra = dict(t_pred=t_pred.cpu(), h_pred=h_pred.cpu(),
+                         score_launches_ok=counted() == score_launches(cfg, v, r, rows))
+        step = dp.make_sharded_train_step(mesh, num_negative=NUM_NEGATIVE)
+        want = per_step_launches(cfg, v, r, batch=rows)
+        stepped, ok, grads = [], True, None
+        for b, ew in batches:
+            reset_launch_counts()
+            stepped.append(timed(lambda: step(state, g_, b, ew)))
+            ok &= counted() == want
+            grads = grads or {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        record_mode(name, rows, stepped, ok, grads, **extra)
+
+    cfg, pna = UltraConfig(), pna_config()
+    for name, cfg_, mesh, g_, batches, rows, score in (
+            ("data2", cfg, data_mesh, graph, inputs["batches"], BATCH // 2, False),
+            ("edge2-sum", cfg, edge_mesh, block, inputs["batches"], BATCH, True),
+            ("edge2-pna", pna, edge_mesh, block, inputs["pna_batches"], DIST_PNA_BATCH,
+             True)):
+        steps(name, cfg_, mesh, g_, batches, rows, score)
+
+    kind, operand, target, plan = inputs["query"]
+    rows = data_mesh.rows(len(kind))
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device=device)
+    state = init_train_state(model, lr=LR, weight_decay=WEIGHT_DECAY)
+    step = make_grouped_query_train_step(inputs["qcfg"], 0.2, sync_grads=dp.grad_sync(data_mesh))
+    reset_launch_counts()
+    stepped = [timed(lambda: step(state, graphs_for_slots(query_graph, plan), kind[rows],
+                                  operand[rows], target[rows]))]
+    want = query_step_launches(cfg, kind[rows], True, 1, query_graph.num_nodes,
+                               query_graph.num_relations)
+    record_mode("query-data2", rows.stop - rows.start, stepped,
+                without_zeros(counted()) == without_zeros(want),
+                {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+    record["collectives"] = dict(dp.stats)
+    record["launches"] = total[0]
+    torch.save(record, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_command(rank, port, out):
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--distributed-rank", str(rank),
+            "--port", str(port), "--out", str(out)]
+
+
+def grads_within(got, want, worst_only=False):
+    """({tensor: max|err| / max|want|}, within [training]'s bound, or with
+    ``worst_only`` the worst tensor within MINMAX_GRAD_WORST)."""
+    ratio, ok = {}, True
+    for k, w in want.items():
+        err, scale = float((got[k] - w).abs().max()), float(w.abs().max())
+        ok &= err <= GRAD_REL_TO_MAX * scale + GRAD_ATOL
+        ratio[k] = err / max(scale, 1e-30)
+    if worst_only:
+        ok = max(ratio.values()) <= MINMAX_GRAD_WORST
+    return ratio, ok
+
+
+class _ExtremeOfHalves(torch.autograd.Function):
+    """The max (or min) of two halves' partial extremes; the gradient goes
+    whole to each half whose partial equals the result, as
+    ``parallel/dp.py``'s combine routes it."""
+
+    @staticmethod
+    def forward(ctx, a, b, is_min):
+        out = torch.minimum(a, b) if is_min else torch.maximum(a, b)
+        ctx.save_for_backward(a == out, b == out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        return *(torch.where(tie, g, zero) for tie in ctx.saved_tensors), None
+
+
+@contextlib.contextmanager
+def summed_in_halves(graph):
+    """Within the block, every conv over ``graph`` (the entity graph; the
+    relation graph stays whole) aggregates each of the two edge blocks of
+    ``shard_graph`` apart, under the step's weights, and adds (or takes the
+    extreme of) the two: one process associating each sum as two edge=2
+    ranks do, kernel by kernel."""
+    from ultra_tpu_torch.models import layers
+    from ultra_tpu_torch.parallel.mesh import Mesh, shard_graph
+
+    real = layers.rspmm_from_graph
+    blocks = [(shard_graph(graph, Mesh(1, 2, 0, e)), Mesh(1, 2, 0, e).edge_block(
+        graph.num_edges_padded)) for e in range(2)]
+
+    def halves(g, relation, x, *, sum="add", mul="mul"):
+        if g.num_nodes != graph.num_nodes:
+            return real(g, relation, x, sum=sum, mul=mul)
+        a, b = (real(block.replace_weights(g.edge_weight[sl]), relation, x, sum=sum, mul=mul)
+                for block, sl in blocks)
+        return a + b if sum == "add" else _ExtremeOfHalves.apply(a, b, sum == "min")
+
+    layers.rspmm_from_graph = halves
+    try:
+        yield
+    finally:
+        layers.rspmm_from_graph = real
+
+
+def distributed_run(cfg, pna_cfg, split, graph, device="cuda"):
+    """[distributed] (see DIST_STEPS): part (a) in this process, part (b)'s
+    two ranks as subprocesses, then the references on the card. Returns
+    (the record, the launches of (a) and of both ranks)."""
+    import torch.distributed as dist
+
+    from ultra_tpu_torch import tasks
+    from ultra_tpu_torch.models.nbfnet import ultra_score_all
+    from ultra_tpu_torch.parallel import dp, multihost
+    from ultra_tpu_torch.query.executor import graphs_for_slots
+    from ultra_tpu_torch.query.trainer import make_grouped_query_train_step
+    from ultra_tpu_torch.train import distributed
+    from ultra_tpu_torch.train import eval as eval_lib
+    from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params, make_train_step
+    from ultra_tpu_torch.train.runner import triples_of
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    on = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    v, r = graph.num_nodes, graph.num_relations
+    index = tasks.GraphIndex.build(split.edge_index, split.edge_type, v, r)
+    triples = triples_of(split)
+    record, total = {}, {n: {} for n in WRAPPERS}
+
+    # (a) one rank through train_distributed and evaluate_distributed
+    multihost.initialize(f"localhost:{free_port()}", 1, 0,
+                         backend="gloo" if device == "cpu" else None)
+    backend = str(dist.get_backend())
+    lat, losses, real = [], [], distributed.make_sharded_train_step
+
+    def timed_factory(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(*args):
+            sync()
+            t0 = time.perf_counter()
+            loss = step(*args)
+            losses.append(float(loss))
+            lat.append(1e3 * (time.perf_counter() - t0))
+            return loss
+
+        return timed
+
+    distributed.make_sharded_train_step = timed_factory
+    calls_before = dp.stats["calls"]
+    try:
+        model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device=device)
+        reset_launch_counts()
+        model = distributed.train_distributed(
+            {"batch_size": BATCH, "num_epoch": 1, "batch_per_epoch": DIST_TRAIN_STEPS},
+            {"num_negative": NUM_NEGATIVE, "strict_negative": True,
+             "adversarial_temperature": 1.0}, model, graph, index, triples, seed=0, lr=LR)
+        train_counts = launch_counts()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = distributed.evaluate_distributed(model, graph, triples[:DIST_VALID], index,
+                                                   batch_size=BATCH, metrics=LP_METRICS)
+        eval_s = time.perf_counter() - t0
+        eval_counts = launch_counts()
+    finally:
+        distributed.make_sharded_train_step = real
+        dist.destroy_process_group()
+    collective_calls = dp.stats["calls"] - calls_before
+    total = plus(plus(total, train_counts), eval_counts)
+    del model
+
+    # the same schedule in one process: the rank's stream, shard and steps
+    ref = init_ultra_params(cfg, torch.Generator().manual_seed(0), device=device)
+    state = init_train_state(ref, lr=LR, weight_decay=WEIGHT_DECAY)
+    step = make_train_step(adversarial_temperature=1.0, num_negative=NUM_NEGATIVE)
+    rng, perm = np.random.default_rng(0), multihost.shard_indices(len(triples), 0, seed=0)
+    ref_losses, ref_lat = [], []
+    for s in range(DIST_TRAIN_STEPS):
+        batch = tasks.negative_sampling(index, triples[perm[s * BATCH:(s + 1) * BATCH]],
+                                        NUM_NEGATIVE, strict=True, rng=rng)
+        ew = tasks.easy_edge_weights(index, batch, graph.num_edges_padded)
+        sync()
+        t0 = time.perf_counter()
+        ref_losses.append(float(step(state, graph, on(batch), on(ew))))
+        ref_lat.append(1e3 * (time.perf_counter() - t0))
+    ref_metrics = eval_lib.evaluate(ref, graph, triples[:DIST_VALID], index, batch_size=BATCH,
+                                    metrics=LP_METRICS)
+    del ref, state
+    record["one_rank"] = {
+        "backend": backend, "steps": DIST_TRAIN_STEPS, "losses": losses,
+        "reference_losses": ref_losses, "step_ms": lat, "reference_step_ms": ref_lat,
+        "step_ms_median": statistics.median(lat),
+        "reference_step_ms_median": statistics.median(ref_lat),
+        "valid_triples": DIST_VALID, "metrics": metrics, "reference_metrics": ref_metrics,
+        "evaluate_s": eval_s, "allreduce_calls": collective_calls}
+    one_ok = (all(abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(losses, ref_losses))
+              and len(losses) == DIST_TRAIN_STEPS
+              and all(abs(metrics[k] - ref_metrics[k]) <= LOSS_RTOL * abs(ref_metrics[k])
+                      for k in LP_METRICS)
+              and train_counts == times(per_step_launches(cfg, v, r), DIST_TRAIN_STEPS)
+              and eval_counts == validation_launches(cfg, v, r, DIST_VALID)
+              and (device == "cpu" or "nccl" in backend) and collective_calls == DIST_TRAIN_STEPS)
+
+    # (b) two gloo ranks on the one card, as subprocesses
+    out = ROOT / "build" / "chip_smoke" / "distributed"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    port = free_port()
+    logs = [open(out / f"rank{k}.log", "w") for k in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(rank_command(k, port, out), cwd=ROOT, stdout=logs[k],
+                              stderr=subprocess.STDOUT) for k in range(2)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t0
+    for k, proc in enumerate(procs):
+        if proc.returncode != 0:
+            print((out / f"rank{k}.log").read_text()[-4000:], file=sys.stderr, flush=True)
+        check(proc.returncode == 0, f"rank {k} of 2 exited with {proc.returncode} after "
+                                    f"{ranks_s:.1f} s (timeout {DIST_TIMEOUT_S} s)")
+    ranks = [torch.load(out / f"rank{k}.pt", weights_only=False) for k in range(2)]
+    for rec in ranks:
+        total = plus(total, rec["launches"])
+
+    # the references: each mode's global batch in this process
+    dataset, query_graph = dist_query_set(device)
+    inputs = dist_inputs(split, graph, dataset, query_graph)
+
+    def reference(cfg_, batches, rows):
+        model = init_ultra_params(cfg_, torch.Generator().manual_seed(0), device=device)
+        with torch.no_grad():
+            b = on(inputs["score"][:rows])
+            t_pred = ultra_score_all(model, graph, b[:, 0], r_index=b[:, 2]).cpu()
+            h_pred = ultra_score_all(model, graph, b[:, 1], r_index=b[:, 2] + r // 2,
+                                     query_r_index=b[:, 2]).cpu()
+        state = init_train_state(model, lr=LR, weight_decay=WEIGHT_DECAY)
+        step = make_train_step(adversarial_temperature=1.0, num_negative=NUM_NEGATIVE)
+        ref_losses, grads = [], None
+        for b, ew in batches:
+            ref_losses.append(float(step(state, graph, on(b), on(ew))))
+            grads = grads or {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        return {"losses": ref_losses, "grads": grads, "t_pred": t_pred, "h_pred": h_pred}
+
+    refs = {"data2": reference(cfg, inputs["batches"], BATCH)}
+    refs["edge2-sum"] = refs["data2"]
+    refs["edge2-pna"] = reference(pna_cfg, inputs["pna_batches"], DIST_PNA_BATCH)
+    with summed_in_halves(graph):
+        halves = reference(pna_cfg, inputs["pna_batches"], DIST_PNA_BATCH)
+    # the PNA step from weights moved by one ulp: how far rounding alone moves it
+    model = moved_by_one_ulp(init_ultra_params(pna_cfg, torch.Generator().manual_seed(0),
+                                               device=device))
+    b, ew = inputs["pna_batches"][0]
+    make_train_step(num_negative=NUM_NEGATIVE)(
+        init_train_state(model, lr=LR, weight_decay=WEIGHT_DECAY), graph, on(b), on(ew))
+    ulp_ratio, _ = grads_within({k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                                refs["edge2-pna"]["grads"])
+    ulp_median = statistics.median(ulp_ratio.values())
+    del model
+    kind, operand, target, plan = inputs["query"]
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device=device)
+    state = init_train_state(model, lr=LR, weight_decay=WEIGHT_DECAY)
+    loss = make_grouped_query_train_step(inputs["qcfg"], 0.2)(
+        state, graphs_for_slots(query_graph, plan), kind, operand, target)
+    refs["query-data2"] = {"losses": [float(loss)], "grads": {
+        k: p.grad.detach().cpu() for k, p in model.named_parameters()}}
+    del model, state
+
+    ok, modes = one_ok, {}
+    for name, ref_ in refs.items():
+        for rec in ranks:
+            m = rec[name]
+            ratio, grads_ok = grads_within(m["grads"], ref_["grads"], name == "edge2-pna")
+            loss_ok = abs(m["losses"][0] - ref_["losses"][0]) <= LOSS_RTOL * abs(ref_["losses"][0])
+            later_ok = all(abs(a - b) <= DIST_LATER_LOSS_RTOL * abs(b)
+                           for a, b in zip(m["losses"][1:], ref_["losses"][1:]))
+            score_err = None
+            if "t_pred" in m:
+                err = torch.cat([(m["t_pred"] - ref_["t_pred"]).abs()
+                                 - SCORE_RTOL * ref_["t_pred"].abs(),
+                                 (m["h_pred"] - ref_["h_pred"]).abs()
+                                 - SCORE_RTOL * ref_["h_pred"].abs()])
+                score_err = float(err.max())
+                ok &= score_err <= SCORE_ATOL and m["score_launches_ok"]
+            ok &= (grads_ok and loss_ok and later_ok and m["launches_ok"]
+                   and len(m["losses"]) == len(ref_["losses"]))
+            worst, extra = max(ratio, key=ratio.get), {}
+            if name == "edge2-pna":  # the per-tensor bound, against the same association
+                h_ratio, h_ok = grads_within(m["grads"], halves["grads"])
+                h_loss = abs(m["losses"][0] - halves["losses"][0])
+                ok &= h_ok and h_loss <= LOSS_RTOL * abs(halves["losses"][0])
+                h_worst = max(h_ratio, key=h_ratio.get)
+                extra = {"summed_in_halves": {
+                    "loss": halves["losses"][0], "loss_err": h_loss, "grad_err_over_max": {
+                        "worst": h_worst, "value": h_ratio[h_worst],
+                        "median": statistics.median(h_ratio.values())}}}
+            modes.setdefault(name, []).append({**extra,
+                "rows_per_rank": m["rows"], "losses": m["losses"],
+                "reference_losses": ref_["losses"], "step_ms": m["step_ms"],
+                "allreduce_mib_per_step": [b / 2**20 for b in m["allreduce_bytes"]],
+                "allreduce_ms_per_step": m["allreduce_ms"],
+                "grad_err_over_max": {"worst": worst, "value": ratio[worst],
+                                      "median": statistics.median(ratio.values())},
+                "score_err_past_rtol": score_err, "launches_as_predicted": m["launches_ok"]})
+        ok &= ranks[0][name]["losses"] == ranks[1][name]["losses"]
+    live = sum(rec["block"]["live_edges"] for rec in ranks)
+    ok &= live == int(graph.csr.col.numel()) and all(
+        rec["minmax_probe"]["ok"] and rec["block"]["empty_rows_written"] for rec in ranks)
+    record["two_ranks"] = {
+        "backend": ranks[0]["backend"], "devices": [rec["device"] for rec in ranks],
+        "wall_s": ranks_s, "setup_s": [rec["setup_s"] for rec in ranks],
+        "blocks": [rec["block"] for rec in ranks], "gloo_minmax_on_cuda_tensors":
+            [rec["minmax_probe"] for rec in ranks], "pna_ulp_control_median": ulp_median,
+        "modes": modes}
+    record["tolerance"] = (
+        f"loss rtol {LOSS_RTOL} (later steps {DIST_LATER_LOSS_RTOL}); first step's gradients "
+        f"per tensor max|err| <= {GRAD_REL_TO_MAX} * max|ref| + {GRAD_ATOL} (the PNA step: "
+        f"so against one process summing in the ranks' halves, and its worst tensor <= "
+        f"{MINMAX_GRAD_WORST} against the plain one); scores rtol {SCORE_RTOL} atol "
+        f"{SCORE_ATOL}; metrics rtol {LOSS_RTOL}")
+    print("[distributed] " + json.dumps(record), flush=True)
+    check(one_ok, "the 1-rank group's run differs from one process's, or its launches or "
+                  "backend are not as predicted (see [distributed] one_rank)")
+    check(ok, "a rank of the 2-rank group differs from one process, or its launches, its "
+              "blocks or gloo's min/max probe are wrong (see [distributed] two_ranks)")
+    return record, total
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {','.join(PHASES)}")
-    phases = parser.parse_args().phases.split(",")
+    # [distributed]'s ranks: this script run again, once for each
+    parser.add_argument("--distributed-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--out", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         parser.error(f"unknown phase in {phases}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
+    if args.distributed_rank is not None:
+        return distributed_rank(args.distributed_rank, args.port, args.out)
 
     from ultra_tpu_torch.data import kg
     from ultra_tpu_torch.data.kg import split_to_graph
@@ -3095,11 +3638,15 @@ def main() -> int:
     def clqa_training_phase():
         _, phase_counts["clqa-training"] = clqa_training_run(cfg, clqa_dataset)
 
+    def distributed_phase():
+        _, phase_counts["distributed"] = distributed_run(cfg, pna_cfg, split, graph)
+
     run("visualize", visualize_phase)
     run("link-prediction", link_prediction_phase)
     run("clqa", clqa_phase)
     run("pretrain", pretrain_phase)
     run("clqa-training", clqa_training_phase)
+    run("distributed", distributed_phase)
     run("gather-probe", gather_probe_phase)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
@@ -3112,8 +3659,9 @@ def main() -> int:
     # each row's launches at its own shape (so on its own graph), counted in
     # each main-path run: serving, training (the timed steps) and
     # train_and_validate of the ultra_3g model, serving and training of the
-    # PNA model, attribution, link prediction, complex queries and the
-    # gather probe
+    # PNA model, attribution, link prediction, complex queries, the
+    # multi-process runs (whose blocks of edges keep every node, so their
+    # keys are the whole graph's) and the gather probe
     for name, row in kernels.items():
         wrapper, shape = name.split("/")[0], tuple(row["launch_key"])
         row["launches_by_phase"] = {phase: counts.get(wrapper, {}).get(shape, 0)

@@ -15,8 +15,23 @@ Prints the ``{"valid": metrics, "test": metrics}`` dict of
 ``train/runner.py::run_link_prediction``, which runs on the card
 (``--device cuda``, the default) or, when asked, on the CPU. Checkpoints go
 to ``$ULTRA_WORKDIR`` if it is set, else to a new directory under the
-config's ``output_dir``. ``ULTRA_DIST`` (the JAX script's multi-host launch)
-is refused: ROADMAP A12. Reading the YAML needs jinja2 and PyYAML.
+config's ``output_dir``. Reading the YAML needs jinja2 and PyYAML.
+
+A multi-process run (``train/distributed.py``) starts one process per rank,
+each with ``ULTRA_DIST="coordinator:port,num_processes,proc_id"`` as the JAX
+script takes it, or under torchrun, whose environment
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``)
+is read when ``ULTRA_DIST`` is unset:
+
+  ULTRA_DIST=localhost:29500,2,0 python scripts/torch_run.py -c ... &
+  ULTRA_DIST=localhost:29500,2,1 python scripts/torch_run.py -c ...
+  torchrun --nproc-per-node 2 scripts/torch_run.py -c ...
+
+Each rank takes the card ``cuda:(local rank % device count)`` and the
+``nccl`` backend when each rank of its host has its own card, else ``gloo``
+(also with ``--device cpu``). A host's rank count is ``LOCAL_WORLD_SIZE``,
+which torchrun sets; beside ``ULTRA_DIST`` set it to put several ranks on
+one card, or each host runs one rank a card.
 """
 
 import argparse
@@ -27,6 +42,7 @@ import time
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from ultra_tpu_torch.parallel import multihost
 from ultra_tpu_torch.utils import config as config_lib
 
 
@@ -34,8 +50,7 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args, vars_ = config_lib.parse_args(parser)
-    if os.environ.get("ULTRA_DIST"):
-        raise SystemExit("ULTRA_DIST: multi-process runs of the port are ROADMAP A12")
+    multihost.initialize_from_env(args.device)
     cfg = config_lib.load_config(args.config, context=vars_)
 
     logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(message)s")

@@ -20,7 +20,10 @@ when asked, on the CPU. The valid and test metrics are logged as the JAX
 script logs them, then printed as one ``{"valid": ..., "test": ...}`` dict
 (``{member: test metrics}`` for a mixture). ``$ULTRA_WORKDIR`` is the working
 directory if set, else a new directory under the config's ``output_dir``.
-``ULTRA_DIST`` (a multi-process run) is ROADMAP A12 and is refused.
+``ULTRA_DIST`` (``coordinator:port,num_processes,proc_id`` per process, or
+torchrun's environment; see ``scripts/torch_run.py``) starts a multi-process
+run: evaluation shards the queries over the ranks, and ``train.data_parallel:
+yes`` shards each training batch's queries over them.
 """
 
 import argparse
@@ -33,6 +36,7 @@ sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
+from ultra_tpu_torch.parallel import multihost
 from ultra_tpu_torch.utils import config as config_lib
 
 logger = logging.getLogger("ultra_tpu_torch")
@@ -119,8 +123,7 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args, vars_ = config_lib.parse_args(parser)
-    if os.environ.get("ULTRA_DIST"):
-        raise SystemExit("ULTRA_DIST: multi-process runs of the port are ROADMAP A12")
+    multihost.initialize_from_env(args.device)
     cfg = config_lib.load_config(args.config, context=vars_)
 
     logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(message)s")

@@ -13,6 +13,7 @@ MRR_ATOL (near ties on toy graphs, below). The transfer twin is a
 threshold on held-out MRR, as the JAX package's own gate.
 """
 
+import logging
 import os
 import re
 import subprocess
@@ -228,6 +229,41 @@ def test_pretrain_resumes_from_model_latest(members, tmp_path, monkeypatch):
     loss = make_train_step(num_negative=4)(state, graphs.train_graphs[gi],
                                            torch.as_tensor(batch), torch.as_tensor(ew))
     assert losses[0] == (gi, float(loss))
+
+
+@pytest.mark.parametrize("bpe", [0, None], ids=["zero", "null"])
+def test_pretrain_batch_per_epoch_zero_or_null_as_jax(members, tmp_path, caplog, bpe):
+    """``batch_per_epoch: 0`` takes no step: the epoch's logged loss is nan
+    and the weights come back as they went in, as from the JAX package's
+    ``pretrain``. ``None`` (``--bpe null``) raises ``ValueError`` naming
+    ``--bpe``, where the JAX package raises ``TypeError``."""
+    port, ref = members
+    jcfg, pcfg = _cfgs()
+    params = jax.device_get(jax_init_ultra_params(jcfg, jax.random.key(0)))
+    model = nbfnet.Ultra(pcfg)
+    model.load_state_dict(params_from_jax(params))
+    cfg = dict(CFG, train=dict(CFG["train"], batch_per_epoch=bpe))
+    graphs = pretrain.PretrainGraphs(port, device="cpu")
+    jgraphs = jpretrain.PretrainGraphs(ref, with_plans=False)
+    if bpe is None:
+        with pytest.raises(ValueError, match="--bpe"):
+            pretrain.pretrain(cfg, model, graphs, str(tmp_path / "port"), seed=0)
+        with pytest.raises(TypeError):
+            jpretrain.pretrain(cfg, jcfg, params, jgraphs, str(tmp_path / "jax"), seed=0)
+        return
+    with caplog.at_level(logging.WARNING):
+        out = pretrain.pretrain(cfg, model, graphs, str(tmp_path / "port"), seed=0)
+        port_log = caplog.text
+        caplog.clear()
+        jout = jpretrain.pretrain(cfg, jcfg, params, jgraphs, str(tmp_path / "jax"), seed=0)
+        jax_log = caplog.text
+    for log in (port_log, jax_log):
+        assert re.findall(r"epoch 0: avg bce (\S+)", log) == ["nan"]
+        assert " step " not in log
+    start, final = params_from_jax(params), params_from_jax(jax.device_get(jout))
+    for k, v in out.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), start[k].numpy(), err_msg=k)
+        np.testing.assert_array_equal(final[k].numpy(), start[k].numpy(), err_msg=k)
 
 
 def _cli_config(tmp_path, root, ckpt):

@@ -554,11 +554,28 @@ def test_evaluate_queries_on_a_loaded_dataset_with_restricted_nodes(tmp_path):
 
 
 def test_evaluate_queries_refuses_a_process_group(monkeypatch):
-    monkeypatch.setattr(trainer, "_process_group_size", lambda: 2)
+    """In a process group of two (faked here; ``test_torch_parallel.py`` runs
+    a real one) rank 1 evaluates its shard of the queries (``shard_indices``
+    without shuffling: every second one, the last wrapped around) and
+    gathers each of its six result vectors; with ``distributed=False`` it
+    evaluates them all."""
     ds = toy_query_dataset()
     _, pcfg = configs()
-    with pytest.raises(NotImplementedError, match="A12"):
-        trainer.evaluate_queries(Ultra(pcfg), exe.QueryConfig(), None, ds, np.arange(2), 2)
+    model = Ultra(pcfg)
+    graph = trainer.prepare_query_graph(ds.graphs[2], device="cpu")
+    idx = np.arange(5)
+    qcfg = exe.QueryConfig()
+    want_shard = trainer.evaluate_queries(model, qcfg, graph, ds, idx[[1, 3, 0]], 2)
+    want_all = trainer.evaluate_queries(model, qcfg, graph, ds, idx, 2)
+    gathered = []
+    monkeypatch.setattr(trainer.multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(trainer.multihost, "process_index", lambda: 1)
+    monkeypatch.setattr(trainer.multihost, "gather_ranks", lambda v: gathered.append(v) or v)
+    assert trainer.evaluate_queries(model, qcfg, graph, ds, idx, 2) == want_shard
+    assert len(gathered) == 6 and len(gathered[4]) == 3  # the shard's types
+    assert trainer.evaluate_queries(model, qcfg, graph, ds, idx, 2,
+                                    distributed=False) == want_all
+    assert len(gathered) == 6
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -349,10 +349,21 @@ def test_train_queries_resumes_and_refuses_data_parallel(tmp_path, monkeypatch):
     trainer.train_queries(dict(cfg, resume_from=latest), fresh(), qcfg, ds,
                           str(tmp_path / "c"))
     assert torch.load(tmp_path / "c" / "model_latest.pth", weights_only=True)["step"] == 4
-    for extra in ({"train": dict(cfg["train"], data_parallel=True)},
-                  {"task": {"per_rank_traversal_dropout": True}}):
-        with pytest.raises(NotImplementedError, match="A12"):
-            trainer.train_queries({**cfg, **extra}, fresh(), qcfg, ds, str(tmp_path / "d"))
+    # per-rank dropout without data parallelism is refused, as the JAX
+    # package asserts; data parallelism without a process group is one rank:
+    # the plain run's weights
+    with pytest.raises(ValueError, match="requires train.data_parallel"):
+        trainer.train_queries({**cfg, "task": {"per_rank_traversal_dropout": True}}, fresh(),
+                              qcfg, ds, str(tmp_path / "d"))
+    start = fresh().state_dict()
+    out = []
+    for name, train in (("e", cfg["train"]), ("f", dict(cfg["train"], data_parallel=True))):
+        model = fresh()
+        model.load_state_dict(start)
+        out.append(trainer.train_queries({**cfg, "train": train}, model, qcfg, ds,
+                                         str(tmp_path / name), seed=3).state_dict())
+    for k, v in out[0].items():
+        assert torch.equal(v, out[1][k]), k
 
 
 def _fixture_members(root, monkeypatch):

@@ -6,7 +6,7 @@ test metrics against the JAX package's ``evaluate_queries`` on the same
 weights (a seeded JAX parameter tree, carried across with
 ``params_from_jax`` and saved as the checkpoint the script loads), within
 1e-6; a training run's against the JAX ``train_queries``; and its refusal
-of ``ULTRA_DIST``.
+of a malformed ``ULTRA_DIST``.
 """
 
 import ast
@@ -82,7 +82,8 @@ def test_run_query_cli_matches_jax_evaluate_queries(fixture):
 
 @pytest.mark.parametrize("case", ["training", "ULTRA_DIST"])
 def test_run_query_cli_refusals(fixture, case):
-    """``ULTRA_DIST`` is refused (ROADMAP A12). Training is ported: with
+    """A malformed ``ULTRA_DIST`` is refused (the launch wants
+    ``coordinator:port,num_processes,proc_id``). Training is ported: with
     ``--epochs 1`` the command line trains (traversal dropout, one step a
     batch of 2 of the fixture's 2 training queries) and then evaluates; its
     valid and test metrics equal the JAX package's ``train_queries`` and
@@ -93,11 +94,11 @@ def test_run_query_cli_refusals(fixture, case):
     env = dict(os.environ, ULTRA_WORKDIR=str(workdir))
     env.pop("ULTRA_RESUME_FROM", None)
     if case == "ULTRA_DIST":
-        env["ULTRA_DIST"] = "localhost:1234,2,0"
+        env["ULTRA_DIST"] = "localhost:1234,2"
         proc = subprocess.run(command(root, ckpt), capture_output=True, text=True,
                               timeout=300, cwd=REPO, env=env)
         assert proc.returncode != 0
-        assert "A12" in proc.stderr
+        assert "ULTRA_DIST='localhost:1234,2': want coordinator:port" in proc.stderr
         return
 
     proc = subprocess.run(command(root, ckpt, epochs=1), capture_output=True, text=True,

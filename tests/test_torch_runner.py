@@ -257,18 +257,32 @@ def test_out_of_memory_retries_with_remat(tmp_path, checkpoint, monkeypatch, cap
 
 def test_run_link_prediction_refuses_a_missing_card_and_process_groups(
         tmp_path, monkeypatch):
-    """``device="cuda"`` without a card raises before any work, as does a
-    process group of more than one process (the multi-host branch, ROADMAP
-    A12)."""
+    """``device="cuda"`` without a card raises before any work. In a process
+    group of more than one process (faked here; ``test_torch_parallel.py``
+    runs a real one) the run takes the multi-process branch, as the JAX
+    package's: ``train_distributed``, then ``evaluate_distributed`` on the
+    valid and the test split, and no remat retry."""
     cfg = make_cfg({"class": "FB15k237", "root": str(tmp_path / "absent")},
                    "TransductiveInference")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             runner.run_link_prediction(cfg, str(tmp_path / "w"), device="cuda")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        runner.run_link_prediction(cfg, str(tmp_path / "w"), device="cpu")
+    from ultra_tpu_torch.train import distributed
+
+    cfg = make_cfg(write_dataset(str(tmp_path / "data"), "transductive"),
+                   "TransductiveInference", epochs=1, batch_per_epoch=2)
+    calls = []
+    monkeypatch.setattr(runner.multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(distributed, "train_distributed",
+                        lambda train, task, model, graph, *a, **kw: calls.append(
+                            ("train", graph.num_nodes, train["num_epoch"])) or model)
+    monkeypatch.setattr(distributed, "evaluate_distributed",
+                        lambda model, graph, trips, *a, **kw: calls.append(
+                            ("evaluate", len(trips))) or {"mrr": 0.5})
+    monkeypatch.setattr(runner, "retry_with_remat", None)
+    results = runner.run_link_prediction(cfg, str(tmp_path / "w"), device="cpu")
+    assert calls == [("train", 20, 1), ("evaluate", 10), ("evaluate", 10)]
+    assert results == {"valid": {"mrr": 0.5}, "test": {"mrr": 0.5}}
 
 
 CLI_CFG = """output_dir: {out}

@@ -7,7 +7,7 @@ inverse edges (type r + num_direct_rel) and an attached relation graph.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -195,8 +195,10 @@ def synthetic_graph(
     num_triples: int = 150,
     seed: int = 0,
     device="cuda",
+    pad_edges_to: Optional[int] = None,
 ) -> Tuple[Graph, np.ndarray, np.ndarray]:
-    """(Graph with its relation graph, edge_index, edge_type host arrays)."""
+    """(Graph with its relation graph, edge_index, edge_type host arrays);
+    ``pad_edges_to`` pads the message edges with weight-0 edges."""
     trip = random_kg_triples(num_nodes, num_direct_rel, num_triples, seed)
     edge_index, edge_type = with_inverses(trip, num_direct_rel)
     num_relations = 2 * num_direct_rel
@@ -205,6 +207,6 @@ def synthetic_graph(
     )
     graph = make_graph(
         edge_index, edge_type, num_nodes=num_nodes, num_relations=num_relations,
-        relation_graph=rel_graph, device=device,
+        pad_to=pad_edges_to, relation_graph=rel_graph, device=device,
     )
     return graph, edge_index, edge_type

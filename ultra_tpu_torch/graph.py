@@ -306,6 +306,10 @@ class Graph:
 
     ``relation_graph`` is the graph of relations (nodes = relation types,
     4 meta-relations), None for the relation graph itself.
+
+    ``edge_group`` is set on one block of a graph's edges split over the
+    ranks of a process group (``parallel/mesh.py::shard_graph``): the convs
+    then combine their partial aggregates over that group. None otherwise.
     """
 
     edge_index: torch.Tensor  # (2, E_pad) int64
@@ -317,6 +321,7 @@ class Graph:
     csr_src: CSR
     segments: TypeSegments
     relation_graph: Optional["Graph"] = None
+    edge_group: Optional[object] = None
 
     @property
     def device(self) -> torch.device:

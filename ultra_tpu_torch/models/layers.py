@@ -17,6 +17,12 @@ importance attribution asks the same of every message with ``max`` or
 ``pna`` (``per_edge=True``): its gradient must share a tie between the
 tying edges, as XLA's segment reductions do, where the min/max rspmm gives
 each of them the whole of it.
+
+On one block of a graph's edges (``Graph.edge_group``, set by
+``parallel/mesh.py::shard_graph``) each aggregate is a partial over the
+block, combined over the edge group (``parallel/dp.py``): sums and the
+degree with a sum, max and min with a max and a min. The relation graph is
+never cut, so the relation model's convs never combine.
 """
 
 from __future__ import annotations
@@ -98,6 +104,22 @@ def _rotate_sum_rspmm(graph: Graph, relation, input):
                       out4[..., 2 * d:3 * d] + out4[..., 3 * d:]], dim=-1)
 
 
+def _shard_ops(graph: Graph):
+    """``(enter, combine)`` for a conv on ``graph``. On one block of a
+    graph's edges (``graph.edge_group``: ``parallel/mesh.py::shard_graph``)
+    the replicated node states and relation features enter the shard and
+    each partial aggregate combines over the group, with ``combine(t,
+    kind)`` for kind sum, max or min (``parallel/dp.py``, which has the
+    gradient's account); on a whole graph both are the identity."""
+    group = graph.edge_group
+    if group is None:
+        return (lambda t: t), (lambda t, kind="sum": t)
+    from ultra_tpu_torch.parallel import dp  # dp imports the models
+
+    return (lambda t: dp.enter_shard(t, group),
+            lambda t, kind="sum": dp.combine_shards(t, group, kind))
+
+
 def _per_edge_messages(message_func: str, graph: Graph, input, relation):
     """Unweighted (E, B, D) messages of every padded edge, and the messages
     PNA's second moment sums: ``msg ** 2`` for rotate, ``op(rel ** 2, x ** 2)``
@@ -128,23 +150,25 @@ def _per_edge_update(aggregate: str, message_func: str, graph: Graph, input, bou
             "elements (O(E*B*D)); use sum/mean aggregation for the fused kernel "
             "path.", message_func, aggregate, float(n_elem),
         )
+    enter, combine = _shard_ops(graph)
     dst, w = graph.edge_index[0], graph.edge_weight[:, None, None]
-    msg, squares = _per_edge_messages(message_func, graph, input, relation)
+    msg, squares = _per_edge_messages(message_func, graph, enter(input), enter(relation))
     shape = (graph.num_nodes,) + tuple(msg.shape[1:])
 
     def seg_sum(m):
-        return torch.zeros(shape, dtype=m.dtype, device=m.device).index_add(0, dst, m * w)
+        return combine(torch.zeros(shape, dtype=m.dtype, device=m.device).index_add(0, dst, m * w))
 
     def seg_ext(m, is_min):
         fill = float("inf") if is_min else float("-inf")
         m = torch.where(w != 0.0, m * w, torch.full((), fill, dtype=m.dtype, device=m.device))
         out = torch.full(shape, fill, dtype=m.dtype, device=m.device)
-        return out.scatter_reduce(0, dst.view(-1, 1, 1).expand_as(m), m,
-                                  "amin" if is_min else "amax", include_self=True)
+        return combine(out.scatter_reduce(0, dst.view(-1, 1, 1).expand_as(m), m,
+                                          "amin" if is_min else "amax", include_self=True),
+                       "min" if is_min else "max")
 
     if aggregate == "max":
         return torch.maximum(seg_ext(msg, is_min=False), boundary)
-    deg = degree(graph, include_self_loop=False)[:, None, None] + 1.0
+    deg = combine(degree(graph, include_self_loop=False))[:, None, None] + 1.0
     return pna_features(seg_sum(msg), seg_sum(squares()), seg_ext(msg, is_min=False),
                         seg_ext(msg, is_min=True), boundary, deg)
 
@@ -227,27 +251,31 @@ class GeneralizedRelationalConv(nn.Module):
         """The aggregated update on the rspmm kernels, boundary folded in."""
         cfg = self.cfg
         aggregate = cfg.aggregate_func
+        enter, combine = _shard_ops(graph)
+        input, relation = enter(input), enter(relation)
         if aggregate in ("sum", "mean"):
             if cfg.message_func == "rotate":
                 update = _rotate_sum_rspmm(graph, relation, input)
             else:
                 update = rspmm_from_graph(graph, relation, input, sum="add",
                                           mul=_MESSAGE2MUL[cfg.message_func])
-            update = update + boundary
+            update = combine(update) + boundary
             if aggregate == "mean":
-                update = update / (degree(graph, include_self_loop=False)[:, None, None] + 1.0)
+                deg = combine(degree(graph, include_self_loop=False))
+                update = update / (deg[:, None, None] + 1.0)
             return update
         mul = _MESSAGE2MUL[cfg.message_func]
-        max_ = rspmm_from_graph(graph, relation, input, sum="max", mul=mul)
+        max_ = combine(rspmm_from_graph(graph, relation, input, sum="max", mul=mul), "max")
         if aggregate == "max":
             return torch.maximum(max_, boundary)
         # pna. Its sum of squares is rspmm(rel^2, x^2), as the reference
         # computes it: for transe that is sum w (r^2 + x^2), not sum (w m)^2.
         return pna_features(
-            rspmm_from_graph(graph, relation, input, sum="add", mul=mul),
-            rspmm_from_graph(graph, relation.square(), input.square(), sum="add", mul=mul),
+            combine(rspmm_from_graph(graph, relation, input, sum="add", mul=mul)),
+            combine(rspmm_from_graph(graph, relation.square(), input.square(), sum="add",
+                                     mul=mul)),
             max_,
-            rspmm_from_graph(graph, relation, input, sum="min", mul=mul),
+            combine(rspmm_from_graph(graph, relation, input, sum="min", mul=mul), "min"),
             boundary,
-            degree(graph, include_self_loop=False)[:, None, None] + 1.0,
+            combine(degree(graph, include_self_loop=False))[:, None, None] + 1.0,
         )

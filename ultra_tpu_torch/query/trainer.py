@@ -11,9 +11,11 @@ nodes against the easy answers, positives weighted 1/num_positive a query,
 negatives by a self-adversarial softmax (``run_query.py:96-113``).
 Evaluation ranks each query's hard answers among all nodes with its easy
 answers filtered (``query/metrics.py``) and rolls the ranks into per-type,
-EPFO and negation metrics. The JAX package's data-parallel steps and its
-per-rank dropout are ROADMAP A12; its log of XLA compile variants has no
-counterpart.
+EPFO and negation metrics. In a process group (``parallel/multihost.py``),
+``train.data_parallel`` shards each batch's queries over the ranks and
+averages the gradients (the JAX package shards them over one process's
+devices), and evaluation shards the queries and gathers the results. The
+JAX package's log of XLA compile variants has no counterpart.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ import torch.nn.functional as F
 from ultra_tpu_torch import tasks
 from ultra_tpu_torch.graph import Graph, make_graph
 from ultra_tpu_torch.models.nbfnet import Ultra
+from ultra_tpu_torch.parallel import multihost
+from ultra_tpu_torch.parallel.dp import grad_sync
+from ultra_tpu_torch.parallel.mesh import make_mesh
 from ultra_tpu_torch.query import metrics as qmetrics
 from ultra_tpu_torch.query import ops
 from ultra_tpu_torch.query.datasets import QueryDataset, QueryGraph
@@ -113,13 +118,14 @@ def query_bce_loss(pred, target, adversarial_temperature: float):
     return ((loss * weight).sum(dim=-1) / weight.sum(dim=-1)).mean()
 
 
-def make_query_train_step(qcfg: QueryConfig, adversarial_temperature: float = 1.0):
+def make_query_train_step(qcfg: QueryConfig, adversarial_temperature: float = 1.0,
+                          sync_grads=None):
     """``step(state, slot_graphs, kind, operand, target) -> loss``: one
     update through :func:`execute` on the per-slot graphs
     (:func:`~ultra_tpu_torch.query.executor.graphs_for_slots`); ``kind``,
     ``operand`` (``ops.decompose``) and ``target`` (B, V) f32 host arrays.
     The loss is a 0-d tensor on the device; the gradients stay in
-    ``.grad``."""
+    ``.grad``. ``sync_grads`` as in ``train/loop.py::make_train_step``."""
 
     def step(state: TrainState, slot_graphs, kind, operand, target):
         device = slot_graphs[0].device
@@ -129,15 +135,18 @@ def make_query_train_step(qcfg: QueryConfig, adversarial_temperature: float = 1.
         pred = execute(model, qcfg, list(slot_graphs), on(kind), on(operand))
         loss = query_bce_loss(pred, on(target), adversarial_temperature)
         loss.backward()
+        loss = loss.detach()
+        if sync_grads is not None:
+            loss = sync_grads(model, loss)
         state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        return loss
 
     return step
 
 
 def make_grouped_query_train_step(qcfg: QueryConfig, adversarial_temperature: float = 1.0,
-                                  grad_accum: int = 1):
+                                  grad_accum: int = 1, sync_grads=None):
     """``step(state, round_graphs, kind, operand, target) -> loss``: one
     update through :func:`execute_grouped`, the projections grouped into
     rounds (``train.grouped_projections``), one graph a round
@@ -148,7 +157,8 @@ def make_grouped_query_train_step(qcfg: QueryConfig, adversarial_temperature: fl
     consecutive queries one after another on the same round graphs and
     averages their gradients before the one update: the full batch's step,
     in less memory (the loss is a mean over queries). A micro-batch runs the
-    rounds its own deepest query needs."""
+    rounds its own deepest query needs. ``sync_grads`` as in
+    ``train/loop.py::make_train_step``."""
 
     def step(state: TrainState, round_graphs, kind, operand, target):
         device = round_graphs[0].device
@@ -166,9 +176,12 @@ def make_grouped_query_train_step(qcfg: QueryConfig, adversarial_temperature: fl
             micro = query_bce_loss(pred, on(target[rows]), adversarial_temperature)
             (micro / accum).backward()
             loss = loss + micro.detach()
+        loss = loss / accum
+        if sync_grads is not None:
+            loss = sync_grads(model, loss)
         state.optimizer.step()
         state.step += 1
-        return loss / accum
+        return loss
 
     return step
 
@@ -207,11 +220,6 @@ def make_query_forward_grouped(model: Ultra, qcfg: QueryConfig):
     return fwd
 
 
-def _process_group_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
 def evaluate_queries(
     model: Ultra,
     qcfg: QueryConfig,
@@ -229,11 +237,16 @@ def evaluate_queries(
     the padded rows are dropped. The relation model runs once for all R
     relations (``precompute_relation_representations``).
 
-    ``distributed`` (by default: when a process group of more than one
-    process is initialised) would shard the queries over the processes, as
-    the JAX package does: ROADMAP A12, so it raises for such a group."""
-    if distributed is not False and _process_group_size() > 1:
-        raise NotImplementedError("evaluate_queries over several processes is ROADMAP A12")
+    ``distributed`` (by default: in a process group of more than one
+    process) shards ``indices`` over the ranks (``shard_indices`` without
+    shuffling, so a few queries count twice when the ranks do not divide
+    them) and gathers the per-query results on every rank, which returns the
+    whole metric dict: the reference's ``gather_results``
+    (``query_utils.py:238-282``)."""
+    distributed = multihost.process_count() > 1 and distributed is not False
+    if distributed:
+        indices = np.asarray(indices)[
+            multihost.shard_indices(len(indices), epoch=0, shuffle=False)]
     model = model.eval()
     fwd = make_query_forward_grouped(model, qcfg)
     v = graph.num_nodes
@@ -264,24 +277,28 @@ def evaluate_queries(
 
     vectors = [np.concatenate(x) for x in (all_rank, all_answer_rank, all_easy, all_hard,
                                             all_types, all_num_pred)]
+    if distributed:
+        vectors = [multihost.gather_ranks(x) for x in vectors]
     return qmetrics.evaluate(*vectors, metric_names, dataset.id2type)
 
 
 
-def make_step(cfg: dict, qcfg: QueryConfig, grouped: bool):
+def make_step(cfg: dict, qcfg: QueryConfig, grouped: bool, sync_grads=None):
     """The train step ``cfg`` asks for: grouped (with ``train.grad_accum``)
     or per slot."""
     adv_temp = float(cfg["task"].get("adversarial_temperature", 0.2))
     if grouped:
         return make_grouped_query_train_step(
-            qcfg, adv_temp, grad_accum=int(cfg["train"].get("grad_accum", 1)))
-    return make_query_train_step(qcfg, adv_temp)
+            qcfg, adv_temp, grad_accum=int(cfg["train"].get("grad_accum", 1)),
+            sync_grads=sync_grads)
+    return make_query_train_step(qcfg, adv_temp, sync_grads=sync_grads)
 
 
 def plan_and_step(step_fn, state, grouped, base_graph, host, planner, qcfg, rng, kind,
-                  operand, target):
+                  operand, target, rows=slice(None)):
     """Plan one batch's traversal dropout on the host from ``rng``, as the
-    JAX loop draws it, put its masks on the device and take the step."""
+    JAX loop draws it, put its masks on the device and take the step on the
+    batch's ``rows`` (a data rank's; the plan is the whole batch's)."""
     if grouped:
         round_of, has_proj, arg_slot, n_rounds = projection_schedule(kind)
         plan = simulate_symbolic_grouped(kind, operand, round_of, has_proj, arg_slot, n_rounds,
@@ -289,7 +306,8 @@ def plan_and_step(step_fn, state, grouped, base_graph, host, planner, qcfg, rng,
     else:
         plan = simulate_symbolic(kind, operand, host, qcfg, rng, training=True,
                                  planner=planner)
-    return step_fn(state, graphs_for_slots(base_graph, plan), kind, operand, target)
+    return step_fn(state, graphs_for_slots(base_graph, plan), kind[rows], operand[rows],
+                   target[rows])
 
 
 def train_queries(cfg: dict, model: Ultra, qcfg: QueryConfig, dataset: QueryDataset,
@@ -304,20 +322,31 @@ def train_queries(cfg: dict, model: Ultra, qcfg: QueryConfig, dataset: QueryData
     ``optimizer`` (``lr``) and ``resume_from``. The graphs go on the model's
     device. Each epoch ends with ``workdir/model_latest.pth``; without
     ``resume_from``, ``$ULTRA_RESUME_FROM`` names a checkpoint to resume
-    from when that file exists. ``train.data_parallel`` and
-    ``task.per_rank_traversal_dropout`` are ROADMAP A12 and raise."""
+    from when that file exists.
+
+    ``train.data_parallel: yes`` shards each batch's queries over the ranks
+    of the process group (contiguous rows, ``batch_size`` a multiple of the
+    ranks): every rank draws the same batch and the same dropout plan from
+    the same generator, steps on its rows, and the gradients are averaged
+    (``parallel/dp.py``), so the numbers equal one process's. With
+    ``task.per_rank_traversal_dropout`` (the reference's DDP, whose ranks
+    draw their own dropout) rank s plans its rows from ``default_rng(seed +
+    s)``, per slot. Without a process group the ranks are this one."""
     train_cfg, task_cfg = cfg["train"], cfg["task"]
     num_epoch = int(train_cfg.get("num_epoch", 0))
     if num_epoch == 0:
         return model
-    if train_cfg.get("data_parallel") or task_cfg.get("per_rank_traversal_dropout"):
-        raise NotImplementedError("data-parallel query training and per-rank traversal "
-                                  "dropout are ROADMAP A12")
+    data_parallel = bool(train_cfg.get("data_parallel", False))
+    per_rank = bool(task_cfg.get("per_rank_traversal_dropout", False))
+    if per_rank and not data_parallel:
+        raise ValueError("task.per_rank_traversal_dropout requires train.data_parallel")
     batch_size = int(train_cfg.get("batch_size", 8))
     batch_per_epoch = train_cfg.get("batch_per_epoch") or None
     fast_test = train_cfg.get("fast_test")
-    grouped = bool(train_cfg.get("grouped_projections", False))
+    grouped = bool(train_cfg.get("grouped_projections", False)) and not per_rank
     device = next(model.parameters()).device
+    mesh = make_mesh() if data_parallel else None
+    rows = mesh.rows(batch_size) if data_parallel else slice(None)
 
     qg_train = dataset.graphs[0]
     base_graph = prepare_query_graph(qg_train, device=device)
@@ -327,12 +356,14 @@ def train_queries(cfg: dict, model: Ultra, qcfg: QueryConfig, dataset: QueryData
 
     state = init_train_state(model, lr=float(cfg["optimizer"].get("lr", 5e-4)))
     ckpt_lib.resume(cfg, state, "query train")
-    step_fn = make_step(cfg, qcfg, grouped)
+    step_fn = make_step(cfg, qcfg, grouped, grad_sync(mesh) if data_parallel else None)
 
     (tr_lo, tr_hi), (va_lo, va_hi), _ = dataset.split_ranges()
     train_idx = np.arange(tr_lo, tr_hi)
     valid_idx = np.arange(va_lo, va_hi)
     rng = np.random.default_rng(seed)
+    # per-rank dropout: the rank-coupled stream of run.py:234's seeding
+    rank_rng = np.random.default_rng(seed + mesh.data_index) if per_rank else None
     tracker = ckpt_lib.BestModelTracker(workdir)
     steps_per_epoch = batch_per_epoch or math.ceil(len(train_idx) / batch_size)
     epoch_block = math.ceil(num_epoch / 10)
@@ -351,8 +382,15 @@ def train_queries(cfg: dict, model: Ultra, qcfg: QueryConfig, dataset: QueryData
                 kind, operand = ops.decompose(dataset.queries[take])
                 target = answers_to_mask([dataset.easy_answers[i] for i in take],
                                          v).astype(np.float32)
+                if per_rank:
+                    kind, operand, target = kind[rows], operand[rows], target[rows]
+                    plan = simulate_symbolic(kind, operand, host, qcfg, rank_rng, training=True,
+                                             planner=planner)
+                    losses.append(step_fn(state, graphs_for_slots(base_graph, plan), kind,
+                                          operand, target))
+                    continue
                 losses.append(plan_and_step(step_fn, state, grouped, base_graph, host, planner,
-                                            qcfg, rng, kind, operand, target))
+                                            qcfg, rng, kind, operand, target, rows))
             logger.warning("epoch %d: avg bce %.6f (%.1fs)", epoch,
                            float(torch.stack(losses).mean()), time.time() - t0)
             ckpt_lib.save_train_state(os.path.join(workdir, "model_latest.pth"), state)

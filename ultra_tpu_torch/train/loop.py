@@ -65,6 +65,12 @@ def self_adversarial_bce(pred, adversarial_temperature: float, num_negative: int
     return loss.mean()
 
 
+def mean_loss(losses) -> float:
+    """The mean of an epoch's 0-d loss tensors, nan for an epoch of no
+    step (as numpy's mean of an empty list)."""
+    return float(torch.stack(losses).mean()) if losses else float("nan")
+
+
 def make_optimizer(params, lr: float = 5e-4, weight_decay: float = 0.01):
     """AdamW as the JAX package's ``optax.adamw``: betas (0.9, 0.999), eps
     1e-8, decoupled weight decay on every parameter. Given explicitly:
@@ -90,6 +96,7 @@ def make_train_step(
     adversarial_temperature: float = 1.0,
     num_negative: int = 256,
     grad_accum: int = 1,
+    sync_grads=None,
 ):
     """Returns ``train_step(state, graph, batch, edge_weight) -> loss``.
 
@@ -103,6 +110,10 @@ def make_train_step(
     after another and averages their gradients before the one update: the
     full-batch step, in less memory (the loss is a mean over rows, and the
     mask already covers the whole batch).
+
+    ``sync_grads(model, loss) -> loss``, if given, runs between the backward
+    and the update: ``parallel/dp.py`` averages the gradients and the loss
+    over the ranks of a data group there.
     """
 
     def train_step(state: TrainState, graph: Graph, batch, edge_weight):
@@ -116,8 +127,11 @@ def make_train_step(
             micro_loss = self_adversarial_bce(pred, adversarial_temperature, num_negative)
             (micro_loss / accum).backward()
             loss = loss + micro_loss.detach()
+        loss = loss / accum
+        if sync_grads is not None:
+            loss = sync_grads(model, loss)
         state.optimizer.step()
         state.step += 1
-        return loss / accum
+        return loss
 
     return train_step

@@ -31,7 +31,7 @@ from ultra_tpu_torch import tasks
 from ultra_tpu_torch.data.kg import KGDataset
 from ultra_tpu_torch.models.nbfnet import Ultra
 from ultra_tpu_torch.train import eval as eval_lib
-from ultra_tpu_torch.train.loop import init_train_state, make_train_step
+from ultra_tpu_torch.train.loop import init_train_state, make_train_step, mean_loss
 from ultra_tpu_torch.train.runner import prepare_graph, triples_of
 from ultra_tpu_torch.utils import ckpt as ckpt_lib
 
@@ -93,11 +93,17 @@ def pretrain(cfg: dict, model: Ultra, graphs: PretrainGraphs, workdir: str,
     (``lr``) and ``resume_from``. Each epoch ends with
     ``workdir/model_latest.pth``; without ``resume_from``,
     ``$ULTRA_RESUME_FROM`` names a checkpoint to resume from when that file
-    exists."""
+    exists. ``batch_per_epoch`` 0 takes no step (the epoch's logged loss is
+    nan, as the JAX package's); null raises ``ValueError``, where the JAX
+    package raises ``TypeError``."""
     train_cfg, task_cfg = cfg["train"], cfg["task"]
     num_epoch = int(train_cfg.get("num_epoch", 10))
     batch_size = int(train_cfg.get("batch_size", 64))
-    batch_per_epoch = int(train_cfg.get("batch_per_epoch") or 1000)
+    batch_per_epoch = train_cfg.get("batch_per_epoch", 1000)
+    if batch_per_epoch is None:
+        raise ValueError("train.batch_per_epoch is null: pretraining needs a number of steps "
+                         "an epoch (--bpe)")
+    batch_per_epoch = int(batch_per_epoch)
     num_negative = int(task_cfg.get("num_negative", 512))
     strict = bool(task_cfg.get("strict_negative", True))
     fast_test = train_cfg.get("fast_test")
@@ -140,7 +146,7 @@ def pretrain(cfg: dict, model: Ultra, graphs: PretrainGraphs, workdir: str,
                 if step % log_interval == 0:
                     logger.warning("epoch %d step %d loss %.6f", epoch, step, float(loss))
             logger.warning("epoch %d: avg bce %.6f (%.1fs)", epoch,
-                           float(torch.stack(losses).mean()), time.time() - t0)
+                           mean_loss(losses), time.time() - t0)
             ckpt_lib.save_train_state(os.path.join(workdir, "model_latest.pth"), state)
         mrr = validate()
         logger.warning("avg valid mrr after epoch %d: %.4f", epoch, mrr)

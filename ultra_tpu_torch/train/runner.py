@@ -10,7 +10,9 @@ training the host samples negatives and builds each batch's easy-edge mask
 (``train/loop.py::make_train_step``); after every block of epochs a
 filtered validation (``train/eval.py``) scores the model and a checkpoint
 is kept, and the best one's weights are loaded at the end
-(``utils/ckpt.py``). The JAX package's multi-host branch is ROADMAP A12.
+(``utils/ckpt.py``). In a process group of more than one process the run
+takes the multi-process branch (``train/distributed.py``), as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ultra_tpu_torch.data import kg
 from ultra_tpu_torch.data.kg import KGDataset, KGSplit, split_to_graph
 from ultra_tpu_torch.graph import Graph, pad_bucket, resolve_device
 from ultra_tpu_torch.models.nbfnet import NBFNetConfig, Ultra, UltraConfig
+from ultra_tpu_torch.parallel import multihost
 from ultra_tpu_torch.train import eval as eval_lib
 from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params, make_train_step
 from ultra_tpu_torch.utils import ckpt as ckpt_lib
@@ -279,13 +282,15 @@ def run_link_prediction(
     If fine-tuning runs out of device memory, it starts again from the
     weights the run started with, with both models recomputing their convs
     in the backward (``remat``); out of memory with remat already on, or any
-    other error, is raised. A process group of more than one process
-    raises: that is the JAX package's multi-host branch, ROADMAP A12."""
-    device = resolve_device(device)
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "run_link_prediction across processes (the multi-host branch) is ROADMAP A12")
+    other error, is raised.
+
+    In a process group of more than one process (``multihost.initialize``)
+    each rank runs on its own card (``cuda``) or the CPU, fine-tunes with
+    ``train/distributed.py::train_distributed`` (``train.batch_size`` rows
+    per process, the gradients averaged over the ranks) and evaluates with
+    ``evaluate_distributed``, as the JAX package's multi-host branch: no
+    remat retry and no checkpoint there."""
+    device = resolve_device(multihost.rank_device(device))
     os.makedirs(workdir, exist_ok=True)
     ds_cfg = dict(cfg["dataset"])
     ds_name = ds_cfg.pop("class")
@@ -305,6 +310,25 @@ def run_link_prediction(
     filtered = build_filtered_index(dataset, ds_name, task_name)
     metrics = default_metrics(ds_name, cfg["task"].get("metric", ("mr", "mrr", "hits@10")))
     batch_size = int(cfg["train"].get("batch_size", 8))
+
+    if multihost.process_count() > 1:
+        from ultra_tpu_torch.train.distributed import evaluate_distributed, train_distributed
+
+        train = dataset.train
+        train_index = tasks.GraphIndex.build(train.edge_index, train.edge_type,
+                                             train.num_nodes, train.num_relations)
+        model = train_distributed(
+            cfg["train"], cfg["task"], model, graphs["train"], train_index, triples_of(train),
+            valid_triples=triples_of(dataset.valid), valid_graph=graphs["valid"],
+            valid_filtered=filtered["valid"], seed=seed,
+            lr=float(cfg["optimizer"].get("lr", 5e-4)))
+        results = {}
+        for split in ("valid", "test"):
+            results[split] = evaluate_distributed(
+                model, graphs[split], triples_of(getattr(dataset, split)), filtered[split],
+                batch_size=batch_size, metrics=metrics)
+            logger.warning("%s metrics: %s", split, results[split])
+        return results
 
     if int(cfg["train"].get("num_epoch", 0)) > 0:  # zero-shot takes no step
         model = retry_with_remat(
