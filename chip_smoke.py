@@ -125,7 +125,16 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    same function; G2 also at 2, 4 and 8 lanes a thread, beside an empty
    kernel on its grid (the floor under G2) and on the grid it took before
    its redesign, and beside its walk storing its indices alone;
-16. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+16. holds the modules the port took over last (``[tooling]``, see
+   NATIVE_DROP): the native join of the graph of relations against the
+   numpy join on five graphs, both timed; the ragged-set ops and
+   ``spmm_max`` on the card against the CPU; a ``utils/profiling.py`` trace
+   of one serving batch (B1's kernel events against its launch counter)
+   and ``StepTimer`` against CUDA events; the two parity command lines
+   against ``[link-prediction]``'s and ``[clqa]``'s metrics; and the
+   supervisor's probe and a supervised fine-tuning whose child is killed
+   once and resumes from its crash checkpoint;
+17. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises before the last line is printed.
@@ -171,7 +180,7 @@ WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd
             "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv",
           "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "distributed",
-          "gather-probe")
+          "gather-probe", "tooling")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -1028,8 +1037,10 @@ def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform,
 # every phase's). The rule-KG of [link-prediction]'s inference graph is also
 # a [pretrain] member, and [pretrain]'s validation runs its graphs at
 # [clqa]'s and [link-prediction]'s widths.
-TAG_PHASES = {"inference": ("link-prediction",), "inference-relation": ("link-prediction",),
-              "query": ("clqa", "clqa-training"), "query-relation": ("clqa", "clqa-training")}
+TAG_PHASES = {"inference": ("link-prediction", "tooling"),
+              "inference-relation": ("link-prediction", "tooling"),
+              "query": ("clqa", "clqa-training", "tooling"),
+              "query-relation": ("clqa", "clqa-training", "tooling")}
 
 
 def training_shapes(cfg, member_graphs, query_graph):
@@ -3445,6 +3456,490 @@ def distributed_run(cfg, pna_cfg, split, graph, device="cuda"):
 
 
 
+# [tooling]: the modules the port took over last. The native join of the
+# graph of relations (ultra_tpu_torch/native) against the numpy join
+# (tasks.relation_graph_arrays_numpy), element for element and in order, on
+# bench.py's FB15k-237-shaped graph, the three rule-KGs of PRETRAIN_MEMBERS
+# and [clqa]'s query graph, with and without a live mask dropping
+# NATIVE_DROP of the edges, each timed on the host (median of NATIVE_RUNS).
+# The ragged-set ops (ops/variadic.py) and spmm_max on CUDA tensors against
+# the same ops on the CPU, on VARIADIC_SETS sets of up to V = 14,541
+# elements (two empty, ties): integers and indices equal, a max, min, sort
+# or top-k equal, arithmetic in f64 within VARIADIC_RTOL of the CPU's.
+# utils/profiling.py: a trace of one ultra_3g serving batch (its B1 kernel
+# events against the launch counter, its annotation), and StepTimer over
+# TIMER_BATCHES synchronised batches within TIMER_RTOL of their CUDA events.
+# The parity command lines in this process, against [link-prediction]'s
+# zero-shot and [clqa]'s test metrics from the same .pth files. The
+# supervisor (scripts/torch_supervise.py): its probe up on the card and
+# down under CUDA_VISIBLE_DEVICES="" within PROBE_DOWN_TIMEOUT, and
+# scripts/torch_run.py fine-tuning SUPERVISED_STEPS steps on
+# [link-prediction]'s dataset with a crash checkpoint every SUPERVISED_EVERY
+# steps, its child killed once the checkpoint appears, resumed, rc 0.
+NATIVE_DROP, NATIVE_RUNS = 0.25, 3
+VARIADIC_SETS, VARIADIC_RTOL = 8, 1e-6
+TIMER_BATCHES, TIMER_RTOL = 10, 0.10
+SUPERVISED_STEPS, SUPERVISED_EVERY, PROBE_DOWN_TIMEOUT = 24, 4, 60
+
+
+def cpu_model():
+    """The host CPU's model name, else its vendor, family and model numbers
+    (/proc/cpuinfo), else the machine's architecture."""
+    import platform
+
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    if fields.get("model name", "unknown") != "unknown":
+        return fields["model name"]
+    parts = [f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+             if fields.get(k, "unknown") != "unknown"]
+    return ", ".join(parts) or platform.machine()
+
+
+def native_join_run(graphs):
+    """{graph: {masked: (numpy ms, native ms, edges)}} of the two joins,
+    each held equal, dtype, element and order."""
+    from ultra_tpu_torch import native, tasks
+
+    check(native.available(), "the native join did not build or no g++ was found")
+    record = {}
+    for name, (ei, et, v, r) in graphs.items():
+        live = np.random.default_rng(0).random(ei.shape[1]) >= NATIVE_DROP
+        for masked in (False, True):
+            args = (ei, et, v, r, live if masked else None)
+            ms = {}
+            for join, fn in (("numpy", tasks.relation_graph_arrays_numpy),
+                             ("native", native.relgraph_build_native)):
+                runs = []
+                for _ in range(NATIVE_RUNS):
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    runs.append(1e3 * (time.perf_counter() - t0))
+                ms[join], ms[join + "_out"] = statistics.median(runs), out
+            equal = all(a.dtype == b.dtype == np.int64 and np.array_equal(a, b)
+                        for a, b in zip(ms["native_out"], ms["numpy_out"]))
+            check(equal, f"{name} (live mask {masked}): the native join differs from numpy's")
+            record[f"{name}{'/live' if masked else ''}"] = {
+                "numpy_ms": ms["numpy"], "native_ms": ms["native"],
+                "ratio": ms["numpy"] / ms["native"], "edges": int(ei.shape[1]),
+                "relation_graph_edges": int(ms["numpy_out"][1].size)}
+    return record
+
+
+def ragged_inputs(split):
+    """The [tooling] inputs of the ragged ops: VARIADIC_SETS set sizes up to
+    V (one of V, two empty), values of each kind, in-set targets."""
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(1, split.num_nodes + 1, VARIADIC_SETS)
+    sizes[[1, 5]], sizes[3] = 0, split.num_nodes
+    total = int(sizes.sum())
+    return rng, torch.from_numpy(sizes), {
+        "f64": torch.from_numpy(rng.normal(size=total)),
+        "ties": torch.from_numpy(rng.integers(0, 50, total).astype(np.float32)),
+        "int": torch.from_numpy(rng.integers(-1000, 1000, total).astype(np.int32))}
+
+
+def card_vs_cpu(fn, *args):
+    """``fn`` on CUDA copies of ``args`` against ``fn`` on them on the CPU:
+    (exact, max relative error of the floats)."""
+    card, cpu = fn(*(a.cuda() for a in args)), fn(*args)
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    exact, worst = True, 0.0
+    for c, p in zip(card, cpu):
+        c = c.cpu()
+        check(c.shape == p.shape and c.dtype == p.dtype,
+              f"card {c.dtype}{tuple(c.shape)} against CPU {p.dtype}{tuple(p.shape)}")
+        exact &= torch.equal(c, p)
+        if p.is_floating_point():
+            finite = torch.isfinite(p)
+            check(torch.equal(c[~finite], p[~finite]), "non-finite values differ")
+            err = ((c - p).abs() / p.abs())[finite & (p != 0)]
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+            check(torch.equal(c[p == 0], p[p == 0]), "a zero differs")
+    return exact, worst
+
+
+def ragged_ops_run(split, graph):
+    """Each op of ops/variadic.py and spmm_max on the card against the CPU;
+    returns {op: max relative error}."""
+    from ultra_tpu_torch.ops import spmm_max
+    from ultra_tpu_torch.ops import variadic as V
+
+    rng, sizes, values = ragged_inputs(split)
+    starts = torch.cumsum(sizes, 0) - sizes
+    record = {}
+
+    def hold(name, fn, *args, exact=True):
+        is_exact, worst = card_vs_cpu(fn, *args)
+        record[name] = worst
+        check(is_exact if exact else worst <= VARIADIC_RTOL,
+              f"{name} on the card differs from the CPU (max relative error {worst!r})")
+
+    hold("size_to_index", V.size_to_index, sizes)
+    hold("variadic_arange", V.variadic_arange, sizes)
+    for kind, value in values.items():
+        for op in ("variadic_max", "variadic_min"):
+            hold(f"{op}/{kind}", getattr(V, op), value, sizes)
+        for descending in (False, True):
+            hold(f"variadic_sort/{kind}/{descending}",
+                 lambda v, s, d=descending: V.variadic_sort(v, s, descending=d), value, sizes)
+        for k, largest in ((5, True), (5, False), (int(sizes.max()) + 3, True)):
+            hold(f"variadic_topk/{kind}/{k}/{largest}",
+                 lambda v, s, k=k, lg=largest: V.variadic_topk(v, s, k, largest=lg),
+                 value, sizes)
+        arithmetic = value.double() if kind == "ties" else value
+        for op in ("variadic_sum", "variadic_mean"):
+            hold(f"{op}/{kind}", getattr(V, op), arithmetic, sizes,
+                 exact=kind == "int" and op == "variadic_sum")
+        if kind != "int":
+            for op in ("variadic_softmax", "variadic_log_softmax"):
+                hold(f"{op}/{kind}", getattr(V, op), arithmetic, sizes, exact=False)
+    full = sizes[sizes > 0]
+    target = torch.from_numpy(rng.integers(0, full.numpy()))
+    hold("variadic_cross_entropy", V.variadic_cross_entropy,
+         torch.from_numpy(rng.normal(size=int(full.sum()))), target, full, exact=False)
+    hold("multi_slice_mask", lambda s, e: V.multi_slice_mask(s, e, int(sizes.sum())),
+         starts, starts + sizes // 2)
+    table = torch.from_numpy(rng.normal(size=(split.num_nodes, 8)))
+    mask = torch.from_numpy(rng.random((split.num_nodes, 8)) < 0.5)
+    for axis in (None, 0, 1):
+        hold(f"masked_mean/{axis}", lambda v, m, a=axis: V.masked_mean(v, m, a), table, mask,
+             exact=False)
+        hold(f"mean_with_nan/{axis}", lambda v, a=axis: V.mean_with_nan(v, a),
+             torch.where(mask, table, float("nan")), exact=False)
+    other = torch.from_numpy(rng.permutation(sizes.numpy()))
+    hold("variadic_extend", V.variadic_extend, values["f64"], sizes,
+         torch.from_numpy(rng.normal(size=int(other.sum()))), other)
+    # spmm_max over the entity graph's edges: rows without an edge, 0 values
+    ei = torch.from_numpy(np.asarray(split.edge_index))
+    value = torch.from_numpy(rng.normal(size=ei.shape[1]).astype(np.float32))
+    value[::10] = 0.0
+    for width in (8, None):
+        matrix = torch.from_numpy(rng.normal(
+            size=(split.num_nodes, width) if width else split.num_nodes).astype(np.float32))
+        hold(f"spmm_max/{width or '1-D'}",
+             lambda e, v, m: spmm_max(e, v, graph.num_nodes, graph.num_nodes, m),
+             ei, value, matrix)
+    return record
+
+
+def profiling_run(split, cfg):
+    """utils/profiling.py on one ultra_3g serving batch on the
+    FB15k-237-shaped graph (served as [serving] serves it): ``trace`` holds
+    one B1 kernel event for each launch the counter saw and the
+    ``annotate`` region; then StepTimer over TIMER_BATCHES batches
+    synchronised on their scores, against CUDA events around the same
+    batches. Returns (record, the traced batch's launches)."""
+    from ultra_tpu_torch.models.nbfnet import entity_nbfnet_score_all
+    from ultra_tpu_torch.train.loop import init_ultra_params
+    from ultra_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    base = ROOT / "build" / "chip_smoke" / "tooling"
+    ckpt = base / "ultra_3g_seed0.pth"
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    torch.save({"model": model.state_dict()}, ckpt)
+    pred = serve(split, ckpt, "cuda")
+    rng = np.random.default_rng(1)
+    h = rng.integers(0, split.num_nodes, BATCH)
+    r = rng.integers(0, split.num_relations // 2, BATCH)
+    pred.predict_tails(h, r, k=TOPK)  # warm
+    logdir = base / "trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    region = "tooling/serving_batch"
+    with trace(str(logdir)):
+        with annotate(region):
+            pred.predict_tails(h, r, k=TOPK)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    files = sorted(logdir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"trace wrote {files}, want one Chrome trace")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    b1_events = sum(n for name, n in kernels.items()
+                    if all(part in name for part in ("piece_kernel", "Gather", "Sum")))
+    b1_launches = sum(counts["rspmm_sum_fwd"].values()) + sum(counts["rspmm_sum_dx"].values())
+    record = {"trace": str(files[0].relative_to(ROOT)), "trace_bytes": files[0].stat().st_size,
+              "b1_kernel_events": b1_events, "b1_launches": b1_launches,
+              "kernel_events": sum(kernels.values()),
+              "top_kernels": dict(kernels.most_common(6)),
+              "annotation": any(e.get("name") == region for e in events)}
+
+    timer = StepTimer(window=TIMER_BATCHES, edges_per_step=int(pred.graph.csr.col.numel()))
+    hb, rb = torch.as_tensor(h, device=pred.device), torch.as_tensor(r, device=pred.device)
+    events_ms, enqueue_ms = [], []
+    with torch.no_grad():
+        for _ in range(TIMER_BATCHES):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            timer.start()
+            t0 = time.perf_counter()
+            start.record()
+            scores = entity_nbfnet_score_all(pred.model.entity_model, pred.graph,
+                                             pred.rel_reprs[rb], hb, rb)
+            end.record()
+            enqueue_ms.append(1e3 * (time.perf_counter() - t0))
+            timer.stop(sync=scores)
+            events_ms.append(start.elapsed_time(end))
+    record.update(step_timer_ms=1e3 * timer.mean_step_s, cuda_events_ms=statistics.mean(events_ms),
+                  host_enqueue_ms=statistics.mean(enqueue_ms), step_timer=timer.summary())
+    record["timer_gap"] = abs(record["step_timer_ms"] / record["cuda_events_ms"] - 1)
+    check(b1_events == b1_launches == len(pred.model.entity_model.layers),
+          f"the trace holds {b1_events} B1 kernel events, the counter {b1_launches} launches, "
+          f"want one a layer: {dict(kernels)}")
+    check(record["annotation"], f"the trace lacks the {region!r} region")
+    check(record["timer_gap"] <= TIMER_RTOL,
+          f"StepTimer read {record['step_timer_ms']!r} ms a batch, CUDA events "
+          f"{record['cuda_events_ms']!r}")
+    return record, counts
+
+
+def run_main(script, args, workdir):
+    """``scripts/<script>.py``'s ``main`` in this process, with ``args`` as
+    its command line, from ``workdir``; returns its last line as JSON."""
+    import io
+
+    module = load_script(script)
+    out, argv = io.StringIO(), sys.argv
+    workdir.mkdir(parents=True, exist_ok=True)
+    sys.argv = [f"{script}.py", *args]
+    try:
+        with contextlib.chdir(workdir), contextlib.redirect_stdout(out):
+            module.main()
+    finally:
+        sys.argv = argv
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def parity_runs(cfg, lp_root, records, clqa_dataset, clqa_graph):
+    """The two parity command lines in this process, from [link-prediction]'s
+    and [clqa]'s ``.pth`` files, each timed with its launches read around
+    it: their rows against those phases' zero-shot test metrics (the
+    scripts round to 4 digits) and their launches against those phases'
+    evaluations of the same splits. Returns (record, launches)."""
+    base = ROOT / "build" / "chip_smoke" / "tooling"
+    lp_test = records["link-prediction"]["zero_shot"]["results"]["test"]
+    clqa_test = records["clqa"]["results"]["test"]
+    runs = {
+        "parity_run": (
+            ["-d", "FBIngram:synth", "--ckpt", str(lp_root.parent / "ultra_3g_seed0.pth"),
+             "--root", str(lp_root)],
+            {"mrr": lp_test["mrr"], "hits@10": lp_test["hits@10"]},
+            records["link-prediction"]["zero_shot"]["launches"]),
+        "parity_run_query": (
+            ["-d", "FB15k237LogicalQuery", "--root", str(ROOT / CLQA_ROOT), "--ckpt",
+             str(ROOT / "build" / "chip_smoke" / "clqa" / "ultraquery_seed0.pth"), "--bs",
+             str(BATCH)],
+            {"epfo_mrr": clqa_test["[EPFO] mrr"], "epfo_hits@10": clqa_test["[EPFO] hits@10"],
+             "neg_mrr": clqa_test["[negation] mrr"],
+             "neg_hits@10": clqa_test["[negation] hits@10"]},
+            as_json(clqa_launches(cfg, clqa_dataset, clqa_graph, splits=(2,))[0])),
+    }
+    record, total = {}, {name: {} for name in WRAPPERS}
+    for script, (args, want, want_launches) in runs.items():
+        shutil.rmtree(base / script, ignore_errors=True)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = run_main(f"torch_{script}", args, base / script)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        total = plus(total, counts)
+        record[script] = {"wall_s": wall_s, "rows": report["rows"],
+                          "b1_launches": fwd_launches(counts), "launches": as_json(counts)}
+        check(len(report["rows"]) == 1 and "error" not in report["rows"][0],
+              f"torch_{script}.py reported {report['rows']}")
+        row = report["rows"][0]
+        check(all(row[k] == round(v, 4) for k, v in want.items()),
+              f"torch_{script}.py row {row}, want the phase's {want}")
+        check(as_json(counts) == want_launches,
+              f"torch_{script}.py launched {as_json(counts)}, want {want_launches}")
+    return record, total
+
+
+def proc_children(pid):
+    """The pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:  # ended meanwhile
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(entry))
+    return out
+
+
+def supervise_start(lp_root):
+    """Starts the supervisor three times: around ``python -c pass`` (its
+    probe must pass), the same with no card visible (it must give up), and
+    around scripts/torch_run.py fine-tuning on [link-prediction]'s dataset
+    with a crash checkpoint every SUPERVISED_EVERY steps (``--no-probe``:
+    the probe is held by the first two, and two more of its processes would
+    double the run's time). Returns
+    {name: (Popen, its workdir, its stdout and stderr paths, start)}."""
+    base = ROOT / "build" / "chip_smoke" / "tooling" / "supervise"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    yaml_text = (ROOT / "config" / "inductive" / "inference.yaml").read_text()
+    patched = yaml_text.replace("  root: ./kg-datasets/\n", f"  root: {lp_root}\n").replace(
+        "train:\n", f"train:\n  checkpoint_interval_steps: {SUPERVISED_EVERY}\n")
+    check(patched.count(str(lp_root)) == 1 and "checkpoint_interval_steps" in patched,
+          "config/inductive/inference.yaml no longer has the lines [tooling] edits")
+    (base / "supervised.yaml").write_text(patched)
+    supervise = [sys.executable, str(ROOT / "scripts" / "torch_supervise.py")]
+    env = dict(os.environ, SUPERVISE_MAX_BACKOFF="0")
+    runs = {
+        "probe_up": (["--backend-max-wait", "0", "--probe-timeout", "120", "--",
+                      sys.executable, "-c", "pass"], env),
+        "probe_down": (["--backend-max-wait", "0", "--probe-timeout", str(PROBE_DOWN_TIMEOUT),
+                        "--", sys.executable, "-c", "pass"], dict(env, CUDA_VISIBLE_DEVICES="")),
+        "fine_tune": (["--max-restarts", "2", "--no-probe", "--",
+                       sys.executable, str(ROOT / "scripts" / "torch_run.py"), "-c",
+                       str(base / "supervised.yaml"), "--dataset", "FBIngram", "--version",
+                       "synth", "--epochs", "1", "--bpe", str(SUPERVISED_STEPS), "--ckpt",
+                       str(lp_root.parent / "ultra_3g_seed0.pth")], env),
+    }
+    procs = {}
+    for name, (args, run_env) in runs.items():
+        work = base / name
+        out, err = base / f"{name}.out", base / f"{name}.err"
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs[name] = (subprocess.Popen([*supervise, "--workdir", str(work), *args],
+                                            env=run_env, stdout=fo, stderr=fe, cwd=base,
+                                            start_new_session=True),
+                           work, out, err, time.perf_counter())
+    return procs
+
+
+def kill_child_once(procs):
+    """Kills the fine-tuning supervisor's child (not the supervisor) once
+    its crash checkpoint appears; returns (pid, the checkpoint's step)."""
+    import signal
+
+    sup, work, _, _, _ = procs["fine_tune"]
+    ckpt = work / "model_latest.pth"
+    deadline = time.monotonic() + 300
+    while not ckpt.exists():
+        check(sup.poll() is None and time.monotonic() < deadline,
+              f"the supervisor ended (rc {sup.poll()}) or timed out before {ckpt} appeared")
+        time.sleep(0.01)
+    children = proc_children(sup.pid)
+    check(len(children) == 1, f"the supervisor has children {children}, want its command")
+    os.kill(children[0], signal.SIGKILL)
+    return children[0], int(torch.load(ckpt, map_location="cpu", weights_only=True)["step"])
+
+
+def supervise_finish(procs, killed):
+    """Waits for the three supervisors and holds each to its outcome."""
+    record, outs = {}, {}
+    for name, (proc, work, out, err, start) in procs.items():
+        rc = proc.wait(timeout=600)
+        record[name] = {"rc": rc, "wall_s": time.perf_counter() - start}
+        outs[name] = (out.read_text(), err.read_text())
+    down_err = outs["probe_down"][1]
+    check(record["probe_up"]["rc"] == 0,
+          f"the probe reported the card down: {outs['probe_up'][1][-2000:]}")
+    check(record["probe_down"]["rc"] == 75 and "backend never came up" in down_err
+          and record["probe_down"]["wall_s"] < PROBE_DOWN_TIMEOUT,
+          f"with no card visible the supervisor exited {record['probe_down']['rc']} after "
+          f"{record['probe_down']['wall_s']:.1f} s: {down_err[-2000:]}")
+    work = procs["fine_tune"][1]
+    out, err = outs["fine_tune"]
+    pid, step_at_kill = killed
+    after = err.split("restart 1:", 1)[1] if "restart 1:" in err else ""
+    resume_line = next((line for line in err.splitlines() if "restart 1:" in line), None)
+    resumed = [line for line in after.splitlines() if "resumed train state from" in line]
+    epochs = [line for line in after.splitlines() if "avg bce" in line]
+    final_step = int(torch.load(work / "model_latest.pth", map_location="cpu",
+                                weights_only=True)["step"])
+    record["fine_tune"].update(
+        killed_pid=pid, step_at_kill=step_at_kill, final_step=final_step,
+        steps_after_restart=final_step - step_at_kill, resume_line=resume_line,
+        runner_resume=resumed[:1], epoch_after_restart=epochs[-1:],
+        results=next((line for line in out.splitlines() if line.startswith("{'valid'")), None))
+    check(record["fine_tune"]["rc"] == 0, f"the supervised run exited "
+                                          f"{record['fine_tune']['rc']}: {err[-3000:]}")
+    check(resume_line is not None and str(work / "model_latest.pth") in resume_line
+          and len(resumed) == 1 and "restart 2:" not in err,
+          f"the run did not resume once from its crash checkpoint: {err[-3000:]}")
+    check(final_step - step_at_kill == SUPERVISED_STEPS and len(epochs) == 1
+          and f"{SUPERVISED_STEPS} steps" in epochs[0],
+          f"resumed at step {step_at_kill}, ended at {final_step}, epochs {epochs}")
+    return record
+
+
+def tooling_run(split, graph, cfg, lp_root, records, clqa_dataset, clqa_graph):
+    """[tooling] (see NATIVE_DROP): the native join first (timed on an idle
+    host), then the supervisors start in the background while this process
+    holds the ragged ops, profiling and the parity command lines. Returns
+    (the ``[tooling]`` record, the launches of the traced batch and the
+    parity runs)."""
+    from ultra_tpu_torch.data import kg
+
+    t0 = time.perf_counter()
+    graphs = {"fb15k237": (split.edge_index, split.edge_type, split.num_nodes,
+                           split.num_relations)}
+    for keys in PRETRAIN_MEMBERS:
+        keys = dict(keys)
+        train = kg.build_dataset(keys.pop("class"), str(ROOT / "kg-datasets"), **keys).load().train
+        graphs[f"rule-kg-v{keys['num_nodes']}"] = (train.edge_index, train.edge_type,
+                                                   train.num_nodes, train.num_relations)
+    qg = clqa_dataset.graphs[2]
+    graphs["query"] = (qg.edge_index, qg.edge_type, qg.num_nodes, qg.num_relations)
+    record = {"host": {"cpu": cpu_model(), "nproc": os.cpu_count(),
+                       "affinity": len(os.sched_getaffinity(0))},
+              "native_join": native_join_run(graphs)}
+    for name, row in record["native_join"].items():
+        print(f"[tooling] join {name}: numpy {row['numpy_ms']:.2f} ms, native "
+              f"{row['native_ms']:.2f} ms, ratio {row['ratio']:.2f} ({row['edges']} edges, "
+              f"{row['relation_graph_edges']} relation-graph edges; {record['host']['cpu']}, "
+              f"{record['host']['nproc']} CPUs)", flush=True)
+
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    procs = supervise_start(lp_root)
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        killed = pool.submit(kill_child_once, procs)
+        record["ragged_ops_max_rel_err"] = ragged_ops_run(split, graph)
+        record["profiling"], counts = profiling_run(split, cfg)
+        record["parity"], parity_counts = parity_runs(cfg, lp_root, records, clqa_dataset,
+                                                      clqa_graph)
+        record["supervise"] = supervise_finish(procs, killed.result(timeout=600))
+    finally:
+        # each supervisor leads its own process group, its commands with it
+        for proc, *_ in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        pool.shutdown()
+    record["wall_s"] = time.perf_counter() - t0
+    print("[tooling] " + json.dumps(record), flush=True)
+    for name, row in record["parity"].items():
+        print(f"[tooling] torch_{name}.py: {row['wall_s']:.2f} s, {row['b1_launches']} B1 "
+              f"launches, row {row['rows'][0]}", flush=True)
+    sup = record["supervise"]["fine_tune"]
+    print(f"[tooling] supervised torch_run.py: {sup['resume_line']} | "
+          f"{sup['runner_resume']} | resumed at step {sup['step_at_kill']}, "
+          f"{sup['steps_after_restart']} steps after the restart, rc {sup['rc']}, "
+          f"{sup['wall_s']:.1f} s", flush=True)
+    prof = record["profiling"]
+    print(f"[tooling] profiling: {prof['b1_kernel_events']} B1 kernel events for "
+          f"{prof['b1_launches']} launches; StepTimer {prof['step_timer_ms']:.3f} ms a batch, "
+          f"CUDA events {prof['cuda_events_ms']:.3f} ms, host enqueue "
+          f"{prof['host_enqueue_ms']:.3f} ms", flush=True)
+    return record, plus(counts, parity_counts)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3457,6 +3952,9 @@ def main() -> int:
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         parser.error(f"unknown phase in {phases}")
+    if "tooling" in phases and not {"link-prediction", "clqa"} <= set(phases):
+        parser.error("tooling holds the parity command lines to link-prediction and clqa: "
+                     "run those phases too")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -3566,7 +4064,7 @@ def main() -> int:
         query_train_graph = prepare_query_graph(clqa_dataset.graphs[0], device="cuda")
 
     cfg, pna_cfg = UltraConfig(), pna_config()  # ultra_3g, and its PNA variant
-    kernels, phase_counts, failures = {}, {}, []
+    kernels, phase_counts, records, failures = {}, {}, {}, []
 
     def run(phase, fn):
         """Run one phase; a failure is recorded and the next phase runs."""
@@ -3627,10 +4125,11 @@ def main() -> int:
         kernels.update(rows)
 
     def link_prediction_phase():
-        _, phase_counts["link-prediction"] = link_prediction_run(cfg, lp_root, lp_dataset)
+        records["link-prediction"], phase_counts["link-prediction"] = link_prediction_run(
+            cfg, lp_root, lp_dataset)
 
     def clqa_phase():
-        _, phase_counts["clqa"] = clqa_run(cfg, clqa_dataset, clqa_graph, smi)
+        records["clqa"], phase_counts["clqa"] = clqa_run(cfg, clqa_dataset, clqa_graph, smi)
 
     def pretrain_phase():
         _, phase_counts["pretrain"] = pretrain_run(cfg, member_graphs)
@@ -3641,6 +4140,12 @@ def main() -> int:
     def distributed_phase():
         _, phase_counts["distributed"] = distributed_run(cfg, pna_cfg, split, graph)
 
+    def tooling_phase():
+        check({"link-prediction", "clqa"} <= set(records),
+              "[link-prediction] or [clqa] failed: the parity command lines have no reference")
+        _, phase_counts["tooling"] = tooling_run(split, graph, cfg, lp_root, records,
+                                                 clqa_dataset, clqa_graph)
+
     run("visualize", visualize_phase)
     run("link-prediction", link_prediction_phase)
     run("clqa", clqa_phase)
@@ -3648,6 +4153,7 @@ def main() -> int:
     run("clqa-training", clqa_training_phase)
     run("distributed", distributed_phase)
     run("gather-probe", gather_probe_phase)
+    run("tooling", tooling_phase)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke failed:\n" + "\n".join(failures), file=sys.stderr)

@@ -147,3 +147,16 @@ def degree(graph: Graph, *, include_self_loop: bool = True):
     deg = torch.zeros(graph.num_nodes, dtype=torch.float32, device=graph.device)
     deg.index_add_(0, graph.edge_index[0], (graph.edge_weight != 0.0).float())
     return deg + 1.0 if include_self_loop else deg
+
+
+def spmm_max(edge_index, value, m: int, n: int, matrix):
+    """Sparse-dense product with max aggregation, as torch_sparse's:
+    ``out[row] = max_e value[e] * matrix[col_e]`` over the edges
+    ``(row, col) = edge_index``, -inf for a row with no edge; a 1-D
+    ``matrix`` is taken as (n, 1). Every edge counts, a 0 value as a
+    message of 0 (so not through B3, which reads weight 0 as no edge)."""
+    row, col = edge_index[0], edge_index[1]
+    matrix = matrix if matrix.ndim > 1 else matrix[:, None]
+    msg = matrix[col] * value[:, None]
+    out = torch.full((m, msg.shape[1]), float("-inf"), dtype=msg.dtype, device=msg.device)
+    return out.scatter_reduce_(0, row[:, None].expand_as(msg), msg, "amax", include_self=True)

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ultra_tpu_torch import native
 from ultra_tpu_torch.graph import Graph, make_graph
 
 
@@ -193,9 +194,21 @@ def build_relation_graph_arrays(edge_index, edge_type, num_nodes, num_relations,
     Two relations are joined when they share a node in the given roles:
     the nonzero pattern of the reference's sparse products E_x^T E_y, as a
     per-node join of the distinct (node, relation) incidence pairs.
-    Returns (edge_index (2, M), edge_type (M,)) with relation ids as nodes.
-    ``live``: optional boolean mask over edges.
+    Returns (edge_index (2, M), edge_type (M,)) with relation ids as nodes,
+    ordered by type, then source, then destination. ``live``: optional
+    boolean mask over edges. The native C++ join (``ultra_tpu_torch/native``)
+    computes it where ``g++`` is found, else
+    :func:`relation_graph_arrays_numpy`; both give the same arrays.
     """
+    out = native.relgraph_build_native(edge_index, edge_type, num_nodes, num_relations, live)
+    if out is not None:
+        return out
+    return relation_graph_arrays_numpy(edge_index, edge_type, num_nodes, num_relations, live)
+
+
+def relation_graph_arrays_numpy(edge_index, edge_type, num_nodes, num_relations, live=None):
+    """:func:`build_relation_graph_arrays` in numpy: the plain version of
+    the native join, taken without a compiler."""
     ei = np.asarray(edge_index, dtype=np.int64)
     et = np.asarray(edge_type, dtype=np.int64)
     if live is not None:

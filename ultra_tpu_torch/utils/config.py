@@ -73,12 +73,20 @@ def parse_args(
     for var in sorted(detect_variables(args.config)):
         var_parser.add_argument(f"--{var}", required=not optional_vars,
                                 **({"default": None} if optional_vars else {}))
-    vars_dict = {}
-    for k, v in vars(var_parser.parse_args(unparsed)).items():
-        if v is None:
-            continue
-        try:
-            vars_dict[k] = ast.literal_eval(v)
-        except (ValueError, SyntaxError):
-            vars_dict[k] = v
-    return args, vars_dict
+    flags = vars(var_parser.parse_args(unparsed))
+    return args, literal_eval_flags({k: v for k, v in flags.items() if v is not None})
+
+
+def literal_eval_flags(values: dict) -> dict:
+    """``values`` with each string that ``ast.literal_eval`` parses replaced
+    by its value (``"null"`` and other strings stay strings)."""
+    out = {}
+    for k, v in values.items():
+        if isinstance(v, str):
+            try:
+                out[k] = ast.literal_eval(v)
+                continue
+            except (ValueError, SyntaxError):
+                pass
+        out[k] = v
+    return out
