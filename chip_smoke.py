@@ -62,7 +62,14 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    batch of PNA_CHECK_BATCH rows;
 8. holds a ``max`` conv and a ``rotate`` conv (its sum runs B1 at twice the
    width) on the card against the same conv on the CPU;
-9. explains predictions (``[visualize]``): the edge gradients of the
+9. runs ``compute_dtype: bfloat16`` (``[bf16]``, see BF16_REL): the bf16
+   instances of B1-B6 against their plain versions in f64 on the same bf16
+   operands, each timed beside the f32 instance; then ultra_3g serving and
+   fine-tuning, the PNA model's scores and step (the step also against the
+   same step on the plain versions), attribution and a CLQA batch, each in
+   bf16 against f32 from the same weights and inputs, with their launches
+   asserted (no f32 instance may run); and a bf16 conv against the CPU;
+10. explains predictions (``[visualize]``): the edge gradients of the
    ``ultra_3g`` model for 4 queries on the FB15k-237-shaped graph, held
    against the same call on the CPU (and a TF32 control that must fail that
    check), with the launches of each call asserted, and one call of the PNA
@@ -71,7 +78,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    rule-KG ``kg-datasets/synthrule-v5000-b12-c6-e45000-s3``, from a
    ``.pth``, against the CPU; and the command line itself where PyYAML is
    installed, in its own process while this one runs the CPU references;
-10. runs link prediction (``[link-prediction]``) as
+11. runs link prediction (``[link-prediction]``) as
    ``scripts/torch_run.py`` runs it with ``config/inductive/inference.yaml``
    (``train/runner.py::run_link_prediction``), on a fully inductive dataset
    in InGram's layout written from the repo's two rule-KGs (see
@@ -82,7 +89,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    command line itself where PyYAML is installed, in its own process while
    this one runs the CPU references, whose test metrics must be the
    zero-shot run's;
-11. answers complex queries zero-shot (``[clqa]``) as
+12. answers complex queries zero-shot (``[clqa]``) as
    ``scripts/torch_run_query.py`` runs
    ``config/ultraquery/transductive_synth.yaml`` (its ``run``), on the
    repo's BetaE-format dataset (see CLQA_ROOT), from a ``.pth`` of random
@@ -92,14 +99,14 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    the HTTP server (``ultra_tpu_torch/server.py``) on the card over the
    same graph: both endpoints against direct calls, malformed requests
    refused with 400, and each endpoint's median latency;
-12. pretrains on a mixture (``[pretrain]``) as ``scripts/torch_pretrain.py``
+13. pretrains on a mixture (``[pretrain]``) as ``scripts/torch_pretrain.py``
    runs ``config/transductive/pretrain_synth.yaml`` (its ``run``; the repo's
    three rule-KGs, batch 32, 128 strict negatives, validation of 300
    triples a member) for one epoch of a few dozen steps, timed, its
    launches read around it; then steps on each member, timed with their
    peak memory and the host's sampling, the first timed step's launches
    asserted, and one step of the smallest member held against the CPU;
-13. trains UltraQuery (``[clqa-training]``) as ``scripts/torch_run_query.py``
+14. trains UltraQuery (``[clqa-training]``) as ``scripts/torch_run_query.py``
    runs ``transductive_synth.yaml`` with ``--epochs 1`` (its ``run``), per
    slot and with grouped projections and grad_accum 2, each run's launches
    held against the projection schedules of its steps and evaluations;
@@ -108,7 +115,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    timed with its host planning and peak memory, its launches asserted;
    and ``pretrain_queries`` over a ``JointQueryDataset`` of the repo's set
    and a member written by ``data/synthetic_queries.py``;
-14. runs multi-process training (``[distributed]``, see DIST_STEPS): a
+15. runs multi-process training (``[distributed]``, see DIST_STEPS): a
    1-rank group (nccl) through ``train_distributed`` and
    ``evaluate_distributed`` at ultra_3g width on the FB15k-237-shaped graph
    against the same schedule in one process; then 2 ranks over gloo on the
@@ -117,7 +124,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    the edges) and a data=2 grouped query step, each against the same global
    batch in one process, with each rank's launches, milliseconds a step and
    bytes and milliseconds of all-reduce a step;
-15. runs the gather probe (``[gather-probe]``,
+16. runs the gather probe (``[gather-probe]``,
    ``utils/benchlib.py::gather_probe``, the function
    ``scripts/torch_gather_probe.py`` runs): G1 and G2 at the TPU probes'
    shapes and G1 over the entity graph's edge sources, each equal to its
@@ -125,7 +132,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    same function; G2 also at 2, 4 and 8 lanes a thread, beside an empty
    kernel on its grid (the floor under G2) and on the grid it took before
    its redesign, and beside its walk storing its indices alone;
-16. holds the modules the port took over last (``[tooling]``, see
+17. holds the modules the port took over last (``[tooling]``, see
    NATIVE_DROP): the native join of the graph of relations against the
    numpy join on five graphs, both timed; the ragged-set ops and
    ``spmm_max`` on the card against the CPU; a ``utils/profiling.py`` trace
@@ -134,7 +141,7 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    against ``[link-prediction]``'s and ``[clqa]``'s metrics; and the
    supervisor's probe and a supervised fine-tuning whose child is killed
    once and resumes from its crash checkpoint;
-17. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+18. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises before the last line is printed.
@@ -163,7 +170,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ultra_tpu_torch.utils.benchlib import bound_ms, live_edges, rspmm_bound_ms
+from ultra_tpu_torch.utils.benchlib import bound_ms, live_edges, rspmm_bound_ms, tensor_bytes
 
 ROOT = Path(__file__).resolve().parent
 
@@ -178,7 +185,7 @@ KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
 # the kernel wrappers, each with its launch counter
 WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
             "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
-PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv",
+PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv", "bf16",
           "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "distributed",
           "gather-probe", "tooling")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
@@ -337,6 +344,50 @@ QUERY_MIX_MEMBER = dict(name="NELL-betae", num_nodes=2000, num_direct_rel=40,
 QUERY_MIX_STEPS, QUERY_MIX_FAST_TEST = 8, 64
 
 
+# [bf16]: compute_dtype bfloat16 (models/layers.py) on the card. The bf16
+# rows of the kernels line: the bf16 instances of B1-B6 at the main path's
+# shapes (BF16_TAGS: the name's mark and the launch key's instance), each
+# held against its plain version in f64 on the same bf16 operands as the f32
+# rows are and timed beside the f32 instance on the same values widened.
+# Then ultra_3g served and fine-tuned, the PNA model served and stepped,
+# attribution and a CLQA batch, each in bf16 against the same in f32 on the
+# card, from the same seed-0 weights and inputs; and a bf16 conv on the card
+# against the CPU. The bounds of bf16 against f32, derived from bf16's 8-bit
+# mantissa before the first run: rounding an operand to bf16 moves it by at
+# most 2^-9 of itself, so a product of two rounded operands moves by 2^-8,
+# and each conv's output by about 2^-8 of its scale; 12 layers (6 + 6) move a
+# score by at most about BF16_REL = 12 * 2^-8 of the largest |score|, and the
+# loss by as much of itself. A CLQA answer's logit passes up to 3 chained
+# projections: 3 * BF16_REL of the largest |logit|. Gradients run back
+# through the same layers and through ReLUs and layer norms at which a
+# rounding can flip a sign or a max: each tensor's max|err| is held to
+# BF16_GRAD_WORST of its largest entry and the median over the tensors (for
+# attribution, over the layers) to BF16_REL. PNA's std takes the square root
+# of a variance computed from bf16-rounded squares, and near EPS its
+# derivative 1/(2 std) amplifies that rounding without bound: the PNA step's
+# gradients against f32's are reported, not held. They are held instead
+# against the same bf16 step on the plain versions (plain_rspmm), which
+# round the operands as the kernels do: the gradients to the same two bounds
+# (a bf16 gradient rounded to either side of an f32 sum moves by one unit in
+# the last place), the loss to BF16_PNA_LOSS_RTOL. That std amplifies the
+# order of the f32 sums too, and the plain versions add with atomics whose
+# order changes from run to run: on an H100 their loss moved by 1.6e-5 of
+# itself between two runs while the kernels' was equal bit for bit (PERF.md),
+# past the f32 steps' LOSS_RTOL; 1e-4 is GRAD_REL_TO_MAX's level. The conv
+# on the card against the CPU, both in bf16, rounds the same operands the
+# same way: the f32 tolerance (SCORE_RTOL, SCORE_ATOL).
+BF16_TAGS = {torch.bfloat16: ("[bf16]", ("bf16_bf16",))}
+BF16_REL, BF16_GRAD_WORST, BF16_PNA_LOSS_RTOL = 12 * 2.0**-8, MINMAX_GRAD_WORST, 1e-4
+# the instance each wrapper launches on a bf16 model's path: the forwards,
+# B4, B5 and B6 take bf16 relation and x rows, the input gradient (B1 on the
+# source-major CSR) bf16 relation rows and the f32 output gradient, B2 bf16
+# x rows
+BF16_INSTANCES = {"rspmm_sum_fwd": "bf16_bf16", "rspmm_sum_dx": "bf16_f32",
+                  "rspmm_sum_drel": "bf16", "rspmm_minmax_fwd": "bf16_bf16",
+                  "rspmm_minmax_dx": "bf16_bf16", "rspmm_minmax_drel": "bf16_bf16",
+                  "rspmm_dw": "bf16_bf16"}
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -349,13 +400,12 @@ def check(cond: bool, msg: str) -> None:
 def dw_bound_ms(csr, edge_weight, relation, x, g, out=None):
     """Least time for one edge-weight gradient on these inputs: x, g, the
     saved output (min/max only), the relation rows and the CSR (16 bytes an
-    edge, the weight included) read once, d_w written once; 3 f32
-    operations per feature of each CSR edge for the sum (a runtime-masked
-    edge gets its derivative too), 5 per feature of each live edge for
-    min/max (the weighted message and its compare)."""
+    edge, the weight included) read once, each at its own element size, d_w
+    written once; 3 f32 operations per feature of each CSR edge for the sum
+    (a runtime-masked edge gets its derivative too), 5 per feature of each
+    live edge for min/max (the weighted message and its compare)."""
     feat = x.shape[1]
-    nbytes = 4 * (x.numel() + g.numel() + relation.numel() + edge_weight.numel())
-    nbytes += 4 * (0 if out is None else out.numel())
+    nbytes = tensor_bytes(x, g, relation, edge_weight, *(() if out is None else (out,)))
     nbytes += 8 * csr.rowptr.numel() + 16 * csr.col.numel()
     flops = (3 * csr.col.numel() if out is None else 5 * live_edges(edge_weight, csr.eid)) * feat
     return bound_ms(nbytes, flops)
@@ -363,22 +413,23 @@ def dw_bound_ms(csr, edge_weight, relation, x, g, out=None):
 
 def drel_bound_ms(seg, edge_weight, x, g, mul="mul"):
     """Least time for one sum relation gradient on these inputs: x (mul
-    only), g and the segments (src, dst, eid and the weight of each edge)
-    read once, d_rel written once, and 3 (mul) or 2 (add) f32 operations per
-    feature of each edge whose weight is not 0; the piece table is not
-    counted, as for B1."""
+    only, at its element size), g and the segments (src, dst, eid and the
+    weight of each edge) read once, d_rel written once, and 3 (mul) or 2
+    (add) f32 operations per feature of each edge whose weight is not 0; the
+    piece table is not counted, as for B1."""
     feat, num_edges = g.shape[1], seg.src.numel()
-    nbytes = 4 * ((x.numel() if mul == "mul" else 0) + g.numel() + seg.num_types * feat)
+    nbytes = tensor_bytes(*((x,) if mul == "mul" else ()), g) + 4 * seg.num_types * feat
     nbytes += 16 * num_edges
     return bound_ms(nbytes, (3 if mul == "mul" else 2) * live_edges(edge_weight, seg.eid) * feat)
 
 
 def minmax_dx_bound_ms(csr_src, edge_weight, relation, x, g):
     """Least time for one min/max input gradient on these inputs: x, g, the
-    saved output (g's shape), the relation rows and the CSR read once, d_x
-    written once, and 6 f32 operations per feature of each edge whose weight
-    is not 0 (the message, its compare, the routed product and the sum)."""
-    nbytes = 4 * (2 * x.numel() + 2 * g.numel() + relation.numel())
+    saved output (g's shape), the relation rows and the CSR read once (x and
+    the relation rows at their element size), the f32 d_x written once, and
+    6 f32 operations per feature of each edge whose weight is not 0 (the
+    message, its compare, the routed product and the sum)."""
+    nbytes = tensor_bytes(x, relation) + 4 * (x.numel() + 2 * g.numel())
     nbytes += 8 * csr_src.rowptr.numel() + 16 * csr_src.col.numel()
     return bound_ms(nbytes, 6 * live_edges(edge_weight, csr_src.eid) * x.shape[1])
 
@@ -386,10 +437,12 @@ def minmax_dx_bound_ms(csr_src, edge_weight, relation, x, g):
 def minmax_drel_bound_ms(seg, edge_weight, relation, x, g):
     """Least time for one min/max relation gradient on these inputs: x, g,
     the saved output (g's shape), the relation rows and the segments (src,
-    dst, eid and the weight of each edge) read once, d_rel written once, and
-    6 f32 operations per feature of each edge whose weight is not 0; the
-    piece table and the partial rows are not counted, as for B2."""
-    nbytes = 4 * (x.numel() + 2 * g.numel() + 2 * relation.numel()) + 16 * seg.src.numel()
+    dst, eid and the weight of each edge) read once (x and the relation rows
+    at their element size), the f32 d_rel written once, and 6 f32 operations
+    per feature of each edge whose weight is not 0; the piece table and the
+    partial rows are not counted, as for B2."""
+    nbytes = tensor_bytes(x, relation) + 4 * (2 * g.numel() + relation.numel())
+    nbytes += 16 * seg.src.numel()
     return bound_ms(nbytes, 6 * live_edges(edge_weight, seg.eid) * g.shape[1])
 
 
@@ -398,8 +451,9 @@ def kernel_row(name, source, replaces, launch_key, ms, plain_ms, bound, max_abs_
     """One entry of the kernels line; ``launches`` is filled in at the end
     from the main path's counts at ``launch_key``."""
     least_ms, bound_by = bound
+    f32_ms = f" f32_ms={extra['f32_ms']!r}" if "f32_ms" in extra else ""
     print(f"[kernel] {name}: ms={ms!r} plain_ms={plain_ms!r} bound_ms={least_ms!r} "
-          f"({bound_by})", flush=True)
+          f"({bound_by}){f32_ms}", flush=True)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": least_ms, "bound_by": bound_by,
@@ -431,7 +485,9 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
     TPU kernel it replaces. Returns (rows of the kernels line, ok); the row
     of "add" is named ``name`` with ``_add`` after the wrapper's name and is
     not on the path (distmult). Each row's launch key is the one the wrapper
-    counted for these inputs."""
+    counted for these inputs. Where ``a`` or ``b`` is bf16 (a bf16
+    instance), a row also gets ``f32_ms``: the f32 instance on the same
+    values widened to f32."""
     from ultra_tpu_torch.utils.benchlib import device_ms
 
     errs, ok = {}, True
@@ -446,17 +502,21 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
               f"worst_err_over_tolerance={within!r}", flush=True)
 
     rows = []
+    widened = {a.dtype, b.dtype} != {torch.float32}
     for mul, replaces in timed.items():
         wrapper, rest = name.split("/", 1)
         row_name = name if mul == "mul" else f"{wrapper}_{mul}/{rest}"
+        extra = {"piece_len": layout.piece_len} if hasattr(layout, "piece_len") else {}
+        if widened:
+            a32, b32 = a.float(), b.float()
+            extra["f32_ms"] = device_ms(lambda: kernel(layout, weight, a32, b32, mul))
         rows.append(kernel_row(
             row_name, source, replaces, key,
             device_ms(lambda: kernel(layout, weight, a, b, mul)),
             device_ms(lambda: plain(layout, weight, a, b, mul), samples=PLAIN_SAMPLES),
             bound(layout, weight, a, b, mul), errs[mul],
             f"|err| <= {KERNEL_REL_TO_ABS_SUM} * sum|terms| + {KERNEL_ATOL} against the "
-            "plain version in f64", on_path=mul == "mul", mul=mul,
-            **({"piece_len": layout.piece_len} if hasattr(layout, "piece_len") else {}),
+            "plain version in f64", on_path=mul == "mul", mul=mul, **extra,
         ))
     return rows, ok
 
@@ -553,7 +613,7 @@ def minmax_grad_error(got, terms_fn, layout, w, rel, x, g, out, mul, rows):
     return float(err.max()), within, ok, routed
 
 
-def hold_minmax(tag, g_, feat, gen, replaces):
+def hold_minmax(tag, g_, feat, gen, replaces, dtype=torch.float32):
     """B3, B4 and B5 against their plain versions on ``g_`` at ``feat``, on
     tie-heavy inputs (relation and x from {-3..3}, a quarter of x's rows 0)
     and on normal ones, for mul and add and for max and min, with weights
@@ -561,13 +621,18 @@ def hold_minmax(tag, g_, feat, gen, replaces):
     value, the all-masked row's -inf/+inf included; B4 and B5, given B3's
     output, must match plain versions that route in f32 as the forward did
     and add in f64. Times the three (normal inputs, mul, max) beside their
-    plain versions in f32. Returns ({row name: row}, ok)."""
+    plain versions in f32. With ``dtype`` bf16 the relation and x rows are
+    rounded to bf16 (their bf16 instances; rows named ``...[bf16]/...``,
+    each with ``f32_ms``, the f32 instance on the same values widened).
+    Returns ({row name: row}, ok)."""
     from ultra_tpu_torch.ops import rspmm_minmax_cuda as k
     from ultra_tpu_torch.utils.benchlib import device_ms
 
     w, masked_row = minmax_weights(g_, gen)
     n, r = g_.num_nodes, g_.num_relations
-    inputs = minmax_inputs(r, n, feat, gen)
+    inputs = {kind: tuple(t.to(dtype) for t in pair)
+              for kind, pair in minmax_inputs(r, n, feat, gen).items()}
+    kind_tag, key_tag = BF16_TAGS.get(dtype, ("", ()))
     g = torch.randn(n, feat, generator=gen).cuda()
     grads = (("dx", k.rspmm_minmax_dx, k.rspmm_minmax_dx_terms, g_.csr_src, n),
              ("drel", k.rspmm_minmax_drel, k.rspmm_minmax_drel_terms, g_.segments, r))
@@ -599,36 +664,45 @@ def hold_minmax(tag, g_, feat, gen, replaces):
     out = k.rspmm_minmax_fwd(g_.csr, w, rel, x, "mul", False)
     grad_tol = (f"|err| <= {KERNEL_REL_TO_ABS_SUM} * sum|terms| + {KERNEL_ATOL} against the "
                 "plain version routed in f32 and added in f64")
+    calls = {
+        "fwd": lambda rel, x: k.rspmm_minmax_fwd(g_.csr, w, rel, x, "mul", False),
+        "dx": lambda rel, x: k.rspmm_minmax_dx(g_.csr_src, w, rel, x, g, out, "mul"),
+        "drel": lambda rel, x: k.rspmm_minmax_drel(g_.segments, w, rel, x, g, out, "mul"),
+    }
+    rel32, x32 = rel.float(), x.float()
+    extra = {name: ({"f32_ms": device_ms(lambda: call(rel32, x32))} if kind_tag else {})
+             for name, call in calls.items()}
     rows = [
         kernel_row(
-            f"rspmm_minmax_fwd/{tag}/F{feat}", "ultra_tpu_torch/csrc/rspmm_minmax_fwd.cu",
-            replaces["fwd"], out.shape,
-            device_ms(lambda: k.rspmm_minmax_fwd(g_.csr, w, rel, x, "mul", False)),
+            f"rspmm_minmax_fwd{kind_tag}/{tag}/F{feat}",
+            "ultra_tpu_torch/csrc/rspmm_minmax_fwd.cu", replaces["fwd"],
+            tuple(out.shape) + key_tag, device_ms(lambda: calls["fwd"](rel, x)),
             device_ms(lambda: k.rspmm_minmax_fwd_plain(g_.csr, w, rel, x, "mul", False),
                       samples=PLAIN_SAMPLES),
             rspmm_bound_ms(g_.csr, w, rel, x), errs["fwd"],
-            "equal to the plain version in f32, value for value", on_path=tag == "entity"),
+            "equal to the plain version in f32, value for value", on_path=tag == "entity",
+            **extra["fwd"]),
         kernel_row(
-            f"rspmm_minmax_dx/{tag}/F{feat}", "ultra_tpu_torch/csrc/rspmm_minmax_dx.cu",
-            replaces["dx"], x.shape,
-            device_ms(lambda: k.rspmm_minmax_dx(g_.csr_src, w, rel, x, g, out, "mul")),
+            f"rspmm_minmax_dx{kind_tag}/{tag}/F{feat}",
+            "ultra_tpu_torch/csrc/rspmm_minmax_dx.cu", replaces["dx"],
+            tuple(x.shape) + key_tag, device_ms(lambda: calls["dx"](rel, x)),
             device_ms(lambda: k.rspmm_minmax_dx_plain(g_.csr_src, w, rel, x, g, out, "mul"),
                       samples=PLAIN_SAMPLES),
             minmax_dx_bound_ms(g_.csr_src, w, rel, x, g), errs["dx"], grad_tol,
-            on_path=tag == "entity"),
+            on_path=tag == "entity", **extra["dx"]),
         kernel_row(
-            f"rspmm_minmax_drel/{tag}/F{feat}", "ultra_tpu_torch/csrc/rspmm_minmax_drel.cu",
-            replaces["drel"], rel.shape,
-            device_ms(lambda: k.rspmm_minmax_drel(g_.segments, w, rel, x, g, out, "mul")),
+            f"rspmm_minmax_drel{kind_tag}/{tag}/F{feat}",
+            "ultra_tpu_torch/csrc/rspmm_minmax_drel.cu", replaces["drel"],
+            tuple(rel.shape) + key_tag, device_ms(lambda: calls["drel"](rel, x)),
             device_ms(lambda: k.rspmm_minmax_drel_plain(g_.segments, w, rel, x, g, out, "mul"),
                       samples=PLAIN_SAMPLES),
             minmax_drel_bound_ms(g_.segments, w, rel, x, g), errs["drel"], grad_tol,
-            on_path=tag == "entity"),
+            on_path=tag == "entity", **extra["drel"]),
     ]
     return {row["name"]: row for row in rows}, ok
 
 
-def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
+def hold_dw(g_, gen, tag="entity", feats=(64, 512), dtype=torch.float32):
     """B6 against its plain version on the entity graph ``g_`` (named
     ``tag``), at each of ``feats``: F=64 is an attribution call's width (one
     query of D=64), F=512 a batch's. With weights
@@ -637,7 +711,9 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
     (given B3's output) for mul and add, min and max, on tie-heavy and
     normal inputs. The plain version routes in f32 as the forward did and
     adds in f64. Times the sum (mul) at each width and min/max (mul, max)
-    at F=512 beside the plain version in f32. Returns ({row name: row}, ok)."""
+    at F=512 beside the plain version in f32. With ``dtype`` bf16 the
+    relation and x rows are rounded to bf16, as in :func:`hold_minmax`.
+    Returns ({row name: row}, ok)."""
     from ultra_tpu_torch.ops import rspmm_cuda as k
     from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd
     from ultra_tpu_torch.utils.benchlib import device_ms
@@ -648,8 +724,10 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
     ok, rows, tol = True, {}, (f"|err| <= {KERNEL_REL_TO_ABS_SUM} * sum|terms| + {KERNEL_ATOL} "
                                "against the plain version routed in f32 and added in f64")
     replaces = "ultra_tpu/ops/rspmm_pallas.py:465"
+    kind_tag, key_tag = BF16_TAGS.get(dtype, ("", ()))
     for feat in feats:
-        inputs = minmax_inputs(r, n, feat, gen)
+        inputs = {kind: tuple(t.to(dtype) for t in pair)
+                  for kind, pair in minmax_inputs(r, n, feat, gen).items()}
         g = torch.randn(n, feat, generator=gen).cuda()
         errs = {"sum": 0.0, "minmax": 0.0}
         for agg, kind, mul, is_min in DW_CASES:
@@ -664,19 +742,22 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512)):
                   f"max_abs_err={err!r} worst_err_over_tolerance={within!r} "
                   f"routed_terms={routed}", flush=True)
         rel, x = inputs["normal"]
-        timed = [(f"rspmm_dw/{tag}/F{feat}", None, feat == 64)]
+        timed = [(f"rspmm_dw{kind_tag}/{tag}/F{feat}", None, feat == 64)]
         if feat == 512:
-            timed.append((f"rspmm_dw_minmax/{tag}/F{feat}",
+            timed.append((f"rspmm_dw_minmax{kind_tag}/{tag}/F{feat}",
                           rspmm_minmax_fwd(csr, w, rel, x, "mul", False), False))
         for name, out, on_path in timed:
             agg = "sum" if out is None else "minmax"
+            rel32, x32 = rel.float(), x.float()
+            extra = ({"f32_ms": device_ms(lambda: k.rspmm_dw(csr, w, rel32, x32, g, "mul", out))}
+                     if kind_tag else {})
             rows[name] = kernel_row(
-                name, "ultra_tpu_torch/csrc/rspmm_dw.cu", replaces, (n, feat),
+                name, "ultra_tpu_torch/csrc/rspmm_dw.cu", replaces, (n, feat) + key_tag,
                 device_ms(lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", out)),
                 device_ms(lambda: k.rspmm_dw_plain(csr, w, rel, x, g, "mul", out),
                           samples=PLAIN_SAMPLES),
                 dw_bound_ms(csr, w, rel, x, g, out), errs[agg], tol, on_path=on_path,
-                aggregate=agg)
+                aggregate=agg, **extra)
     return rows, ok
 
 
@@ -3940,6 +4021,423 @@ def tooling_run(split, graph, cfg, lp_root, records, clqa_dataset, clqa_graph):
     return record, plus(counts, parity_counts)
 
 
+def bf16_config(cfg):
+    """``cfg`` with ``compute_dtype: bfloat16`` in both models."""
+    return dataclasses.replace(
+        cfg, relation_model=dataclasses.replace(cfg.relation_model, compute_dtype="bfloat16"),
+        entity_model=dataclasses.replace(cfg.entity_model, compute_dtype="bfloat16"))
+
+
+def as_bf16(counts):
+    """Launch counts predicted for an f32 model as a bf16 model's: each key
+    with its wrapper's bf16 instance (BF16_INSTANCES)."""
+    return {name: {tuple(shape) + (BF16_INSTANCES[name],): n for shape, n in by_shape.items()}
+            for name, by_shape in counts.items()}
+
+
+def f32_launches(counts):
+    """The launches of ``counts`` that went to an f32 instance: none may in a
+    bf16 model's run."""
+    return {name: n for name, by_shape in counts.items() for shape, n in by_shape.items()
+            if not isinstance(shape[-1], str)}
+
+
+def bf16_kernels(graph, cfg, gen):
+    """The bf16 instances of B1-B6 against their plain versions in f64 on the
+    same bf16 operands, at the main path's shapes: B1 on the entity graph at
+    F=512 and on the relation graph at F=512 and 4096 (the precompute), B1
+    on the source-major CSR and B2 on both graphs at F=512, B3, B4 and B5 on
+    the entity graph at F=512, B6 at attribution's F=64; each timed beside
+    its plain version and the f32 instance (``f32_ms``). Returns ({row name:
+    row}, ok)."""
+    from ultra_tpu_torch.ops import rspmm_cuda as k
+
+    fwd_src, drel_src = (f"ultra_tpu_torch/csrc/{n}.cu" for n in KERNELS[:2])
+    dim = cfg.entity_model.input_dim
+    feat = BATCH * dim
+    rows, ok = {}, True
+    for tag, g_, fwd_feats, fwd_replaces, drel_replaces in (
+        ("entity", graph, (feat,), "ultra_tpu/ops/rspmm_pallas_v2.py:508",
+         "ultra_tpu/ops/rspmm_pallas_v2.py:1054"),
+        ("relation", graph.relation_graph, (feat, PRECOMPUTE_CHUNK * dim),
+         "ultra_tpu/ops/rspmm_pallas.py:283", "ultra_tpu/ops/rspmm_pallas.py:381"),
+    ):
+        w = (g_.edge_weight.cpu() * (torch.rand(g_.edge_weight.shape, generator=gen) >= 0.1))
+        w = w.cuda()
+        rand = lambda *shape, dtype=torch.bfloat16: torch.randn(
+            *shape, generator=gen).to(dtype).cuda()
+        cases = [(f"rspmm_sum_fwd[bf16]/{tag}/F{f}", fwd_src, fwd_replaces, k.rspmm_sum_fwd,
+                  k.rspmm_sum_fwd_plain, g_.csr, rand(g_.num_relations, f), rand(g_.num_nodes, f),
+                  rspmm_bound_ms) for f in fwd_feats]
+        cases += [
+            (f"rspmm_sum_dx[bf16]/{tag}/F{feat}", fwd_src, fwd_replaces, k.rspmm_sum_dx,
+             k.rspmm_sum_dx_plain, g_.csr_src, rand(g_.num_relations, feat),
+             rand(g_.num_nodes, feat, dtype=torch.float32), rspmm_bound_ms),
+            (f"rspmm_sum_drel[bf16]/{tag}/F{feat}", drel_src, drel_replaces, k.rspmm_sum_drel,
+             k.rspmm_sum_drel_plain, g_.segments, rand(g_.num_nodes, feat),
+             rand(g_.num_nodes, feat, dtype=torch.float32), drel_bound_ms)]
+        for name, source, replaces, kernel, plain, layout, a, b, bound in cases:
+            case_rows, case_ok = hold(name, source, {"mul": replaces}, kernel, plain, layout,
+                                      w, a, b, bound)
+            rows.update((row["name"], row) for row in case_rows)
+            ok &= case_ok
+    minmax_rows, minmax_ok = hold_minmax(
+        "entity", graph, feat, gen,
+        {"fwd": "ultra_tpu/ops/rspmm_pallas_v2.py:704",
+         "dx": "ultra_tpu/ops/rspmm_pallas_v2.py:927",
+         "drel": "ultra_tpu/ops/rspmm_pallas_v2.py:982"}, dtype=torch.bfloat16)
+    dw_rows, dw_ok = hold_dw(graph, gen, "entity", (dim,), dtype=torch.bfloat16)
+    rows.update(minmax_rows)
+    rows.update(dw_rows)
+    return rows, ok and minmax_ok and dw_ok
+
+
+def grad_ratios(got, want):
+    """{tensor: max|got - want| / max|want|} over two dicts of gradients."""
+    return {k: float((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for k, w in want.items()}
+
+
+def timed_blocks(runs, n):
+    """Each of ``runs`` ({name: fn}) ``n`` times a block, the blocks in the
+    order a, b, b, a (two names), each ending in a synchronize: ({name: ms of
+    each call}, {name: the block's largest device memory above what was
+    allocated before it, MiB}, {name: calls a second})."""
+    (a, fa), (b, fb) = runs.items()
+    lat, work, busy = {a: [], b: []}, {a: 0.0, b: 0.0}, {a: 0.0, b: 0.0}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_block = time.perf_counter()
+        for i in range(n):
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            lat[name].append(1e3 * (time.perf_counter() - t0))
+        busy[name] += time.perf_counter() - t_block
+        work[name] = max(work[name], (torch.cuda.max_memory_allocated() - base) / 2**20)
+    return lat, work, {name: len(lat[name]) / busy[name] for name in lat}
+
+
+def bf16_serving(split, cfg, cfg16):
+    """ultra_3g served in f32 and in bf16 through
+    ``UltraPredictor.from_checkpoint`` from one ``.pth`` of seed-0 weights:
+    each precompute's launches and resident memory, TIMED_BATCHES batches of
+    tail requests each (the same batches, timed in blocks f32, bf16, bf16,
+    f32), the scores of one batch and its top 10. Returns (record, the bf16
+    launches, ok)."""
+    from ultra_tpu_torch.serve import UltraPredictor
+    from ultra_tpu_torch.train.loop import init_ultra_params
+
+    num_nodes, num_rel = split.num_nodes, split.num_relations
+    dim = cfg.entity_model.input_dim
+    ckpt = ROOT / "build" / "chip_smoke" / "ultra_3g_seed0.pth"
+    model = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    torch.save({"model": model.state_dict()}, ckpt)
+    preds, resident, counts = {}, {}, {}
+    for name, c in (("f32", cfg), ("bf16", cfg16)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        preds[name] = UltraPredictor.from_checkpoint(str(ckpt), split, cfg=c, device="cuda",
+                                                     batch_size=BATCH)
+        torch.cuda.synchronize()
+        resident[name] = (torch.cuda.memory_allocated() - before) / 2**20
+        counts[name] = launch_counts()
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, num_nodes, BATCH), rng.integers(0, num_rel // 2, BATCH))
+               for _ in range(TIMED_BATCHES)]
+    top = {name: pred.predict_tails(*batches[0], k=TOPK) for name, pred in preds.items()}
+    reset_launch_counts()
+    lat, work, per_s = timed_blocks(
+        {name: (lambda i, p=pred: p.predict_tails(*batches[i], k=TOPK))
+         for name, pred in preds.items()}, TIMED_BATCHES // 2)
+    timed_counts = launch_counts()
+    scores = {name: pred.score_all(*batches[0]) for name, pred in preds.items()}
+    del preds
+    torch.cuda.empty_cache()
+
+    err = float(np.abs(scores["bf16"] - scores["f32"]).max())
+    scale = float(np.abs(scores["f32"]).max())
+    overlap = float(np.mean([len(set(a) & set(b)) / TOPK
+                             for a, b in zip(top["f32"][1], top["bf16"][1])]))
+    per_batch = forward_launches(cfg.entity_model, num_nodes, BATCH * dim)
+    want_precompute = times(forward_launches(cfg.relation_model, num_rel,
+                                             PRECOMPUTE_CHUNK * dim),
+                            -(-num_rel // PRECOMPUTE_CHUNK))
+    want_timed = plus(times(per_batch, TIMED_BATCHES), as_bf16(times(per_batch, TIMED_BATCHES)))
+    record = {
+        name: {"batch_ms_median": statistics.median(lat[name]), "batch_ms_min": min(lat[name]),
+               "batch_ms_max": max(lat[name]), "requests_per_s": BATCH * per_s[name],
+               "resident_mib": resident[name], "batch_working_mib": work[name],
+               "peak_mib": resident[name] + work[name]}
+        for name in ("f32", "bf16")}
+    record.update({"max_abs_score_diff": err, "max_abs_score_f32": scale,
+                   "score_bound": BF16_REL * scale, "top10_overlap": overlap,
+                   "launches": {"bf16_precompute": as_json(counts["bf16"]),
+                                "timed": as_json(timed_counts)}})
+    ok = err <= BF16_REL * scale
+    ok &= counts["f32"] == want_precompute and counts["bf16"] == as_bf16(want_precompute)
+    ok &= timed_counts == want_timed
+    ok &= bool(all(np.isfinite(s).all() for s in scores.values()))
+    return record, plus(counts["bf16"], as_bf16(times(per_batch, TIMED_BATCHES))), ok
+
+
+@contextlib.contextmanager
+def plain_rspmm():
+    """The rspmm's autograd Functions (``ops/rspmm.py``) on the kernels'
+    plain PyTorch versions, whatever the device: a reference that rounds
+    the operands as the kernels do and sums in f32 in other orders. Nothing
+    is counted as a launch."""
+    from ultra_tpu_torch.ops import rspmm, rspmm_cuda, rspmm_minmax_cuda
+
+    names = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_dw",
+             "rspmm_minmax_fwd", "rspmm_minmax_dx", "rspmm_minmax_drel")
+    saved = {name: getattr(rspmm, name) for name in names}
+    try:
+        for name in names:
+            module = rspmm_minmax_cuda if name.startswith("rspmm_minmax") else rspmm_cuda
+            setattr(rspmm, name, getattr(module, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(rspmm, name, fn)
+
+
+def bf16_training(split, graph, cfg, cfg16, n_steps, rows=BATCH, plain=False):
+    """One step of ``cfg`` and of ``cfg16`` from the same seed-0 weights on
+    the same batch of ``rows`` rows (loss and gradients), and with ``plain``
+    the ``cfg16`` step again on the plain versions (:func:`plain_rspmm`);
+    then ``n_steps`` more of each of the first two, timed in blocks f32,
+    bf16, bf16, f32, with their launches. Returns (record, the bf16 steps'
+    launches, {run: {tensor: gradient}})."""
+    from ultra_tpu_torch.models.nbfnet import Ultra
+    from ultra_tpu_torch.train.loop import init_train_state, init_ultra_params, make_train_step
+
+    _, batches = dist_batches(split, graph, 1 + n_steps // 2, rows, seed=1)
+    on_card = [tuple(torch.as_tensor(a, device="cuda") for a in b) for b in batches]
+    init = init_ultra_params(cfg, torch.Generator().manual_seed(0), device="cpu").state_dict()
+    step = make_train_step(adversarial_temperature=1.0, num_negative=NUM_NEGATIVE)
+    states, losses, grads, first = {}, {}, {}, {}
+    runs = [("f32", cfg), ("bf16", cfg16)] + ([("bf16_plain", cfg16)] if plain else [])
+    for name, c in runs:
+        model = Ultra(c)
+        model.load_state_dict(init)
+        states[name] = init_train_state(model.cuda(), lr=LR, weight_decay=WEIGHT_DECAY)
+        reset_launch_counts()
+        with plain_rspmm() if name == "bf16_plain" else contextlib.nullcontext():
+            losses[name] = float(step(states[name], graph, *on_card[0]))
+        torch.cuda.synchronize()
+        first[name] = launch_counts()
+        grads[name] = {k: p.grad.detach().clone() for k, p in states[name].model.named_parameters()}
+    states.pop("bf16_plain", None)
+    want = per_step_launches(cfg, graph.num_nodes, graph.num_relations, batch=rows)
+    record = {"rows": rows, "loss": losses,
+              "launches_first_step": {k: as_json(first[k]) for k in ("f32", "bf16")},
+              "launches_ok": first["f32"] == want and first["bf16"] == as_bf16(want)}
+    bf16_counts = first["bf16"]
+    if n_steps:
+        reset_launch_counts()
+        lat, work, per_s = timed_blocks(
+            {name: (lambda i, st=st: step(st, graph, *on_card[1 + i]))
+             for name, st in states.items()}, n_steps // 2)
+        timed_counts = launch_counts()
+        n = 2 * (n_steps // 2)
+        record["launches_ok"] &= timed_counts == plus(times(want, n), as_bf16(times(want, n)))
+        bf16_counts = plus(bf16_counts, as_bf16(times(want, n)))
+        record.update({name: {"step_ms_median": statistics.median(lat[name]),
+                              "step_ms_min": min(lat[name]), "step_ms_max": max(lat[name]),
+                              "steps_per_s": per_s[name], "step_working_mib": work[name]}
+                       for name in lat})
+        record["launches_timed"] = as_json(timed_counts)
+    return record, bf16_counts, grads
+
+
+def bf16_attribution(split, graph, cfg, cfg16):
+    """``edge_gradients`` of one target triple (as ``[visualize]`` picks
+    them) in f32 and in bf16 from the same seed-0 weights: the call's ms and
+    launches, and per layer max|err| over the live edges against the f32
+    call's largest |gradient|. Returns (record, the bf16 launches, ok)."""
+    from ultra_tpu_torch.models.visualize import edge_gradients
+    from ultra_tpu_torch.train.loop import init_ultra_params
+
+    i = int(np.random.default_rng(4).choice(split.target_edge_index.shape[1], 1)[0])
+    query = (int(split.target_edge_index[0, i]), int(split.target_edge_index[1, i]),
+             int(split.target_edge_type[i]))
+    live = (graph.edge_weight != 0).cpu().numpy()
+    grads, ms, counts = {}, {}, {}
+    for name, c in (("f32", cfg), ("bf16", cfg16)):
+        model = init_ultra_params(c, torch.Generator().manual_seed(0), device="cuda")
+        edge_gradients(model, graph, *query)  # warm-up
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads[name] = edge_gradients(model, graph, *query)  # copies to the host
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        counts[name] = launch_counts()
+    ratios = [float(np.abs(b - a)[live].max() / max(np.abs(a[live]).max(), 1e-30))
+              for a, b in zip(grads["f32"], grads["bf16"])]
+    want = attribution_launches(cfg, graph.num_nodes, split.num_relations)
+    record = {"query": query, "ms": ms, "layer_err_over_max": ratios,
+              "launches": as_json(counts["bf16"])}
+    ok = max(ratios) <= BF16_GRAD_WORST and statistics.median(ratios) <= BF16_REL
+    ok &= counts["f32"] == want and counts["bf16"] == as_bf16(want)
+    return record, counts["bf16"], ok
+
+
+def bf16_clqa(cfg, cfg16, dataset, graph):
+    """One batch of BATCH test queries (the first of each of as many
+    types) answered by UltraQuery of seed-0 weights in f32 and in bf16
+    (``query/trainer.py::make_query_forward_grouped``, after the relation
+    precompute): the logits' largest difference against 3 * BF16_REL of the
+    largest |logit|, and the bf16 launches: the precompute and the entity
+    model once a round of the batch's projection schedule. Returns (record,
+    the bf16 launches, ok)."""
+    from ultra_tpu_torch.query import ops
+    from ultra_tpu_torch.query.executor import QueryConfig, projection_schedule
+    from ultra_tpu_torch.query.trainer import make_query_forward_grouped
+    from ultra_tpu_torch.train.eval import precompute_relation_representations
+    from ultra_tpu_torch.train.loop import init_ultra_params
+
+    lo, hi = dataset.split_ranges()[2]
+    types = [t for t in range(len(dataset.id2type)) if (dataset.types[lo:hi] == t).any()]
+    types = types[:BATCH]
+    picked = np.array([lo + np.nonzero(dataset.types[lo:hi] == t)[0][0] for t in types])
+    kind, operand = ops.decompose(dataset.queries[picked])
+    qcfg = QueryConfig(logic="product", dropout_ratio=0.0, threshold=0.8)
+    logits, counts = {}, {}
+    for name, c in (("f32", cfg), ("bf16", cfg16)):
+        model = init_ultra_params(c, torch.Generator().manual_seed(0), device="cuda").eval()
+        reset_launch_counts()
+        rel_reprs = precompute_relation_representations(model, graph)
+        logits[name] = make_query_forward_grouped(model, qcfg)(graph, kind, operand,
+                                                               rel_reprs).cpu().numpy()
+        counts[name] = launch_counts()
+    rounds = projection_schedule(np.asarray(kind))[3]
+    dim = cfg.entity_model.input_dim
+    want = plus(times(forward_launches(cfg.relation_model, graph.num_relations,
+                                       PRECOMPUTE_CHUNK * dim),
+                      -(-graph.num_relations // PRECOMPUTE_CHUNK)),
+                times(forward_launches(cfg.entity_model, graph.num_nodes, BATCH * dim), rounds))
+    err = float(np.abs(logits["bf16"] - logits["f32"]).max())
+    scale = float(np.abs(logits["f32"]).max())
+    prob = lambda a: 1.0 / (1.0 + np.exp(-a.astype(np.float64)))
+    record = {"queries": len(picked), "types": [dataset.id2type[t] for t in types],
+              "rounds": rounds, "max_abs_logit_diff": err, "max_abs_logit_f32": scale,
+              "logit_bound": 3 * BF16_REL * scale,
+              "max_abs_prob_diff": float(np.abs(prob(logits["bf16"]) - prob(logits["f32"])).max()),
+              "launches": as_json(counts["bf16"])}
+    ok = err <= 3 * BF16_REL * scale and bool(np.isfinite(logits["bf16"]).all())
+    ok &= counts["f32"] == want and counts["bf16"] == as_bf16(want)
+    return record, counts["bf16"], ok
+
+
+def bf16_conv(graph, num_rel):
+    """A bf16 conv (distmult, sum, F=512 on the entity graph) on the card
+    against the same conv on the CPU, forward, within SCORE_RTOL/SCORE_ATOL:
+    both round the same operands to bf16 and sum in f32, in other orders.
+    Returns (record, ok)."""
+    from ultra_tpu_torch.models.layers import ConvConfig, GeneralizedRelationalConv
+
+    gen = torch.Generator().manual_seed(3)
+    x, boundary = (torch.randn(graph.num_nodes, BATCH, 64, generator=gen) for _ in range(2))
+    query = torch.randn(BATCH, 64, generator=gen)
+    torch.manual_seed(0)
+    conv = GeneralizedRelationalConv(ConvConfig(num_relation=num_rel, compute_dtype="bfloat16"))
+    reset_launch_counts()
+    with torch.no_grad():
+        got = copy.deepcopy(conv).cuda()(graph, x.cuda(), boundary.cuda(), query.cuda()).cpu()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        expect = conv(graph.to("cpu"), x, boundary, query)
+    err = (got - expect).abs()
+    ok = bool(torch.isfinite(got).all() and (err <= SCORE_ATOL + SCORE_RTOL * expect.abs()).all())
+    want = {"rspmm_sum_fwd": {(graph.num_nodes, BATCH * 64, "bf16_bf16"): 1}}
+    return {"max_abs_err": float(err.max()), "launches": as_json(counts)}, ok and counts == want
+
+
+def bf16_run(split, graph, cfg, pna_cfg, clqa_dataset, clqa_graph):
+    """The ``[bf16]`` phase's main path (kernels apart): ultra_3g serving and
+    fine-tuning, the PNA model's serving batch and step, attribution, a CLQA
+    batch and the card-against-CPU conv, each bf16 against f32 (see
+    BF16_REL). Prints the ``[bf16]`` record, then checks. Returns the bf16
+    runs' launches."""
+    cfg16, pna16 = bf16_config(cfg), bf16_config(pna_cfg)
+    record, ok, counts = {}, {}, {}
+    record["serving"], counts["serving"], ok["serving"] = bf16_serving(split, cfg, cfg16)
+
+    train, counts["training"], grads = bf16_training(split, graph, cfg, cfg16, TIMED_STEPS)
+    ratio = grad_ratios(grads["bf16"], grads["f32"])
+    worst = max(ratio, key=ratio.get)
+    train["grad_err_over_max"] = {"worst": worst, "value": ratio[worst],
+                                  "median": statistics.median(ratio.values())}
+    ok["training"] = (ratio[worst] <= BF16_GRAD_WORST
+                      and statistics.median(ratio.values()) <= BF16_REL
+                      and abs(train["loss"]["bf16"] - train["loss"]["f32"])
+                      <= BF16_REL * abs(train["loss"]["f32"])
+                      and train["launches_ok"])
+    record["training"] = train
+
+    from ultra_tpu_torch.models.nbfnet import ultra_score_all
+    from ultra_tpu_torch.train.loop import init_ultra_params
+
+    h, r = (torch.as_tensor(np.random.default_rng(2).integers(0, n, BATCH), device="cuda")
+            for n in (split.num_nodes, split.num_relations // 2))
+    scores, pna_counts = {}, {}
+    for name, c in (("f32", pna_cfg), ("bf16", pna16)):
+        reset_launch_counts()
+        with torch.no_grad():
+            model = init_ultra_params(c, torch.Generator().manual_seed(0), device="cuda")
+            scores[name] = ultra_score_all(model, graph, h, r_index=r).cpu()
+        pna_counts[name] = launch_counts()
+    pna_err = float((scores["bf16"] - scores["f32"]).abs().max())
+    pna_scale = float(scores["f32"].abs().max())
+    pna_step, pna_step_counts, grads = bf16_training(split, graph, pna_cfg, pna16, 0,
+                                                     plain=True)
+    cosine = {k: float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30))
+              for k, (a, b) in ((k, (grads["f32"][k], g)) for k, g in grads["bf16"].items())}
+    ratio = grad_ratios(grads["bf16"], grads["f32"])
+    plain_ratio = grad_ratios(grads["bf16"], grads["bf16_plain"])
+    loss = pna_step["loss"]
+    record["pna"] = {"max_abs_score_diff": pna_err, "max_abs_score_f32": pna_scale,
+                     "score_bound": BF16_REL * pna_scale, "step": pna_step,
+                     "vs_f32": {"grad_cosine_median": statistics.median(cosine.values()),
+                                "grad_cosine_min": min(cosine.values()),
+                                "grad_err_over_max_median": statistics.median(ratio.values()),
+                                "grad_err_over_max_worst": max(ratio.values())},
+                     "vs_plain": {"grad_err_over_max_median":
+                                  statistics.median(plain_ratio.values()),
+                                  "grad_err_over_max_worst": max(plain_ratio.values())}}
+    pna_want = plus(forward_launches(pna_cfg.relation_model, split.num_relations,
+                                     BATCH * pna_cfg.entity_model.input_dim),
+                    forward_launches(pna_cfg.entity_model, split.num_nodes,
+                                     BATCH * pna_cfg.entity_model.input_dim))
+    ok["pna"] = (pna_err <= BF16_REL * pna_scale
+                 and abs(loss["bf16"] - loss["f32"]) <= BF16_REL * abs(loss["f32"])
+                 and abs(loss["bf16"] - loss["bf16_plain"])
+                 <= BF16_PNA_LOSS_RTOL * abs(loss["bf16_plain"])
+                 and statistics.median(plain_ratio.values()) <= BF16_REL
+                 and max(plain_ratio.values()) <= BF16_GRAD_WORST
+                 and pna_counts["bf16"] == as_bf16(pna_want) and pna_counts["f32"] == pna_want
+                 and pna_step["launches_ok"])
+    counts["pna"] = plus(pna_counts["bf16"], pna_step_counts)
+
+    record["attribution"], counts["attribution"], ok["attribution"] = bf16_attribution(
+        split, graph, cfg, cfg16)
+    record["clqa"], counts["clqa"], ok["clqa"] = bf16_clqa(cfg, cfg16, clqa_dataset, clqa_graph)
+    record["conv"], ok["conv"] = bf16_conv(graph, split.num_relations)
+    total = {name: {} for name in WRAPPERS}
+    for c in counts.values():
+        total = plus(total, c)
+    record["f32_instance_launches"] = f32_launches(total)
+    record["ok"] = ok
+    print("[bf16] " + json.dumps(record), flush=True)
+    check(all(ok.values()), f"[bf16] failed: {[k for k, v in ok.items() if not v]}")
+    check(not record["f32_instance_launches"],
+          f"a bf16 model launched f32 instances: {record['f32_instance_launches']}")
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4048,8 +4546,8 @@ def main() -> int:
             for d, g in zip(member_graphs.datasets, member_graphs.train_graphs))
             + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    if {"kernels", "clqa", "clqa-training"} & set(phases):
-        # [kernels] checks B1 on the query graph, [clqa] answers on it
+    if {"kernels", "clqa", "clqa-training", "bf16"} & set(phases):
+        # [kernels] checks B1 on the query graph, [clqa] and [bf16] answer on it
         t0 = time.perf_counter()
         from ultra_tpu_torch.query.datasets import build_query_dataset
         from ultra_tpu_torch.query.trainer import prepare_query_graph
@@ -4117,6 +4615,15 @@ def main() -> int:
     run("pna-training", pna_training_phase)
     run("conv", lambda: conv_checks(graph, num_rel))
 
+    def bf16_phase():
+        rows, ok = bf16_kernels(graph, cfg, torch.Generator().manual_seed(0))
+        kernels.update(rows)
+        check(ok, "a bf16 kernel instance disagrees with its plain version (see the [kernel] "
+                  "lines)")
+        phase_counts["bf16"] = bf16_run(split, graph, cfg, pna_cfg, clqa_dataset, clqa_graph)
+
+    run("bf16", bf16_phase)
+
     def visualize_phase():
         _, phase_counts["visualize"] = visualize_run(split, graph, cfg, rule_dataset)
 
@@ -4169,7 +4676,7 @@ def main() -> int:
     # multi-process runs (whose blocks of edges keep every node, so their
     # keys are the whole graph's) and the gather probe
     for name, row in kernels.items():
-        wrapper, shape = name.split("/")[0], tuple(row["launch_key"])
+        wrapper, shape = name.split("/")[0].split("[")[0], tuple(row["launch_key"])
         row["launches_by_phase"] = {phase: counts.get(wrapper, {}).get(shape, 0)
                                     for phase, counts in phase_counts.items()
                                     if phase in row.get("phases", phase_counts)}

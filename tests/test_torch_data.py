@@ -202,9 +202,15 @@ def test_model_config_and_checkpoint_load_as_jax(tmp_path):
         a, b = getattr(got, model), getattr(want, model)
         for field in a.__dataclass_fields__:
             assert getattr(a, field) == getattr(b, field), (model, field)
-    with pytest.raises(NotImplementedError, match="B1"):
+    bf16 = {"relation_model": {"compute_dtype": "bfloat16"},
+            "entity_model": {"compute_dtype": "bfloat16"}}
+    got16, want16 = runner.model_config_from_dict(bf16), jrunner.model_config_from_dict(bf16)
+    for model in ("relation_model", "entity_model"):
+        assert getattr(got16, model).compute_dtype == getattr(want16, model).compute_dtype
+        assert getattr(got16, model).compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
         runner.model_config_from_dict(
-            {"relation_model": {"compute_dtype": "bfloat16"}, "entity_model": {}})
+            {"relation_model": {"compute_dtype": "float16"}, "entity_model": {}})
 
     params = jax.tree.map(np.asarray, jax_init_ultra_params(want, jax.random.key(2)))
     path = tmp_path / "model.pth"

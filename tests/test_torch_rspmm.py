@@ -220,22 +220,44 @@ def test_device_tensor_off_the_float4_layout_is_refused(monkeypatch, feat, offse
 
 
 def test_bf16_operands_and_gradients_are_refused():
-    """bf16 operands raise (ROADMAP B1), and so do bf16 gradients at every
-    backward wrapper; an f32 gradient for the edge weights is given (B6),
-    for every aggregator."""
+    """The operand types of ``compute_dtype: bfloat16``: bf16 relation and x
+    rows are taken (an f32 output, bf16 ``d_rel``/``d_x``); a bf16 output
+    gradient or saved output, bf16 edge weights, float16 or f64 rows and a
+    pair of row types no kernel instance takes raise at every wrapper; an
+    f32 gradient for the edge weights is given (B6), for every
+    aggregator."""
     ei, et, ew, rel, x, _ = make_inputs()
     graph = port_graph(ei, et, ew)
-    with pytest.raises(TypeError, match="bf16"):
-        rspmm_from_graph(graph, torch.from_numpy(rel).bfloat16(),
-                         torch.from_numpy(x).bfloat16())
+    rel16 = torch.from_numpy(rel).bfloat16().requires_grad_()
+    x16 = torch.from_numpy(x).bfloat16().requires_grad_()
+    for sum_op in ("add", "max", "min"):
+        out = rspmm_from_graph(graph, rel16, x16, sum=sum_op)
+        assert out.dtype == torch.float32
+        d_rel, d_x = torch.autograd.grad(out[out.isfinite()].sum(), (rel16, x16))
+        assert d_rel.dtype == d_x.dtype == torch.bfloat16
     rel_f, x_f = torch.from_numpy(rel.reshape(R, -1)), torch.from_numpy(x.reshape(V, -1))
-    g16 = x_f.bfloat16()
-    for call in (lambda: rspmm_sum_dx(graph.csr_src, graph.edge_weight, rel_f, g16),
-                 lambda: rspmm_dw(graph.csr, graph.edge_weight, rel_f, x_f, g16),
-                 lambda: rspmm_minmax_dx(graph.csr_src, graph.edge_weight, rel_f, x_f, g16,
-                                         x_f)):
-        with pytest.raises(TypeError, match="float32"):
+    w, g16 = graph.edge_weight, x_f.bfloat16()
+    for call in (lambda: rspmm_sum_dx(graph.csr_src, w, rel_f, g16),
+                 lambda: rspmm_sum_drel(graph.segments, w, x_f, g16),
+                 lambda: rspmm_dw(graph.csr, w, rel_f, x_f, g16),
+                 lambda: rspmm_dw(graph.csr, w, rel_f, x_f, x_f, "mul", g16),
+                 lambda: rspmm_minmax_dx(graph.csr_src, w, rel_f, x_f, g16, x_f),
+                 lambda: rspmm_minmax_drel(graph.segments, w, rel_f, x_f, x_f, g16),
+                 lambda: rspmm_sum_fwd(graph.csr, w.bfloat16(), rel_f, x_f),
+                 lambda: rspmm_minmax_fwd(graph.csr, w.bfloat16(), rel_f, x_f)):
+        with pytest.raises(TypeError, match="takes float32 (g|out|edge_weight)"):
             call()
+    with pytest.raises(TypeError, match="no instance"):  # built for the paths' pairs only
+        rspmm_sum_fwd(graph.csr, w, rel_f, x_f.bfloat16())
+    for dtype in (torch.float16, torch.float64):
+        for call in (lambda: rspmm_sum_fwd(graph.csr, w, rel_f.to(dtype), x_f),
+                     lambda: rspmm_sum_fwd(graph.csr, w, rel_f, x_f.to(dtype)),
+                     lambda: rspmm_sum_drel(graph.segments, w, x_f.to(dtype), x_f),
+                     lambda: rspmm_minmax_fwd(graph.csr, w, rel_f, x_f.to(dtype)),
+                     lambda: rspmm_dw(graph.csr, w, rel_f.to(dtype), x_f, x_f)):
+            with pytest.raises(TypeError, match="float32 or bfloat16"):
+                call()
+    assert _no_launches()
     weighted = graph.replace_weights(graph.edge_weight.clone().requires_grad_())
     for sum_op in ("add", "max", "min"):
         out = rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op)

@@ -6,8 +6,9 @@
 //   edge masked to weight 0 at run time still gets its true derivative. Min
 //   and max (minmax 1): route is 1 where the edge is live (weight not 0) and
 //   (rel op x) * w equals out[dst_e, f], the forward's saved output, else 0;
-//   every tying edge gets its whole term. f32 operands, f32 accumulation, f32
-//   output. Slots of the weight vector that are not in the CSR (the padding)
+//   every tying edge gets its whole term. f32 rel and x rows, or bf16 ones
+//   (one C entry point each), f32 g, out and weights, f32 messages and
+//   accumulation, f32 output. Slots of the weight vector that are not in the CSR (the padding)
 //   are not written: the wrapper zeroes the output first.
 //
 // Replaces the TPU kernel ultra_tpu/ops/rspmm_pallas.py::_dw_kernel (wrapper
@@ -45,8 +46,11 @@
 //   butterfly of shuffles in a fixed order and written once, to d_w[eid], by
 //   the group's first lane. An edge lies in exactly one part of one piece,
 //   so there is no second pass and no atomic: two runs give the same bits;
-// - loads are float4, neighbouring lanes on neighbouring addresses (F % 4
-//   == 0 and 16-byte aligned rows; anything else is refused).
+// - loads are float4, or 4 bf16 values in 8 bytes widened to f32 in
+//   registers, neighbouring lanes on neighbouring addresses (F % 4 == 0; f32
+//   rows 16-byte aligned, bf16 rows 8-byte; anything else is refused). A
+//   bf16 instance recomputes the message from the widened values, as B3's
+//   bf16 instance computed it.
 // Offsets row*F are 64-bit.
 
 #include "rspmm_pieces.cuh"
@@ -76,13 +80,14 @@ __device__ __forceinline__ float terms(const float4& r, const float4& x, const f
          term<OP, MINMAX>(r.z, x.z, g.z, w, o.z) + term<OP, MINMAX>(r.w, x.w, g.w, w, o.w);
 }
 
+template <class R, class X>
 struct DwArgs {
   const int32_t* col;  // the source
   const int32_t* etype;
   const int32_t* eid;
   const float* weight;  // indexed by eid
-  const float4* rel;    // (R, width)
-  const float4* x;      // (N, width)
+  const R* rel;         // (R, 4 * width)
+  const X* x;           // (N, 4 * width)
   const float4* g;      // (V, width)
   const float4* out;    // (V, width) for min/max, else unread
   float* dw;            // indexed by eid
@@ -93,9 +98,9 @@ struct DwArgs {
 // base + l + k * group, k < K, of the pass over the row that starts at base.
 // Shared memory per group: kWords * kStage staged words, then, where the
 // row takes more than one pass, kStage partial sums.
-template <int OP, bool MINMAX, int K>
+template <int OP, bool MINMAX, int K, class R, class X>
 __global__ void __launch_bounds__(pieces::kBlock, K == 1 ? 4 : 2)
-    dw_kernel(const pieces::Table t, const DwArgs a, int group, int parts, int passes) {
+    dw_kernel(const pieces::Table t, const DwArgs<R, X> a, int group, int parts, int passes) {
   constexpr int kStage = pieces::kStage;
   constexpr int kUnroll = 4 / K;  // edges whose loads a thread keeps in flight
   extern __shared__ int32_t staged[];
@@ -149,8 +154,8 @@ __global__ void __launch_bounds__(pieces::kBlock, K == 1 ? 4 : 2)
 #pragma unroll
           for (int c = 0; c < K; ++c) {
             if (j[c] < t.width) {
-              rv[u][c] = __ldg(a.rel + r + j[c]);
-              xv[u][c] = __ldg(a.x + src + j[c]);
+              rv[u][c] = pieces::load4(a.rel, r + j[c]);
+              xv[u][c] = pieces::load4(a.x, src + j[c]);
             }
           }
         }
@@ -183,20 +188,21 @@ __global__ void __launch_bounds__(pieces::kBlock, K == 1 ? 4 : 2)
   }
 }
 
-template <int OP, bool MINMAX, int K>
-int launch_lanes(const pieces::Table& t, const DwArgs& a, int group, int parts,
+template <int OP, bool MINMAX, int K, class R, class X>
+int launch_lanes(const pieces::Table& t, const DwArgs<R, X>& a, int group, int parts,
                  cudaStream_t stream) {
   const int groups = pieces::kBlock / group < kMaxGroups ? pieces::kBlock / group : kMaxGroups;
   const int passes = static_cast<int>((t.width + K * group - 1) / (K * group));
   const size_t words = kWords * pieces::kStage + (passes > 1 ? pieces::kStage : 0);
   const dim3 grid(static_cast<unsigned>((t.num_pieces * parts + groups - 1) / groups));
-  dw_kernel<OP, MINMAX, K><<<grid, groups * group, sizeof(int32_t) * words * groups, stream>>>(
-      t, a, group, parts, passes);
+  dw_kernel<OP, MINMAX, K, R, X>
+      <<<grid, groups * group, sizeof(int32_t) * words * groups, stream>>>(t, a, group, parts,
+                                                                          passes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int OP, bool MINMAX>
-int launch(const pieces::Table& t, const DwArgs& a, int parts, cudaStream_t stream) {
+template <int OP, bool MINMAX, class R, class X>
+int launch(const pieces::Table& t, const DwArgs<R, X>& a, int parts, cudaStream_t stream) {
   // a group of at most one warp, as many lanes as float4s up to 32; a wider
   // row puts 2 or 4 float4s on a lane, and one wider still takes passes
   const int group = t.width > 32 ? 32 : pieces::group_size(t.width);
@@ -205,23 +211,12 @@ int launch(const pieces::Table& t, const DwArgs& a, int parts, cudaStream_t stre
   return launch_lanes<OP, MINMAX, 4>(t, a, group, parts, stream);
 }
 
-}  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// piece table (piece_ptr (P+1) int64, piece_row and piece_order (P) int32)
-// is graph.py::build_csr's for the destination-major CSR; col (the source),
-// etype, eid: (E) int32; weight, dw: f32 indexed by eid (dw zeroed by the
-// caller); rel: (R, num_feat) f32; x: (N, num_feat) f32; g: (rows,
-// num_feat) f32; out: (rows, num_feat) f32 for minmax 1, unread (may be
-// null) for minmax 0. All contiguous on one device; indices are trusted to be
-// in range. Each piece is walked by `parts` groups (1 to kStage). num_feat %
-// 4 != 0, no piece, parts out of range or a row operand not 16-byte aligned
-// returns cudaErrorInvalidValue and launches nothing.
-extern "C" int rspmm_dw(const void* piece_ptr, const void* piece_row, const void* piece_order,
-                        const void* col, const void* etype, const void* eid,
-                        const void* weight, const void* rel, const void* x, const void* g,
-                        const void* out, void* dw, long long num_pieces, long long num_feat,
-                        int mul_op, int minmax, int parts, void* stream) {
+template <class R, class X>
+int dw(const void* piece_ptr, const void* piece_row, const void* piece_order, const void* col,
+       const void* etype, const void* eid, const void* weight, const void* rel, const void* x,
+       const void* g, const void* out, void* d_w, long long num_pieces, long long num_feat,
+       int mul_op, int minmax, int parts, void* stream) {
   if ((mul_op != 0 && mul_op != 1) || (minmax != 0 && minmax != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -229,7 +224,7 @@ extern "C" int rspmm_dw(const void* piece_ptr, const void* piece_row, const void
   if (num_pieces <= 0 || num_feat <= 0 || num_feat % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
+  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x) || !pieces::aligned16(g) ||
       (minmax && !pieces::aligned16(out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -244,14 +239,36 @@ extern "C" int rspmm_dw(const void* piece_ptr, const void* piece_row, const void
                         num_pieces,
                         0,
                         num_feat / 4};
-  const DwArgs a{static_cast<const int32_t*>(col),  static_cast<const int32_t*>(etype),
-                 static_cast<const int32_t*>(eid),  static_cast<const float*>(weight),
-                 static_cast<const float4*>(rel),   static_cast<const float4*>(x),
-                 static_cast<const float4*>(g),     static_cast<const float4*>(out),
-                 static_cast<float*>(dw)};
+  const DwArgs<R, X> a{static_cast<const int32_t*>(col),  static_cast<const int32_t*>(etype),
+                       static_cast<const int32_t*>(eid),  static_cast<const float*>(weight),
+                       static_cast<const R*>(rel),        static_cast<const X*>(x),
+                       static_cast<const float4*>(g),     static_cast<const float4*>(out),
+                       static_cast<float*>(d_w)};
   const auto s = static_cast<cudaStream_t>(stream);
   if (mul_op == 0) {
     return minmax ? launch<0, true>(t, a, parts, s) : launch<0, false>(t, a, parts, s);
   }
   return minmax ? launch<1, true>(t, a, parts, s) : launch<1, false>(t, a, parts, s);
 }
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success). The
+// piece table (piece_ptr (P+1) int64, piece_row and piece_order (P) int32)
+// is graph.py::build_csr's for the destination-major CSR; col (the source),
+// etype, eid: (E) int32; weight, dw: f32 indexed by eid (dw zeroed by the
+// caller); rel: (R, num_feat) and x: (N, num_feat) of the entry point's types
+// (rspmm_dw: f32 and f32; rspmm_dw_bf16_bf16: bf16 and bf16); g: (rows,
+// num_feat) f32; out: (rows, num_feat) f32 for minmax 1, unread (may be
+// null) for minmax 0. All contiguous on one device; indices are trusted to be
+// in range. Each piece is walked by `parts` groups (1 to kStage). num_feat %
+// 4 != 0, no piece, parts out of range or a misaligned row operand returns
+// cudaErrorInvalidValue and launches nothing.
+PIECES_ENTRIES2(rspmm_dw, dw,
+                (const void* piece_ptr, const void* piece_row, const void* piece_order,
+                 const void* col, const void* etype, const void* eid, const void* weight,
+                 const void* rel, const void* x, const void* g, const void* out, void* d_w,
+                 long long num_pieces, long long num_feat, int mul_op, int minmax, int parts,
+                 void* stream),
+                (piece_ptr, piece_row, piece_order, col, etype, eid, weight, rel, x, g, out,
+                 d_w, num_pieces, num_feat, mul_op, minmax, parts, stream))

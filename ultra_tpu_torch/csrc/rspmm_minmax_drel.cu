@@ -4,7 +4,9 @@
 //                 w[eid_e] * (x[src_e, f] if mul_op 0 else 1) * g[dst_e, f]
 //   where e is routed at f when (rel[t, f] op x[src_e, f]) * w[eid_e] equals
 //   out[dst_e, f], the forward's saved output; every tying edge is routed. A
-//   type with no routed edge is 0. f32 operands, f32 accumulation, f32 output.
+//   type with no routed edge is 0. f32 rel and x rows, or bf16 ones (one C
+//   entry point each), f32 g, out and weights, f32 messages and
+//   accumulation, f32 output.
 //
 // This is the gradient of rspmm_minmax_fwd.cu's function with respect to its
 // relation operand. It replaces the TPU kernels
@@ -36,9 +38,12 @@
 // - pass 2 adds a long type's partial rows in slot order, split over up to
 //   8 groups (the relation graph's 4 types have hundreds of pieces each) in
 //   a fixed order. No atomics anywhere, so two runs give the same bits;
-// - each thread owns 4 contiguous features and loads float4 (F % 4 == 0 and
-//   16-byte aligned rows; anything else is refused). Within a type the edges
-//   keep destination order, so neighbouring edges share g and out rows.
+// - each thread owns 4 contiguous features and loads float4, or 4 bf16
+//   values in 8 bytes widened to f32 in registers (F % 4 == 0; f32 rows
+//   16-byte aligned, bf16 rows 8-byte; anything else is refused), and
+//   recomputes a bf16 instance's message from the widened values, as B3's
+//   bf16 instance computed it. Within a type the edges keep destination
+//   order, so neighbouring edges share g and out rows.
 
 #include "rspmm_pieces.cuh"
 
@@ -57,21 +62,22 @@ __device__ __forceinline__ float term(float r, float x, float w, float o, float 
   return w != 0.f && message<OP>(r, x, w) == o ? t : 0.f;
 }
 
+template <class R, class X>
 struct MinMaxDrelArgs {
   const int32_t* src;
   const int32_t* dst;
   const int32_t* eid;
   const float* weight;  // indexed by eid
-  const float4* rel;    // (R, width)
-  const float4* x;      // (N, width)
+  const R* rel;         // (R, 4 * width)
+  const X* x;           // (N, 4 * width)
   const float4* g;      // (V, width)
   const float4* out;    // (V, width), the forward's output
 };
 
 // An edge brings x[src], out[dst] and g[dst]; a piece's row brings rel[t].
-template <int OP>
+template <int OP, class R, class X>
 struct MinMaxDrel : pieces::Adds {
-  using Args = MinMaxDrelArgs;
+  using Args = MinMaxDrelArgs<R, X>;
   using Row = float4;
   struct Edge {
     float4 x, out, g;
@@ -81,7 +87,7 @@ struct MinMaxDrel : pieces::Adds {
   static constexpr int kWords = 3, kUnroll = 2, kMinBlocks = 4, kSplit = 8;
 
   __device__ static Row row(const Args& a, int64_t t, int64_t width, int64_t j) {
-    return __ldg(a.rel + t * width + j);
+    return pieces::load4(a.rel, t * width + j);
   }
   __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {
     s[i] = __ldg(a.src + e);
@@ -91,7 +97,7 @@ struct MinMaxDrel : pieces::Adds {
   __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
                               int64_t j) {
     const int64_t dst = static_cast<int64_t>(s[pieces::kStage + i]) * width + j;
-    return {__ldg(a.x + static_cast<int64_t>(s[i]) * width + j), __ldg(a.out + dst),
+    return {pieces::load4(a.x, static_cast<int64_t>(s[i]) * width + j), __ldg(a.out + dst),
             __ldg(a.g + dst)};
   }
   __device__ static void add(float4& acc, const Row& r, const int32_t* s, int i,
@@ -104,28 +110,15 @@ struct MinMaxDrel : pieces::Adds {
   }
 };
 
-}  // namespace
-
-// Launches both passes on `stream` and returns cudaGetLastError() (0 on
-// success). The piece table (piece_ptr (P+1) int64, piece_row (the type),
-// piece_slot and piece_order (P) int32, long_rows (L) int32, long_slot_ptr
-// (L+1) int64) is graph.py::build_segments'; src, dst, eid: (E) int32 in type
-// order; weight: f32 indexed by eid; rel: (num_types, num_feat) f32; x: (N,
-// num_feat) f32; g, out: (V, num_feat) f32; partial: (slots, num_feat) f32
-// scratch (unread without long types); d_rel: (num_types, num_feat) f32. All
-// contiguous on one device; indices are trusted to be in range.
-// num_feat % 4 != 0 or a misaligned row operand returns
-// cudaErrorInvalidValue and launches nothing.
-extern "C" int rspmm_minmax_drel(const void* piece_ptr, const void* piece_row,
-                                 const void* piece_slot, const void* piece_order,
-                                 const void* long_rows, const void* long_slot_ptr,
-                                 const void* src, const void* dst, const void* eid,
-                                 const void* weight, const void* rel, const void* x,
-                                 const void* g, const void* out, void* partial, void* d_rel,
-                                 long long num_pieces, long long num_long, long long num_feat,
-                                 int mul_op, void* stream) {
+template <class R, class X>
+int minmax_drel(const void* piece_ptr, const void* piece_row, const void* piece_slot,
+                const void* piece_order, const void* long_rows, const void* long_slot_ptr,
+                const void* src, const void* dst, const void* eid, const void* weight,
+                const void* rel, const void* x, const void* g, const void* out, void* partial,
+                void* d_rel, long long num_pieces, long long num_long, long long num_feat,
+                int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
+  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x) || !pieces::aligned16(g) ||
       !pieces::aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -134,10 +127,35 @@ extern "C" int rspmm_minmax_drel(const void* piece_ptr, const void* piece_row,
       static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
       static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
       static_cast<float4*>(partial), static_cast<float4*>(d_rel), num_pieces, num_long, 0};
-  const MinMaxDrelArgs a{static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
-                         static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
-                         static_cast<const float4*>(rel), static_cast<const float4*>(x),
-                         static_cast<const float4*>(g), static_cast<const float4*>(out)};
-  return mul_op == 0 ? pieces::launch<MinMaxDrel<0>>(t, a, num_feat, stream)
-                     : pieces::launch<MinMaxDrel<1>>(t, a, num_feat, stream);
+  const MinMaxDrelArgs<R, X> a{
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+      static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
+      static_cast<const R*>(rel),       static_cast<const X*>(x),
+      static_cast<const float4*>(g),    static_cast<const float4*>(out)};
+  return mul_op == 0 ? pieces::launch<MinMaxDrel<0, R, X>>(t, a, num_feat, stream)
+                     : pieces::launch<MinMaxDrel<1, R, X>>(t, a, num_feat, stream);
 }
+
+}  // namespace
+
+// Launches both passes on `stream` and returns cudaGetLastError() (0 on
+// success). The piece table (piece_ptr (P+1) int64, piece_row (the type),
+// piece_slot and piece_order (P) int32, long_rows (L) int32, long_slot_ptr
+// (L+1) int64) is graph.py::build_segments'; src, dst, eid: (E) int32 in type
+// order; weight: f32 indexed by eid; rel: (num_types, num_feat) and x: (N,
+// num_feat) of the entry point's types (rspmm_minmax_drel: f32 and f32;
+// rspmm_minmax_drel_bf16_bf16: bf16 and bf16); g, out: (V, num_feat)
+// f32; partial: (slots, num_feat) f32 scratch (unread without long types);
+// d_rel: (num_types, num_feat) f32. All contiguous on one device; indices
+// are trusted to be in range. num_feat % 4 != 0 or a misaligned row operand
+// returns cudaErrorInvalidValue and launches nothing.
+PIECES_ENTRIES2(rspmm_minmax_drel, minmax_drel,
+                (const void* piece_ptr, const void* piece_row, const void* piece_slot,
+                 const void* piece_order, const void* long_rows, const void* long_slot_ptr,
+                 const void* src, const void* dst, const void* eid, const void* weight,
+                 const void* rel, const void* x, const void* g, const void* out, void* partial,
+                 void* d_rel, long long num_pieces, long long num_long, long long num_feat,
+                 int mul_op, void* stream),
+                (piece_ptr, piece_row, piece_slot, piece_order, long_rows, long_slot_ptr, src,
+                 dst, eid, weight, rel, x, g, out, partial, d_rel, num_pieces, num_long,
+                 num_feat, mul_op, stream))

@@ -4,7 +4,8 @@
 //               (rel[type_e, f] op x[src_e, f]) * w[eid_e]
 //   op = * (distmult, mul_op 0) or + (transe, mul_op 1); an edge is live when
 //   its weight is not 0. A row with no live edge is -inf (max) or +inf (min).
-//   f32 operands, f32 output.
+//   f32 rel and x rows, or bf16 ones (one C entry point each), f32 weights,
+//   f32 messages, f32 output.
 //
 // Replaces the TPU kernels ultra_tpu/ops/rspmm_pallas.py::_minmax_kernel and
 // ultra_tpu/ops/rspmm_pallas_v2.py::_minmax_kernel_v2, which compute this
@@ -35,8 +36,12 @@
 //   a masked edge (the runtime easy-edge mask zeroes weights of edges that
 //   are in the CSR) no longer holds up the next edge's loads: its rows are
 //   loaded and left out;
-// - each thread owns 4 contiguous features and loads float4 (F % 4 == 0 and
-//   16-byte aligned rel, x, out and partial rows; anything else is refused).
+// - each thread owns 4 contiguous features and loads them as one float4, or
+//   as 4 bf16 values (8 bytes) widened to f32 in registers (F % 4 == 0, out
+//   and partial rows 16-byte aligned, rel and x rows 16-byte for f32 and
+//   8-byte for bf16; anything else is refused). The message of a bf16
+//   instance is the f32 message of the widened values, which the backward
+//   kernels recompute from the same bf16 rows bit for bit.
 
 #include "rspmm_pieces.cuh"
 
@@ -73,24 +78,16 @@ struct Extreme {
   }
 };
 
-}  // namespace
-
-// Launches both passes on `stream` and returns cudaGetLastError() (0 on
-// success). The operands are rspmm_sum_fwd's (rspmm_sum_fwd.cu); is_min 1
-// takes the minimum, 0 the maximum. num_feat % 4 != 0 or a misaligned rel,
-// x, out or partial returns cudaErrorInvalidValue and launches nothing.
-extern "C" int rspmm_minmax_fwd(const void* piece_ptr, const void* piece_row,
-                                const void* piece_slot, const void* piece_order,
-                                const void* long_rows,
-                                const void* long_slot_ptr, const void* col, const void* etype,
-                                const void* eid, const void* weight, const void* rel,
-                                const void* x, void* partial, void* out, long long num_pieces,
-                                long long num_long, long long num_feat, int mul_op, int is_min,
-                                void* stream) {
+template <class R, class X>
+int minmax_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot,
+               const void* piece_order, const void* long_rows, const void* long_slot_ptr,
+               const void* col, const void* etype, const void* eid, const void* weight,
+               const void* rel, const void* x, void* partial, void* out, long long num_pieces,
+               long long num_long, long long num_feat, int mul_op, int is_min, void* stream) {
   if ((mul_op != 0 && mul_op != 1) || (is_min != 0 && is_min != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!pieces::aligned16(rel) || !pieces::aligned16(x)) {
+  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{
@@ -98,15 +95,33 @@ extern "C" int rspmm_minmax_fwd(const void* piece_ptr, const void* piece_row,
       static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
       static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
       static_cast<float4*>(partial), static_cast<float4*>(out), num_pieces, num_long, 0};
-  const pieces::GatherArgs a{
+  const pieces::GatherArgs<R, X> a{
       static_cast<const int32_t*>(col), static_cast<const int32_t*>(etype),
       static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
-      static_cast<const float4*>(rel), static_cast<const float4*>(x)};
+      static_cast<const R*>(rel), static_cast<const X*>(x)};
   using pieces::Gather;
   if (mul_op == 0) {
-    return is_min ? pieces::launch<Gather<Extreme<0, true>>>(t, a, num_feat, stream)
-                  : pieces::launch<Gather<Extreme<0, false>>>(t, a, num_feat, stream);
+    return is_min ? pieces::launch<Gather<Extreme<0, true>, R, X>>(t, a, num_feat, stream)
+                  : pieces::launch<Gather<Extreme<0, false>, R, X>>(t, a, num_feat, stream);
   }
-  return is_min ? pieces::launch<Gather<Extreme<1, true>>>(t, a, num_feat, stream)
-                : pieces::launch<Gather<Extreme<1, false>>>(t, a, num_feat, stream);
+  return is_min ? pieces::launch<Gather<Extreme<1, true>, R, X>>(t, a, num_feat, stream)
+                : pieces::launch<Gather<Extreme<1, false>, R, X>>(t, a, num_feat, stream);
 }
+
+}  // namespace
+
+// Launches both passes on `stream` and returns cudaGetLastError() (0 on
+// success). The operands are rspmm_sum_fwd's (rspmm_sum_fwd.cu), rel and x
+// of the entry point's types; is_min 1 takes the minimum, 0 the maximum.
+// num_feat % 4 != 0 or a misaligned rel, x, out or partial returns
+// cudaErrorInvalidValue and launches nothing.
+PIECES_ENTRIES2(rspmm_minmax_fwd, minmax_fwd,
+                (const void* piece_ptr, const void* piece_row, const void* piece_slot,
+                 const void* piece_order, const void* long_rows, const void* long_slot_ptr,
+                 const void* col, const void* etype, const void* eid, const void* weight,
+                 const void* rel, const void* x, void* partial, void* out,
+                 long long num_pieces, long long num_long, long long num_feat, int mul_op,
+                 int is_min, void* stream),
+                (piece_ptr, piece_row, piece_slot, piece_order, long_rows, long_slot_ptr, col,
+                 etype, eid, weight, rel, x, partial, out, num_pieces, num_long, num_feat,
+                 mul_op, is_min, stream))

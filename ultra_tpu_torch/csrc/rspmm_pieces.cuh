@@ -61,14 +61,39 @@
 //   W::merge(acc, partial)      folds a partial in (both pieces::Adds for the
 //                               walks that add)
 // Offsets row*F are 64-bit.
+//
+// Row operands. A thread owns 4 contiguous features of every row, and
+// `load4` brings them in as a float4 whatever the operand's element type:
+// an f32 row as one 16-byte load, a bf16 row as one 8-byte load widened to
+// f32 in registers (exact). Each kernel is a template on the element types
+// of its row operands (its relation and x rows; the output gradient and the
+// forward's saved output are f32), instantiated once per C entry point;
+// the accumulators, the partial rows and the output are f32 in every
+// instance, so a bf16 instance computes the f32 instance's arithmetic on
+// bf16-rounded operands and moves half of their bytes.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace pieces {
+
+using bf16 = __nv_bfloat16;
+
+// Features 4i..4i+3 of a row operand that starts at p, as f32.
+__device__ __forceinline__ float4 load4(const float* p, int64_t i) {
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+__device__ __forceinline__ float bf16_at(uint32_t word, int half) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(word >> (16 * half))));
+}
+__device__ __forceinline__ float4 load4(const bf16* p, int64_t i) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p) + i);
+  return make_float4(bf16_at(u.x, 0), bf16_at(u.x, 1), bf16_at(u.y, 0), bf16_at(u.y, 1));
+}
 
 constexpr int kBlock = 256;      // threads of a pass-1 block
 constexpr int kStage = 128;      // edges of a piece staged in shared memory at once
@@ -215,6 +240,13 @@ __global__ void __launch_bounds__(kMaxThreads) split_row_kernel(const Table t, i
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// Whether a row operand of element type T starts where load4 can read it:
+// 16-byte aligned for f32, 8-byte for bf16.
+template <class T>
+inline bool aligned_rows(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T))) == 0;
+}
+
 // Checks what the walk needs, launches both passes on `stream` and returns
 // cudaGetLastError() (0 on success). num_feat % 4 != 0, no piece, or an out
 // (or, with long rows, partial) not 16-byte aligned returns
@@ -255,21 +287,23 @@ int launch(Table t, const typename W::Args& a, long long num_feat, void* stream)
   return static_cast<int>(cudaGetLastError());
 }
 
-// The operands of the forward walk, which the aggregations share.
+// The operands of the forward walk, which the aggregations share; R and X
+// are the element types of the relation and x rows (float or bf16).
+template <class R, class X>
 struct GatherArgs {
   const int32_t* col;
   const int32_t* etype;
   const int32_t* eid;
   const float* weight;  // indexed by eid
-  const float4* rel;    // (R, width)
-  const float4* x;      // (N, width)
+  const R* rel;         // (R, 4 * width)
+  const X* x;           // (N, 4 * width)
 };
 
-// The forward walk of B1 and B3: an edge brings x[col] and rel[etype] and
-// Agg folds it in (Agg::add(acc, w, rel, x)).
-template <class Agg>
+// The forward walk of B1 and B3: an edge brings x[col] and rel[etype],
+// widened to f32, and Agg folds it in (Agg::add(acc, w, rel, x)).
+template <class Agg, class R, class X>
 struct Gather {
-  using Args = GatherArgs;
+  using Args = GatherArgs<R, X>;
   struct Edge {
     float4 x, rel;
   };
@@ -284,8 +318,8 @@ struct Gather {
   }
   __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
                               int64_t j) {
-    return {__ldg(a.x + static_cast<int64_t>(s[i]) * width + j),
-            __ldg(a.rel + static_cast<int64_t>(s[kStage + i]) * width + j)};
+    return {load4(a.x, static_cast<int64_t>(s[i]) * width + j),
+            load4(a.rel, static_cast<int64_t>(s[kStage + i]) * width + j)};
   }
   __device__ static void add(float4& acc, const Row&, const int32_t* s, int i,
                              const Edge& e) {
@@ -296,3 +330,18 @@ struct Gather {
 };
 
 }  // namespace pieces
+
+// The C entry points of a kernel: NAME (f32 rows) and NAME_<types> for a
+// bf16 instance, each a thin call of FN<row types>. PARAMS is the entry
+// points' parameter list and ARGS the same names as arguments. A kernel
+// with relation and x rows has the instances (rel, x) = (f32, f32) and
+// (bf16, bf16) (PIECES_ENTRIES2; B1 adds (bf16, f32), its input gradient),
+// one with x rows alone f32 and bf16 (PIECES_ENTRIES1).
+#define PIECES_ENTRY(NAME, FN, PARAMS, ARGS, ...) \
+  extern "C" int NAME PARAMS { return FN<__VA_ARGS__> ARGS; }
+#define PIECES_ENTRIES2(NAME, FN, PARAMS, ARGS)      \
+  PIECES_ENTRY(NAME, FN, PARAMS, ARGS, float, float) \
+  PIECES_ENTRY(NAME##_bf16_bf16, FN, PARAMS, ARGS, pieces::bf16, pieces::bf16)
+#define PIECES_ENTRIES1(NAME, FN, PARAMS, ARGS) \
+  PIECES_ENTRY(NAME, FN, PARAMS, ARGS, float)   \
+  PIECES_ENTRY(NAME##_bf16, FN, PARAMS, ARGS, pieces::bf16)

@@ -2,7 +2,8 @@
 //
 //   out[v, f] = sum over edges e of row v of  w[eid_e] * op(rel[type_e, f], x[src_e, f])
 //   op = * (distmult, mul_op 0) or + (transe, mul_op 1); a row with no edges is 0.
-//   f32 operands, f32 accumulation, f32 output.
+//   f32 or bf16 rel and x rows (one C entry point per pair of types the
+//   paths use, see below), f32 weights, f32 accumulation, f32 output.
 //
 // Replaces the TPU kernels ultra_tpu/ops/rspmm_pallas.py::_fwd_kernel,
 // ultra_tpu/ops/rspmm_pallas_v2.py::_fused_kernel and
@@ -32,9 +33,15 @@
 // - each thread owns 4 contiguous features and loads float4, so a group
 //   reads every gathered row in 16-byte pieces, neighbouring threads on
 //   neighbouring addresses, and a group is F/4 threads wide, so at F=64 no
-//   lane idles. F must be a multiple of 4 and rel, x, out and the partial
-//   rows 16-byte aligned (every width on the serving path is B*64); anything
-//   else is refused, never run on a slower path;
+//   lane idles. F must be a multiple of 4, out and the partial rows 16-byte
+//   aligned and rel and x rows 16-byte (f32) or 8-byte (bf16) aligned (every
+//   width on the serving path is B*64); anything else is refused, never run
+//   on a slower path;
+// - a bf16 row (compute_dtype: bfloat16) is loaded 4 features, 8 bytes, a
+//   thread and widened to f32 in registers: the walk, the f32 sums and
+//   their order are the f32 instance's, and the gathered bytes halve. The
+//   input gradient (this kernel on the source-major CSR) takes bf16 rel
+//   rows and the f32 output gradient as x: the (bf16, f32) instance;
 // - an x row is still gathered once per incoming edge (E*F*4 bytes in all,
 //   from L2 while x fits its 50 MB): the same edges with uniformly drawn
 //   destinations, whose rows are all short, are this design's floor.
@@ -59,27 +66,14 @@ struct Sum : pieces::Adds {
   }
 };
 
-}  // namespace
-
-// Launches both passes on `stream` and returns cudaGetLastError() (0 on
-// success). The piece table (piece_ptr (P+1) int64, piece_row, piece_slot and
-// piece_order (P) int32, long_rows (L) int32, long_slot_ptr (L+1) int64) is
-// graph.py::build_csr's; col, etype, eid: (E) int32; weight: f32 indexed by
-// eid; rel: (R, num_feat) f32; x: (N, num_feat) f32; partial: (slots,
-// num_feat) f32 scratch; out: (rows, num_feat) f32. All contiguous on one
-// device; indices are trusted to be in range. num_feat % 4 != 0 or a
-// misaligned rel, x, out or partial returns cudaErrorInvalidValue and
-// launches nothing.
-extern "C" int rspmm_sum_fwd(const void* piece_ptr, const void* piece_row,
-                             const void* piece_slot, const void* piece_order,
-                             const void* long_rows,
-                             const void* long_slot_ptr, const void* col, const void* etype,
-                             const void* eid, const void* weight, const void* rel,
-                             const void* x, void* partial, void* out, long long num_pieces,
-                             long long num_long, long long num_feat, int mul_op,
-                             void* stream) {
+template <class R, class X>
+int sum_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot,
+            const void* piece_order, const void* long_rows, const void* long_slot_ptr,
+            const void* col, const void* etype, const void* eid, const void* weight,
+            const void* rel, const void* x, void* partial, void* out, long long num_pieces,
+            long long num_long, long long num_feat, int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!pieces::aligned16(rel) || !pieces::aligned16(x)) {
+  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{
@@ -87,10 +81,36 @@ extern "C" int rspmm_sum_fwd(const void* piece_ptr, const void* piece_row,
       static_cast<const int32_t*>(piece_slot), static_cast<const int32_t*>(piece_order),
       static_cast<const int32_t*>(long_rows), static_cast<const int64_t*>(long_slot_ptr),
       static_cast<float4*>(partial), static_cast<float4*>(out), num_pieces, num_long, 0};
-  const pieces::GatherArgs a{
+  const pieces::GatherArgs<R, X> a{
       static_cast<const int32_t*>(col), static_cast<const int32_t*>(etype),
       static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
-      static_cast<const float4*>(rel), static_cast<const float4*>(x)};
-  return mul_op == 0 ? pieces::launch<pieces::Gather<Sum<0>>>(t, a, num_feat, stream)
-                     : pieces::launch<pieces::Gather<Sum<1>>>(t, a, num_feat, stream);
+      static_cast<const R*>(rel), static_cast<const X*>(x)};
+  using pieces::Gather;
+  return mul_op == 0 ? pieces::launch<Gather<Sum<0>, R, X>>(t, a, num_feat, stream)
+                     : pieces::launch<Gather<Sum<1>, R, X>>(t, a, num_feat, stream);
 }
+
+}  // namespace
+
+// Launches both passes on `stream` and returns cudaGetLastError() (0 on
+// success). The piece table (piece_ptr (P+1) int64, piece_row, piece_slot and
+// piece_order (P) int32, long_rows (L) int32, long_slot_ptr (L+1) int64) is
+// graph.py::build_csr's; col, etype, eid: (E) int32; weight: f32 indexed by
+// eid; rel: (R, num_feat) and x: (N, num_feat) of the entry point's types
+// (rspmm_sum_fwd: f32 and f32; rspmm_sum_fwd_bf16_bf16: bf16 and bf16;
+// rspmm_sum_fwd_bf16_f32, the input gradient's: bf16 and f32);
+// partial: (slots, num_feat) f32 scratch; out: (rows, num_feat) f32. All
+// contiguous on one device; indices are trusted to be in range.
+// num_feat % 4 != 0 or a misaligned rel, x, out or partial returns
+// cudaErrorInvalidValue and launches nothing.
+#define SUM_FWD_PARAMS                                                                   \
+  (const void* piece_ptr, const void* piece_row, const void* piece_slot,                   \
+   const void* piece_order, const void* long_rows, const void* long_slot_ptr,              \
+   const void* col, const void* etype, const void* eid, const void* weight, const void* rel, \
+   const void* x, void* partial, void* out, long long num_pieces, long long num_long,      \
+   long long num_feat, int mul_op, void* stream)
+#define SUM_FWD_ARGS                                                                      \
+  (piece_ptr, piece_row, piece_slot, piece_order, long_rows, long_slot_ptr, col, etype, eid, \
+   weight, rel, x, partial, out, num_pieces, num_long, num_feat, mul_op, stream)
+PIECES_ENTRIES2(rspmm_sum_fwd, sum_fwd, SUM_FWD_PARAMS, SUM_FWD_ARGS)
+PIECES_ENTRY(rspmm_sum_fwd_bf16_f32, sum_fwd, SUM_FWD_PARAMS, SUM_FWD_ARGS, pieces::bf16, float)

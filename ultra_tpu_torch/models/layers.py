@@ -18,6 +18,18 @@ importance attribution asks the same of every message with ``max`` or
 tying edges, as XLA's segment reductions do, where the min/max rspmm gives
 each of them the whole of it.
 
+``compute_dtype: bfloat16`` rounds each conv's rspmm operands, the node
+states and the relation features, to bf16 after ``layer_relation``, as the
+JAX package's ``conv_apply`` does (``layers.py:302-305``), and holds the
+port to its Pallas path: the kernels accumulate in f32 and write f32
+(``ops/rspmm.py``). PNA's squares are taken of the bf16 tensors, in bf16;
+the boundary, the degree, the PNA features, ``linear``, ``layer_norm`` and
+the activation stay f32, and ``linear`` sees the rounded input widened
+back to f32, as the JAX package's concatenation promotes it. The per-edge
+path rounds its operands the same way and computes in f32. ``rotate`` with
+``max`` or ``pna`` is left in f32, as the JAX package returns from it
+before the cast.
+
 On one block of a graph's edges (``Graph.edge_group``, set by
 ``parallel/mesh.py::shard_graph``) each aggregate is a partial over the
 block, combined over the edge group (``parallel/dp.py``): sums and the
@@ -44,6 +56,15 @@ logger = logging.getLogger(__name__)
 _MESSAGE2MUL = {"transe": "add", "distmult": "mul"}
 _MESSAGES = ("distmult", "transe", "rotate")
 _AGGREGATES = ("sum", "mean", "max", "pna")
+# the kernels' operand types: None and "float32" leave the operands as they
+# are; a float16 would need kernels of its own
+COMPUTE_DTYPES = (None, "float32", "bfloat16")
+
+
+def check_compute_dtype(compute_dtype):
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got "
+                         f"{compute_dtype!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +78,10 @@ class ConvConfig:
     activation: str = "relu"
     dependent: bool = False
     project_relations: bool = False
+    compute_dtype: str | None = None  # "bfloat16": the rspmm operands in bf16
+
+    def __post_init__(self):
+        check_compute_dtype(self.compute_dtype)
 
 
 def pna_features(sum_, sq_sum, max_, min_, boundary, deg):
@@ -235,12 +260,17 @@ class GeneralizedRelationalConv(nn.Module):
         cfg = self.cfg
         relation = self.layer_relation(query, relation_input)
         aggregate = cfg.aggregate_func
-        if aggregate in ("max", "pna") and (per_edge or cfg.message_func == "rotate"):
-            update = _per_edge_update(aggregate, cfg.message_func, graph, input, boundary,
-                                      relation)
+        edgewise = aggregate in ("max", "pna") and (per_edge or cfg.message_func == "rotate")
+        if cfg.compute_dtype and not (edgewise and cfg.message_func == "rotate"):
+            dtype = getattr(torch, cfg.compute_dtype)
+            input, relation = input.to(dtype), relation.to(dtype)
+        if edgewise:
+            update = _per_edge_update(aggregate, cfg.message_func, graph,
+                                      input.to(boundary.dtype), boundary,
+                                      relation.to(boundary.dtype))
         else:
             update = self._update(graph, input, boundary, relation)
-        output = self.linear(torch.cat([input, update], dim=-1))
+        output = self.linear(torch.cat([input.to(update.dtype), update], dim=-1))
         if cfg.layer_norm:
             output = self.layer_norm(output)
         if cfg.activation:

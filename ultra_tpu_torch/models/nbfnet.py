@@ -19,7 +19,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ultra_tpu_torch.graph import Graph
-from ultra_tpu_torch.models.layers import ConvConfig, GeneralizedRelationalConv
+from ultra_tpu_torch.models.layers import (
+    ConvConfig, GeneralizedRelationalConv, check_compute_dtype,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +44,12 @@ class NBFNetConfig:
     # (torch.utils.checkpoint): O(V*B*D) live memory per stack instead of per
     # layer, for one more forward
     remat: bool = False
+    # "bfloat16": each conv's rspmm operands in bf16, f32 accumulation
+    # (layers.py); None or "float32": f32
+    compute_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        check_compute_dtype(self.compute_dtype)
 
     @property
     def dims(self) -> Tuple[int, ...]:
@@ -58,6 +66,7 @@ class NBFNetConfig:
             activation=self.activation,
             dependent=False,
             project_relations=self.project_relations,
+            compute_dtype=self.compute_dtype,
         )
 
 

@@ -28,6 +28,13 @@ masked to weight 0 at run time gets its true derivative, for min/max 0 (the
 route asks for a live edge), and a slot left out of the CSR when the graph
 was built (weight 0 then: the padding) gets 0, as the Pallas backend gives
 (``rspmm_pallas.py:561-567``; the XLA backend gives padding its derivative).
+
+Types (``compute_dtype: bfloat16``, as the Pallas path takes it): the
+relation and x rows may be bf16; the kernels widen them to f32, accumulate
+in f32 and write an f32 output, and the edge weights stay f32. The backward
+gets an f32 output gradient and returns ``d_rel`` and ``d_x`` rounded to
+their operand's type, as ``rspmm_pallas.py:1400-1401`` does, and ``d_w`` in
+f32.
 """
 
 from __future__ import annotations
@@ -46,9 +53,9 @@ _SUM_OPS = ("add", "min", "max")
 
 
 class _SumRspmm(torch.autograd.Function):
-    """Sum rspmm over (R, F) relation and (N, F) x rows; ``layouts`` is
-    (csr, csr_src, segments). The backward computes each gradient only when
-    autograd asks for it."""
+    """Sum rspmm over (R, F) relation and (N, F) x rows (f32 or bf16 each),
+    f32 out; ``layouts`` is (csr, csr_src, segments). The backward computes
+    each gradient only when autograd asks for it."""
 
     @staticmethod
     def forward(ctx, layouts, edge_weight, relation, x, mul: str):
@@ -65,17 +72,17 @@ class _SumRspmm(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             d_w = rspmm_dw(csr, edge_weight, relation, x, g, mul)
         if ctx.needs_input_grad[2]:
-            d_rel = rspmm_sum_drel(segments, edge_weight, x if mul == "mul" else g, g, mul)
+            d_rel = rspmm_sum_drel(segments, edge_weight, x, g, mul).to(relation.dtype)
         if ctx.needs_input_grad[3]:
-            d_x = rspmm_sum_dx(csr_src, edge_weight, relation, g, mul)
+            d_x = rspmm_sum_dx(csr_src, edge_weight, relation, g, mul).to(x.dtype)
         return None, d_w, d_rel, d_x, None
 
 
 class _MinMaxRspmm(torch.autograd.Function):
-    """Min/max rspmm over (R, F) relation and (N, F) x rows. The forward's
-    output is saved: the backward routes the gradient to the edges whose
-    recomputed message equals it, and computes each gradient only when
-    autograd asks for it."""
+    """Min/max rspmm over (R, F) relation and (N, F) x rows (f32 or bf16
+    each), f32 out. The forward's output is saved: the backward routes the
+    gradient to the edges whose recomputed message equals it, and computes
+    each gradient only when autograd asks for it."""
 
     @staticmethod
     def forward(ctx, layouts, edge_weight, relation, x, mul: str, is_min: bool):
@@ -93,9 +100,10 @@ class _MinMaxRspmm(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             d_w = rspmm_dw(csr, edge_weight, relation, x, g, mul, out=out)
         if ctx.needs_input_grad[2]:
-            d_rel = rspmm_minmax_drel(segments, edge_weight, relation, x, g, out, mul)
+            d_rel = rspmm_minmax_drel(segments, edge_weight, relation, x, g, out,
+                                      mul).to(relation.dtype)
         if ctx.needs_input_grad[3]:
-            d_x = rspmm_minmax_dx(csr_src, edge_weight, relation, x, g, out, mul)
+            d_x = rspmm_minmax_dx(csr_src, edge_weight, relation, x, g, out, mul).to(x.dtype)
         return None, d_w, d_rel, d_x, None, None
 
 
@@ -104,7 +112,8 @@ def _rspmm(layouts, edge_weight, relation, x, sum: str, mul: str):
         raise ValueError(f"sum must be one of {_SUM_OPS}, got {sum!r}")
     feat = tuple(x.shape[1:])
     # the relation operand may broadcast over the batch (e.g. a (R, 1, D)
-    # view); the kernel takes it materialised as contiguous (R, B*D) rows.
+    # view); the kernel takes it materialised as contiguous (R, B*D) rows of
+    # its own type.
     # The Function sees the materialised rows, so autograd sums their
     # gradient back over the broadcast axis.
     relation = relation.expand((relation.shape[0],) + feat)

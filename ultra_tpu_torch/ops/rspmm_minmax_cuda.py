@@ -21,16 +21,18 @@ and launch counters, and their plain PyTorch versions.
   partial rows in a fixed order.
 
 The message of a live edge (weight not 0) is ``(rel op x) * w``, rounded
-after each operation, in that order, in the kernels and in the plain
-versions alike: the gradients route ``g[dst]`` to every live edge whose
-recomputed message equals the forward's saved output, so the two sides of
-that comparison must be bit-identical. Every tying edge gets the whole
+after each operation to f32 (a bf16 row widened to f32 first), in that
+order, in the kernels and in the plain versions alike: the gradients route
+``g[dst]`` to every live edge whose recomputed message equals the forward's
+saved output, so the two sides of that comparison must be bit-identical. Every tying edge gets the whole
 gradient. A row with no live edge is -inf (max) or +inf (min).
 
-As in ``rspmm_cuda``, a wrapper takes the plain version for a tensor on the
-CPU and launches the kernel for one on a CUDA device, never falling back
-from one to the other; each wrapper's ``launches`` counts its kernel
-launches by output shape ``(rows, F)`` since the last ``clear()``.
+As in ``rspmm_cuda``, the relation and x rows are f32 or bf16 (both alike)
+and select the kernel's instance, ``g`` and the saved output are f32; a wrapper
+takes the plain version for a tensor on the CPU and launches the kernel for
+one on a CUDA device, never falling back from one to the other; each
+wrapper's ``launches`` counts its kernel launches by output shape ``(rows,
+F)`` (and a bf16 instance's types) since the last ``clear()``.
 """
 
 from __future__ import annotations
@@ -41,15 +43,19 @@ import torch
 
 from ultra_tpu_torch.graph import CSR, TypeSegments
 from ultra_tpu_torch.ops.rspmm_cuda import (
-    _MUL_CODE, _check_dtypes, _check_f32, _csr_rows, _launch_pieces, _launch_walk,
+    _MUL_CODE, _check_dtypes, _compute_type, _count, _csr_rows, _entry, _instance,
+    _launch_pieces, _launch_walk,
 )
 
 
 def _message(rel_e, x_e, w_e, mul):
-    """``(rel op x) * w`` per edge, each operation rounded in the operands'
-    type: the value the kernels compute and route against."""
+    """``(rel op x) * w`` per edge, each operation rounded in
+    :func:`_compute_type` of the three (f32 for f32 and bf16 rows): the
+    value the kernels compute and route against."""
+    dtype = _compute_type(rel_e, x_e, w_e)
+    rel_e, x_e = rel_e.to(dtype), x_e.to(dtype)
     m = rel_e * x_e if mul == "mul" else rel_e + x_e
-    return m * w_e.unsqueeze(1)
+    return m * w_e.to(dtype).unsqueeze(1)
 
 
 def rspmm_minmax_fwd_plain(csr: CSR, edge_weight, relation, x, mul: str = "mul",
@@ -77,16 +83,18 @@ def rspmm_minmax_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul",
                      is_min: bool = False):
     """Min/max rspmm forward over a destination-major CSR; (V, F) f32 out.
 
-    ``relation`` (R, F) and ``x`` (N, F) are f32 and contiguous (and on the
-    card, F % 4 == 0 and both 16-byte aligned). On a CPU tensor this runs
-    :func:`rspmm_minmax_fwd_plain`; on a CUDA tensor it launches B3,
-    building it first if needed, and raises if it cannot."""
+    ``relation`` (R, F) and ``x`` (N, F) are f32 or bf16 each and
+    contiguous (and on the card, F % 4 == 0 and both aligned to 4
+    elements). On a CPU tensor this runs :func:`rspmm_minmax_fwd_plain`; on
+    a CUDA tensor it launches B3's instance for the two types, building it
+    first if needed, and raises if it cannot."""
     _check_dtypes(edge_weight, relation, x, mul, op="rspmm_minmax_fwd")
+    instance = _instance("rspmm_minmax_fwd", "rspmm_minmax_fwd", relation, x)
     if x.device.type == "cpu":
         return rspmm_minmax_fwd_plain(csr, edge_weight, relation, x, mul, is_min)
-    out = _launch_pieces("rspmm_minmax_fwd", "rspmm_minmax_fwd", csr, edge_weight, relation,
-                         x, _MUL_CODE[mul], int(bool(is_min)))
-    rspmm_minmax_fwd.launches[tuple(out.shape)] += 1
+    out = _launch_pieces(_entry("rspmm_minmax_fwd", instance), "rspmm_minmax_fwd", csr,
+                         edge_weight, relation, x, _MUL_CODE[mul], int(bool(is_min)))
+    _count(rspmm_minmax_fwd, out.shape, instance)
     return out
 
 
@@ -94,20 +102,21 @@ rspmm_minmax_fwd.launches = collections.Counter()  # launches by output shape
 
 
 def _check_backward(op, edge_weight, relation, x, g, out, mul):
-    _check_dtypes(edge_weight, relation, x, mul, op=op)
-    _check_f32(op, g=g, out=out)
+    """The operands' types and shapes; returns the instance to launch."""
+    _check_dtypes(edge_weight, relation, x, mul, op=op, g=g, out=out)
     if g.shape != out.shape or g.dim() != 2 or g.shape[1] != x.shape[1]:
         raise ValueError(f"{op}: want g and out (V, F) with F={x.shape[1]}, got "
                          f"{tuple(g.shape)} and {tuple(out.shape)}")
+    return _instance(op, op, relation, x)
 
 
 def rspmm_minmax_dx_terms(csr_src: CSR, edge_weight, relation, x, g, out, mul: str = "mul"):
     """The input gradient's terms, one row per live edge: ``(src, terms)``
     with ``terms[e] = w_e * (rel[type_e] if mul else 1) * g[dst_e]`` where
-    the edge is routed (``(rel op x[src]) * w == out[dst]``, compared in the
-    type of ``relation``, ``x`` and ``out``) and 0 elsewhere, in ``g``'s
-    type; d_x is their sum by ``src``. An f64 ``g`` gives a reference that
-    routes as the f32 forward did."""
+    the edge is routed (``(rel op x[src]) * w == out[dst]``, the message as
+    :func:`_message` computes it) and 0 elsewhere, in ``g``'s type; d_x is
+    their sum by ``src``. An f64 ``g`` gives a reference that routes as the
+    forward did."""
     src = _csr_rows(csr_src)
     w_e = edge_weight.index_select(0, csr_src.eid)
     live = w_e != 0
@@ -132,21 +141,22 @@ def rspmm_minmax_dx_plain(csr_src: CSR, edge_weight, relation, x, g, out, mul: s
 
 def rspmm_minmax_dx(csr_src: CSR, edge_weight, relation, x, g, out, mul: str = "mul"):
     """Input gradient of the min/max rspmm: (N, F) f32 from the forward's
-    input ``x`` (N, F), its saved output ``out`` (V, F; +-inf rows kept)
-    and the output gradient ``g`` (V, F), walking the source-major CSR
-    ``csr_src``. On a CPU tensor this runs :func:`rspmm_minmax_dx_plain`; on
-    a CUDA tensor it launches B4 over ``csr_src``'s piece table (both of its
-    passes, one count), building it first if needed, and raises if it
-    cannot."""
-    _check_backward("rspmm_minmax_dx", edge_weight, relation, x, g, out, mul)
+    inputs (``relation`` (R, F) and ``x`` (N, F), f32 or bf16 each), its
+    saved output ``out`` (V, F; +-inf rows kept) and the output gradient
+    ``g`` (V, F), both f32, walking the source-major CSR ``csr_src``. On a
+    CPU tensor this runs :func:`rspmm_minmax_dx_plain`; on a CUDA tensor it
+    launches B4's instance for the two row types over ``csr_src``'s piece
+    table (both of its passes, one count), building it first if needed, and
+    raises if it cannot."""
+    instance = _check_backward("rspmm_minmax_dx", edge_weight, relation, x, g, out, mul)
     if g.device.type == "cpu":
         return rspmm_minmax_dx_plain(csr_src, edge_weight, relation, x, g, out, mul)
-    d_x = _launch_walk("rspmm_minmax_dx", "rspmm_minmax_dx", csr_src,
+    d_x = _launch_walk(_entry("rspmm_minmax_dx", instance), "rspmm_minmax_dx", csr_src,
                        csr_src.rowptr.numel() - 1,
                        {"col": csr_src.col, "etype": csr_src.etype, "eid": csr_src.eid},
                        edge_weight, {"relation": relation, "x": x, "g": g, "out": out},
                        _MUL_CODE[mul], out_name="d_x")
-    rspmm_minmax_dx.launches[tuple(d_x.shape)] += 1
+    _count(rspmm_minmax_dx, d_x.shape, instance)
     return d_x
 
 
@@ -185,22 +195,24 @@ def rspmm_minmax_drel_plain(seg: TypeSegments, edge_weight, relation, x, g, out,
 def rspmm_minmax_drel(seg: TypeSegments, edge_weight, relation, x, g, out, mul: str = "mul"):
     """Relation gradient of the min/max rspmm: (R, F) f32, R =
     ``seg.num_types`` = the rows of ``relation``, from the forward's inputs,
-    its saved output ``out`` and the output gradient ``g``. ``x`` is read for
-    ``"add"`` too: the route needs the message. On a CPU tensor this runs
-    :func:`rspmm_minmax_drel_plain`; on a CUDA tensor it launches B5 over the
-    segments' piece table (both of its passes, one count), building it first
-    if needed, and raises if it cannot."""
-    _check_backward("rspmm_minmax_drel", edge_weight, relation, x, g, out, mul)
+    its saved output ``out`` and the output gradient ``g`` (types as for
+    :func:`rspmm_minmax_dx`). ``x`` is read for ``"add"`` too: the route
+    needs the message. On a CPU tensor this runs
+    :func:`rspmm_minmax_drel_plain`; on a CUDA tensor it launches B5's
+    instance for the two row types over the segments' piece table (both of
+    its passes, one count), building it first if needed, and raises if it
+    cannot."""
+    instance = _check_backward("rspmm_minmax_drel", edge_weight, relation, x, g, out, mul)
     if relation.shape[0] != seg.num_types:
         raise ValueError(f"rspmm_minmax_drel: relation has {relation.shape[0]} rows, the "
                          f"segments {seg.num_types} types")
     if g.device.type == "cpu":
         return rspmm_minmax_drel_plain(seg, edge_weight, relation, x, g, out, mul)
-    d_rel = _launch_walk("rspmm_minmax_drel", "rspmm_minmax_drel", seg, seg.num_types,
-                         {"src": seg.src, "dst": seg.dst, "eid": seg.eid}, edge_weight,
-                         {"relation": relation, "x": x, "g": g, "out": out},
+    d_rel = _launch_walk(_entry("rspmm_minmax_drel", instance), "rspmm_minmax_drel", seg,
+                         seg.num_types, {"src": seg.src, "dst": seg.dst, "eid": seg.eid},
+                         edge_weight, {"relation": relation, "x": x, "g": g, "out": out},
                          _MUL_CODE[mul], out_name="d_rel")
-    rspmm_minmax_drel.launches[tuple(d_rel.shape)] += 1
+    _count(rspmm_minmax_drel, d_rel.shape, instance)
     return d_rel
 
 

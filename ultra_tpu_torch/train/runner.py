@@ -48,15 +48,14 @@ def model_config_from_dict(model_cfg: dict) -> UltraConfig:
     One of the JAX package's keys is not carried: ``precision`` (the TPU
     matrix units' pass count; the port's kernels are exact f32).
     ``remove_one_hop`` is kept: :func:`train_and_validate` reads it from the
-    entity model. ``compute_dtype: bfloat16`` raises: bf16 operands are
-    ROADMAP B1."""
+    entity model. ``compute_dtype`` is carried as the JAX package carries
+    it: ``bfloat16`` runs each conv's rspmm on bf16 operands with f32
+    accumulation (``models/layers.py``); any type but ``float32`` and
+    ``bfloat16`` raises ``ValueError``."""
 
     def nbf(cfg: dict, project_relations: bool) -> NBFNetConfig:
         cfg = dict(cfg)
         cfg.pop("class", None)
-        if cfg.get("compute_dtype") not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype {cfg['compute_dtype']!r}: bf16 operands are ROADMAP B1")
         return NBFNetConfig(
             input_dim=cfg.get("input_dim", 64),
             hidden_dims=tuple(cfg.get("hidden_dims", (64,) * 6)),
@@ -70,6 +69,7 @@ def model_config_from_dict(model_cfg: dict) -> UltraConfig:
             num_mlp_layer=int(cfg.get("num_mlp_layer", 2)),
             remove_one_hop=bool(cfg.get("remove_one_hop", False)),
             remat=bool(cfg.get("remat", False)),
+            compute_dtype=cfg.get("compute_dtype"),
             project_relations=project_relations,
         )
 

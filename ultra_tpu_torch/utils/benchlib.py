@@ -105,13 +105,18 @@ def live_edges(edge_weight, eid):
     return int((edge_weight[eid.long()] != 0).sum())
 
 
+def tensor_bytes(*tensors) -> int:
+    """Bytes the tensors hold: a bf16 row counts 2 bytes an element."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def rspmm_bound_ms(csr, edge_weight, relation, x, mul="mul"):
     """Least time for one sum (or min/max) rspmm on these inputs: each input
-    read once (x, relation, the CSR and the weight of each CSR edge), the
-    output written once, and 3 f32 operations per feature of each edge whose
-    weight is not 0."""
+    read once (x and relation at their own element size, the CSR and the
+    weight of each CSR edge), the f32 output written once, and 3 f32
+    operations per feature of each edge whose weight is not 0."""
     num_rows, feat = csr.rowptr.numel() - 1, x.shape[1]
-    nbytes = 4 * (x.numel() + relation.numel() + num_rows * feat)
+    nbytes = tensor_bytes(x, relation) + 4 * num_rows * feat
     nbytes += 8 * (num_rows + 1) + (4 + 4 + 4 + 4) * csr.col.numel()
     return bound_ms(nbytes, 3 * live_edges(edge_weight, csr.eid) * feat)
 
