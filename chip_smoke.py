@@ -64,10 +64,13 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    width) on the card against the same conv on the CPU;
 9. runs ``compute_dtype: bfloat16`` (``[bf16]``, see BF16_REL): the bf16
    instances of B1-B6 against their plain versions in f64 on the same bf16
-   operands, each timed beside the f32 instance; then ultra_3g serving and
-   fine-tuning, the PNA model's scores and step (the step also against the
-   same step on the plain versions), attribution and a CLQA batch, each in
-   bf16 against f32 from the same weights and inputs, with their launches
+   operands, each timed beside the f32 instance (B1's and B2's, which walk
+   8 features a thread, also with the ratio of the two times and
+   ``f32_equal``, their largest difference from the f32 instance on the
+   same values, 0 where the two add in the same order); then ultra_3g
+   serving and fine-tuning, the PNA model's scores and step (the step also
+   against the same step on the plain versions), attribution and a CLQA
+   batch, each in bf16 against f32 from the same weights and inputs, with their launches
    asserted (no f32 instance may run); and a bf16 conv against the CPU;
 10. explains predictions (``[visualize]``): the edge gradients of the
    ``ultra_3g`` model for 4 queries on the FB15k-237-shaped graph, held
@@ -451,9 +454,10 @@ def kernel_row(name, source, replaces, launch_key, ms, plain_ms, bound, max_abs_
     """One entry of the kernels line; ``launches`` is filled in at the end
     from the main path's counts at ``launch_key``."""
     least_ms, bound_by = bound
-    f32_ms = f" f32_ms={extra['f32_ms']!r}" if "f32_ms" in extra else ""
+    f32 = "".join(f" {k}={extra[k]!r}" for k in ("f32_ms", "f32_ratio", "f32_equal")
+                  if k in extra)
     print(f"[kernel] {name}: ms={ms!r} plain_ms={plain_ms!r} bound_ms={least_ms!r} "
-          f"({bound_by}){f32_ms}", flush=True)
+          f"({bound_by}){f32}", flush=True)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": least_ms, "bound_by": bound_by,
@@ -486,8 +490,12 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
     of "add" is named ``name`` with ``_add`` after the wrapper's name and is
     not on the path (distmult). Each row's launch key is the one the wrapper
     counted for these inputs. Where ``a`` or ``b`` is bf16 (a bf16
-    instance), a row also gets ``f32_ms``: the f32 instance on the same
-    values widened to f32."""
+    instance: B1's and B2's walk 8 features a thread), a row also gets
+    ``f32_ms``, the f32 instance on the same values widened to f32,
+    ``f32_ratio``, ms over it, and ``f32_equal``, max |bf16 instance - f32
+    instance| on those values: 0 where the two add the same terms in the
+    same order, as the 8-feature walk does (reported, not held: the
+    tolerance is the plain version's)."""
     from ultra_tpu_torch.utils.benchlib import device_ms
 
     errs, ok = {}, True
@@ -507,12 +515,15 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
         wrapper, rest = name.split("/", 1)
         row_name = name if mul == "mul" else f"{wrapper}_{mul}/{rest}"
         extra = {"piece_len": layout.piece_len} if hasattr(layout, "piece_len") else {}
+        ms = device_ms(lambda: kernel(layout, weight, a, b, mul))
         if widened:
             a32, b32 = a.float(), b.float()
             extra["f32_ms"] = device_ms(lambda: kernel(layout, weight, a32, b32, mul))
+            extra["f32_ratio"] = ms / extra["f32_ms"]
+            extra["f32_equal"] = float((kernel(layout, weight, a, b, mul)
+                                        - kernel(layout, weight, a32, b32, mul)).abs().max())
         rows.append(kernel_row(
-            row_name, source, replaces, key,
-            device_ms(lambda: kernel(layout, weight, a, b, mul)),
+            row_name, source, replaces, key, ms,
             device_ms(lambda: plain(layout, weight, a, b, mul), samples=PLAIN_SAMPLES),
             bound(layout, weight, a, b, mul), errs[mul],
             f"|err| <= {KERNEL_REL_TO_ABS_SUM} * sum|terms| + {KERNEL_ATOL} against the "
@@ -4487,6 +4498,11 @@ def main() -> int:
         build.load(name)
         for usage in build.ptxas_usage(logs.get(name, "")):
             print(f"[build] {name}: {usage}", flush=True)
+    # B1's and B2's bf16 instances: their passes on the 8-feature walk
+    walk8 = [usage for name in KERNELS[:2] for usage in build.ptxas_usage(logs.get(name, ""))
+             if "Gather8" in usage or "Drel8" in usage]
+    print("[build] 8-feature walk (rspmm_sum_fwd_bf16_bf16, rspmm_sum_fwd_bf16_f32, "
+          "rspmm_sum_drel_bf16): " + (" | ".join(walk8) or "built before this run"), flush=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -4,7 +4,7 @@ and B5 with the type segments cut into pieces of each of several lengths.
 
   python3 scripts/torch_row_piece_sweep.py [--pieces 32,64,128,256]
       [--segment-pieces 32,64,128,256] [--dw-parts 1,2,4]
-      [--out build/row_piece_sweep.json]
+      [--walk8 2x2,4x4,8x2] [--out build/row_piece_sweep.json]
 
 B1 (``csrc/rspmm_sum_fwd.cu``), B3 (``csrc/rspmm_minmax_fwd.cu``) and B4
 (``csrc/rspmm_minmax_dx.cu``) give each piece of at most ``ROW_PIECE`` edges
@@ -31,6 +31,23 @@ length). For each length of ``--segment-pieces`` it rebuilds both graphs'
 segments with pieces of that length and times B2 (mul) and B5 (mul, max,
 given B3's output) at F = 512 on each.
 
+At the default pieces it times the bf16 instances that walk 8 features a
+thread (``csrc/rspmm_pieces.cuh``: B1's ``rspmm_sum_fwd_bf16_bf16`` on the
+entity graph at F = 512 and the relation graph at 512 and 4096, its input
+gradient ``rspmm_sum_fwd_bf16_f32`` on both graphs at 512, B2's
+``rspmm_sum_drel_bf16`` on both at 512) beside the f32 instance on the same
+values widened to f32 (``f32_ms``), with ``f32_equal``, the largest
+difference between the two outputs. ``--walk8`` takes sizes of that walk,
+each ``UNROLLxBLOCKS`` (edges whose loads a thread keeps in flight, blocks
+an SM must hold): for each it copies ``csrc/`` under ``build/walk8/`` with
+all of B1's and B2's sizes (``kGather8Unroll``/``kGather8MinBlocks``,
+``kGather8F32...``, ``kDrel8...``) set so, builds the two sources, one
+``nvcc`` each, all at once, and times the same launches through it, the
+source's own build first and last. It also counts, in the SASS of each
+pass-1 kernel of B1 and B2 (``cuobjdump -sass``), the instructions that
+widen a bf16 value (a mask with 0xffff0000, a shift by 16), conversions
+(``F2F``, ``PRMT``) and the f32 arithmetic. An empty list skips a sweep.
+
 Before it is timed, each launch's output is held against its plain version:
 B1 and B2 as ``chip_smoke.py`` holds them (in f64, within 1e-5 of the sum of
 the absolute terms plus 1e-6), B3 equal, B4, B5 and B6 against plain
@@ -41,10 +58,15 @@ which ``--out`` also writes.
 """
 
 import argparse
+import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+from collections import Counter
+from pathlib import Path
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -52,6 +74,91 @@ import torch
 
 SOURCES = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx",
            "rspmm_minmax_drel", "rspmm_dw")
+
+
+ROOT = Path(__file__).resolve().parent.parent
+# B1's and B2's sources and the C entry points on the 8-feature walk
+WALK8_SOURCES = ("rspmm_sum_fwd", "rspmm_sum_drel")
+WALK8_ENTRIES = ("rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16")
+
+
+def ints(text):
+    """A comma-separated list of ints; an empty one is []."""
+    return [int(p) for p in text.split(",") if p]
+
+
+def build_walk8(sizes):
+    """B1's and B2's sources with the 8-feature walk's sizes set to each
+    (unroll, blocks) of ``sizes``, copied under build/walk8/<u>x<b>/ and
+    built there, one nvcc per source, all at once. Returns ({(u, b): {entry
+    point: bound C function}}, {"<u>x<b>": the compiler's resource lines of
+    the walk's kernels})."""
+    from ultra_tpu_torch.ops import build, rspmm_cuda
+
+    csrc = ROOT / "ultra_tpu_torch" / "csrc"
+    procs = {}
+    for u, b in sizes:
+        d = ROOT / "build" / "walk8" / f"{u}x{b}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        for name, pairs in (("rspmm_pieces.cuh", 2), ("rspmm_sum_drel.cu", 1)):
+            text, n = re.subn(r"(k\w+8\w*)Unroll = \d+, \1MinBlocks = \d+",
+                              rf"\1Unroll = {u}, \1MinBlocks = {b}", (d / name).read_text())
+            if n != pairs:
+                raise RuntimeError(f"{name}: {n} sizes of the 8-feature walk, want {pairs}")
+            (d / name).write_text(text)
+        for src in WALK8_SOURCES:
+            procs[(u, b), src] = (d / f"lib{src}.so", subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / f"lib{src}.so"),
+                 str(d / f"{src}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    fns, usage = {}, {}
+    for (size, src), (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src} at {size}:\n{log}")
+        usage.setdefault("x".join(map(str, size)), []).extend(
+            u for u in build.ptxas_usage(log) if "Gather8" in u or "Drel8" in u)
+        cdll = ctypes.CDLL(str(lib))
+        for entry in WALK8_ENTRIES:
+            if entry.startswith(src + "_"):
+                fn = getattr(cdll, entry)
+                fn.argtypes, fn.restype = rspmm_cuda._ARGTYPES[src], ctypes.c_int
+                fns.setdefault(size, {})[entry] = fn
+    return fns, usage
+
+
+def sass_counts(library):
+    """For each pass-1 kernel (``piece_kernel``) in ``library``'s SASS: its
+    instructions in all, the bf16 widenings (a mask with 0xffff0000; a
+    shift by 16, as SHF by 0x10 or IMAD by 0x10000), the conversions (F2F,
+    PRMT) and the f32 FFMA and FMUL."""
+    from ultra_tpu_torch.ops import build
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], check=True, capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            name = name if "piece_kernel" in name else None
+            if name:
+                counts[name] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*);", line)
+        if not (name and m):
+            continue
+        op, args = m.group(1), m.group(2)
+        base, c = op.split(".")[0], counts[name]
+        c["total"] += 1
+        c["mask_ffff0000"] += "0xffff0000" in args
+        c["shift_16"] += (op.startswith("SHF.L") and ", 0x10," in args) or (
+            base == "IMAD" and "0x10000," in args)
+        c["conversion"] += base in ("F2F", "PRMT")
+        if base in ("FFMA", "FMUL", "LDG"):
+            c[base] += 1
+    return {name: dict(c) for name, c in counts.items()}
 
 
 def held(fn, plain, csr, w, rel, x, exact):
@@ -88,8 +195,13 @@ def main() -> int:
                         help="comma-separated piece lengths of the type segments")
     parser.add_argument("--dw-parts", default="1,2,4",
                         help="comma-separated counts of groups B6 splits a piece over")
+    parser.add_argument("--walk8", default="",
+                        help="comma-separated UNROLLxBLOCKS sizes of B1's and B2's 8-feature "
+                             "walk to build and time beside the source's own")
     parser.add_argument("--out", help="also write the record to this JSON file")
     args = parser.parse_args()
+    walk8_sizes = [tuple(int(v) for v in size.split("x")) for size in args.walk8.split(",")
+                   if size]
     if not torch.cuda.is_available():
         print("torch_row_piece_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -116,8 +228,14 @@ def main() -> int:
                           check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     record = {"card": card, "device": torch.cuda.get_device_name(0), "sizes": {},
-              "segment_sizes": {}, "dw_parts": {}, "ptxas": {name: build.ptxas_usage(log) for name, log in
-                                             build.build_all(SOURCES).items()}}
+              "segment_sizes": {}, "dw_parts": {}, "bf16": {}, "walk8": {},
+              "ptxas": {name: build.ptxas_usage(log)
+                        for name, log in build.build_all(SOURCES).items()},
+              "sass": {src: sass_counts(build.library_path(src)) for src in WALK8_SOURCES}
+              if shutil.which("cuobjdump")
+              or Path(build.nvcc_path()).with_name("cuobjdump").exists()
+              else "cuobjdump not found"}
+    walk8_fns, record["walk8_ptxas"] = build_walk8(walk8_sizes)
     split = fb15k237_split("realistic", seed=0)
     gen = torch.Generator().manual_seed(0)
     rand = lambda *shape: torch.randn(*shape, generator=gen).cuda()
@@ -181,7 +299,7 @@ def main() -> int:
         return row_ok, device_ms(lambda: rspmm_dw(on.csr, w, rel, x, g, "mul", out))
 
     default_piece = graph_module.ROW_PIECE
-    for piece in (int(p) for p in args.pieces.split(",")):
+    for piece in ints(args.pieces):
         graph_module.ROW_PIECE = piece  # read by build_csr when the graphs are built
         graph = split_to_graph(split, device="cuda")
         uniform = uniform_destination_graph(split)
@@ -223,7 +341,7 @@ def main() -> int:
     graph = split_to_graph(split, device="cuda")
     uniform = uniform_destination_graph(split)
     default_parts = rspmm_cuda.DW_PARTS
-    for parts in (int(p) for p in args.dw_parts.split(",")):
+    for parts in ints(args.dw_parts):
         rspmm_cuda.DW_PARTS = parts  # read by the wrapper at each launch
         size = record["dw_parts"][parts] = {}
         for name, feat, minmax in (("rspmm_dw/entity/F64", 64, False),
@@ -234,7 +352,7 @@ def main() -> int:
             size[name] = row
             print(f"[sweep] DW_PARTS={parts} {name}: {json.dumps(row)}", flush=True)
     rspmm_cuda.DW_PARTS = default_parts
-    for length in (int(p) for p in args.segment_pieces.split(",")):
+    for length in ints(args.segment_pieces):
         size = {}
         for tag, on in (("entity", graph), ("relation", graph.relation_graph)):
             seg = build_segments(on.csr, on.num_relations, piece_len=length)
@@ -244,6 +362,51 @@ def main() -> int:
                 ok &= row["ok"]
                 print(f"[sweep] segment piece {length} {name}: {json.dumps(row)}", flush=True)
         record["segment_sizes"][length] = size
+
+    # the bf16 instances on the 8-feature walk at the default pieces, beside
+    # the f32 instance on the same values widened; then each --walk8 build
+    # of them on the same inputs, the source's own first and last
+    rel_graph = graph.relation_graph
+    cases = []  # (name, wrapper, plain version, layout, weights, bf16 rows, other rows)
+    for tag, on, feats in (("entity", graph, (512,)), ("relation", rel_graph, (512, 4096))):
+        w = masked(on.edge_weight)
+        for feat in feats:
+            rows16 = lambda n: rand(n, feat).bfloat16()
+            cases.append((f"rspmm_sum_fwd[bf16]/{tag}/F{feat}", rspmm_sum_fwd,
+                          rspmm_sum_fwd_plain, on.csr, w, rows16(on.num_relations),
+                          rows16(on.num_nodes)))
+        cases += [(f"rspmm_sum_dx[bf16]/{tag}/F512", rspmm_sum_dx, rspmm_sum_dx_plain,
+                   on.csr_src, w, rand(on.num_relations, 512).bfloat16(),
+                   rand(on.num_nodes, 512)),
+                  (f"rspmm_sum_drel[bf16]/{tag}/F512", rspmm_sum_drel, rspmm_sum_drel_plain,
+                   on.segments, w, rand(on.num_nodes, 512).bfloat16(),
+                   rand(on.num_nodes, 512))]
+
+    def time_bf16(label):
+        rows = {}
+        for name, fn, plain, layout, w, a, b in cases:
+            f32 = fn(layout, w, a.float(), b.float(), "mul")
+            row = rows[name] = {
+                "ok": held(fn, plain, layout, w, a, b, False),
+                "f32_equal": float((fn(layout, w, a, b, "mul") - f32).abs().max()),
+                "ms": device_ms(lambda: fn(layout, w, a, b, "mul"))}
+            print(f"[sweep] {label} {name}: {json.dumps(row)}", flush=True)
+        return rows
+
+    for name, fn, plain, layout, w, a, b in cases:
+        a32, b32 = a.float(), b.float()
+        record["bf16"][name] = {"f32_ms": device_ms(lambda: fn(layout, w, a32, b32, "mul"))}
+    for name, row in time_bf16("walk8 source").items():
+        record["bf16"][name].update(row, f32_ratio=row["ms"] / record["bf16"][name]["f32_ms"])
+        ok &= row["ok"]
+    if walk8_fns:
+        own = {entry: rspmm_cuda._kernel(entry) for entry in WALK8_ENTRIES}
+        for size, fns in walk8_fns.items():
+            rspmm_cuda._KERNELS.update(fns)
+            rows = record["walk8"]["x".join(map(str, size))] = time_bf16(f"walk8 {size}")
+            ok &= all(row["ok"] for row in rows.values())
+        rspmm_cuda._KERNELS.update(own)
+        record["walk8"]["source, again"] = time_bf16("walk8 source, again")
 
     print(json.dumps(record, indent=1))
     if args.out:

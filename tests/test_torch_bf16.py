@@ -20,6 +20,12 @@ Tolerances:
   ``GRAD_ULPS`` of its largest entry, and the loss to the f32 rtol of
   ``test_torch_train.py``. The same f32 model (no cast) lies outside both
   bounds: the test fails if the cast is skipped.
+- the shape contract on the card: B1's and B2's bf16 instances walk 8
+  features a thread (F % 8 == 0, bf16 rows 16-byte aligned) and raise
+  ``ValueError`` before any launch on anything else; B3-B6's bf16 instances
+  walk 4 (F % 4 == 0, bf16 rows 8-byte aligned). Held on meta tensors (a
+  device that is not the CPU), as ``test_torch_rspmm.py`` holds the f32
+  instances' contract.
 - the divergence from the JAX package's XLA path (path (b), where it runs
   without plans: bf16 weights and bf16 accumulation) is pinned against an
   f64 reference on the same bf16 operands: the port within 1e-6 of the
@@ -28,6 +34,7 @@ Tolerances:
   ``test_torch_visualize.py``'s f32 tolerance.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -37,7 +44,9 @@ import pytest
 import torch
 
 from tests.test_torch_models import _conv_case, graphs  # noqa: F401 - a fixture
-from tests.test_torch_rspmm import E, E_PAD, R, V, make_inputs, make_tie_inputs, port_graph
+from tests.test_torch_rspmm import (
+    E, E_PAD, R, V, _no_launches, make_inputs, make_tie_inputs, port_graph,
+)
 from tests.test_torch_train import NEG, _batch, _cfgs, _model, kg  # noqa: F401
 from tests.test_torch_visualize import ATOL, REL_TO_MAX, _model_cfg, _splits
 from ultra_tpu.graph import make_graph as jax_make_graph
@@ -320,3 +329,77 @@ def test_attribution_rounds_the_entity_layers_where_jax_does_not():
                            <= REL_TO_MAX * np.abs(w[live]).max() + ATOL
                            for g, w in zip(got, want))
     assert within == {"relation_only": True, "both": False}
+
+
+def _meta_bf16_calls(feat, offset=0):
+    """The bf16 instances on meta tensors (a device that is not the CPU) of
+    width ``feat``, the bf16 relation and x rows starting ``offset``
+    elements into their storage; the output gradient and the saved output
+    f32 and aligned. Returns (B1's two instances and B2's: the 8-feature
+    walk, B3-B6's: the 4-feature walk)."""
+    ei, et, ew, *_ = make_inputs()
+    graph = port_graph(ei, et, ew)
+    csr, csr_src, seg = (l.to("meta") for l in (graph.csr, graph.csr_src, graph.segments))
+
+    def rows(n, dtype=torch.bfloat16, at=offset):
+        return torch.empty(n * feat + at, dtype=dtype, device="meta")[at:].view(n, feat)
+
+    w, rel, x, g = torch.empty(E_PAD, device="meta"), rows(R), rows(V), rows(V, torch.float32, 0)
+    k, mk = rspmm_cuda, rspmm_minmax_cuda
+    return ((lambda: k.rspmm_sum_fwd(csr, w, rel, x),
+             lambda: k.rspmm_sum_dx(csr_src, w, rel, g),
+             lambda: k.rspmm_sum_drel(seg, w, x, g)),
+            (lambda: mk.rspmm_minmax_fwd(csr, w, rel, x),
+             lambda: mk.rspmm_minmax_dx(csr_src, w, rel, x, g, g),
+             lambda: mk.rspmm_minmax_drel(seg, w, rel, x, g, g),
+             lambda: k.rspmm_dw(csr, w, rel, x, g),
+             lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", g)))
+
+
+@pytest.mark.parametrize("feat, offset", [(36, 0), (32, 4)])
+def test_bf16_rows_off_the_8_feature_layout_are_refused_by_b1_and_b2(monkeypatch, feat, offset):
+    """B1's two bf16 instances and B2's load 8 features a thread, a bf16 row
+    in one 16-byte load: a width that is a multiple of 4 but not of 8, or a
+    bf16 row that starts 8-byte aligned but not 16-byte, raises before any
+    launch; nothing falls back to the 4-feature walk."""
+    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    eight, _ = _meta_bf16_calls(feat, offset)
+    for call in eight:
+        with pytest.raises(ValueError, match="F % 8|16-byte"):
+            call()
+    assert _no_launches()
+
+
+@pytest.mark.parametrize("feat, offset", [(36, 0), (32, 4)])
+def test_bf16_rows_off_the_8_feature_layout_are_taken_by_b3_to_b6(monkeypatch, feat, offset):
+    """B3-B6's bf16 instances keep the 4-feature walk and its contract: the
+    rows B1 and B2 refuse pass the width and alignment checks and meet the
+    next one, the device (meta is not a CUDA device)."""
+    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    _, four = _meta_bf16_calls(feat, offset)
+    for call in four:
+        with pytest.raises(ValueError, match="want the CUDA device"):
+            call()
+    assert _no_launches()
+
+
+def test_bf16_entry_points_and_launch_keys_are_unchanged(monkeypatch):
+    """Each bf16 call of B1 and B2 launches the entry point it launched on
+    the 4-feature walk, counted under the same key, and only those three
+    entry points take the 8-feature walk."""
+    names = []
+
+    def launch(name, op, table, num_rows, indices, edge_weight, rows, *codes, out_name="out"):
+        names.append(name)
+        return torch.empty(num_rows, next(iter(rows.values())).shape[1], device="meta")
+
+    monkeypatch.setattr(rspmm_cuda, "_launch_walk", launch)
+    for wrapper in (rspmm_cuda.rspmm_sum_fwd, rspmm_cuda.rspmm_sum_dx, rspmm_cuda.rspmm_sum_drel):
+        monkeypatch.setattr(wrapper, "launches", collections.Counter())
+    for call in _meta_bf16_calls(32)[0]:
+        call()
+    assert names == ["rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16"]
+    assert rspmm_cuda._FEATURES == dict.fromkeys(names, 8)
+    assert rspmm_cuda.rspmm_sum_fwd.launches == {(V, 32, "bf16_bf16"): 1}
+    assert rspmm_cuda.rspmm_sum_dx.launches == {(V, 32, "bf16_f32"): 1}
+    assert rspmm_cuda.rspmm_sum_drel.launches == {(V, R, 32, "bf16"): 1}

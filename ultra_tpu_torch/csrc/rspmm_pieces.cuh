@@ -14,14 +14,20 @@
 // a second pass combines in slot order. Both passes are launched here, on one
 // stream, with no atomics: the result is the same bits on every run.
 //
+// What bounds the walks on an H100 is the latency of the gathered row loads,
+// not their bytes: the x rows sit in L2, and a piece's edges are a chain of
+// rounds of loads. What hides that latency is edges in flight on each SM:
+// pieces in flight (groups) times edges in flight per thread (W::kUnroll).
+//
 // Pass 1. A group of threads takes one piece and one tile of the row, the
 // pieces longest first (piece_order), so that the longest start in the
 // first wave and the groups that share a warp or a block walk pieces of
-// about one length; a thread per float4 of the row, the group F/4 threads
-// wide (a power of two from 8 up to 32, else a multiple of 32 up to 256, the
-// last lanes idle where F/4 is not), a block of 256 threads holding
-// 256 / group of them. So at F=64 a block walks 16 pieces and no lane idles;
-// F > 1024 takes several feature tiles (grid.y).
+// about one length; a thread per unit of the row (4 features, or 8: see Row
+// operands), the group as many threads as the row has units (a power of two
+// from 8 up to 32, else a multiple of 32 up to 256, the last lanes idle
+// where the row has fewer), a block of 256 threads holding 256 / group of
+// them. So at F=64 a 4-feature walk's block walks 16 pieces and no lane
+// idles; a row of more than 256 units takes several feature tiles (grid.y).
 // - The group first stages up to kStage edges of its piece in shared memory:
 //   the 32-bit words the walk's policy asks for (indices, the weight), read
 //   with coalesced loads, one round trip for the stage instead of dependent
@@ -35,17 +41,23 @@
 //   piece at ROW_PIECE 128); for B1 and B3, 4 edges in flight with
 //   registers capped so that 4 blocks fit an SM beat 8 in flight at 2
 //   blocks and 2 at 8: what hides the gathers' latency is warps in flight
-//   as much as loads per warp.
+//   as much as loads per warp. The 8-feature walk keeps 6 edges in flight,
+//   at 3 or 2 blocks (Gather8, Drel8: their registers decide), chosen from
+//   2-16 edges at 1-8 blocks over each instance's rows on the paths.
 // Pass 2. A group per (long row, tile) adds the row's partials in slot order
 // and writes the row of `out` (long_row_kernel: B1, B3, B4). A walk whose
 // long rows have hundreds of partials (B2 and B5 on the relation graph's 4
 // types) gives a row `split` groups of one block instead (split_row_kernel):
 // each adds every split-th partial from its own first slot on, in slot
 // order, and the first folds the others' sums in, in group order, so that
-// no single group's chain of loads sets the pass's length.
+// no single group's chain of loads sets the pass's length. The split is the
+// 4-feature walk's at the same F in every instance, so the order of the sums
+// is too.
 //
 // What an edge brings is the walk's policy W:
 //   W::Args                     the kernel's own operands
+//   W::Acc                      the accumulator of a thread (AccOf: float4,
+//                               4 features, where W names none; f32x8, 8)
 //   W::kWords                   32-bit words staged per edge: word k of staged
 //                               edge i is s[k * kStage + i]
 //   W::kUnroll                  edges whose row loads a thread keeps in flight
@@ -60,17 +72,30 @@
 //   W::init()                   an empty row's value
 //   W::merge(acc, partial)      folds a partial in (both pieces::Adds for the
 //                               walks that add)
-// Offsets row*F are 64-bit.
+// Offsets row*F are 64-bit; `width` counts accumulator units (F/4 or F/8).
 //
-// Row operands. A thread owns 4 contiguous features of every row, and
-// `load4` brings them in as a float4 whatever the operand's element type:
-// an f32 row as one 16-byte load, a bf16 row as one 8-byte load widened to
-// f32 in registers (exact). Each kernel is a template on the element types
-// of its row operands (its relation and x rows; the output gradient and the
-// forward's saved output are f32), instantiated once per C entry point;
-// the accumulators, the partial rows and the output are f32 in every
-// instance, so a bf16 instance computes the f32 instance's arithmetic on
-// bf16-rounded operands and moves half of their bytes.
+// Row operands. Each kernel is a template on the element types of its row
+// operands (its relation and x rows; the output gradient and the forward's
+// saved output are f32), instantiated once per C entry point; the
+// accumulators, the partial rows and the output are f32 in every instance,
+// so a bf16 instance computes the f32 instance's arithmetic on bf16-rounded
+// operands and moves half of their bytes.
+// - The 4-feature walk (every f32 instance; B3-B5's bf16 instances): a
+//   thread owns 4 contiguous features of every row, and `load4` brings them
+//   in as a float4: an f32 row as one 16-byte load, a bf16 row as one 8-byte
+//   load widened to f32 in registers (exact).
+// - The 8-feature walk (B1's and B2's bf16 instances, Gather8 and B2's
+//   Drel8): a thread owns 8 contiguous features, so that a bf16 row is read
+//   16 bytes a thread, as Hopper loads fastest, and a group is half as wide:
+//   at F=512 a block walks 4 pieces instead of 2, twice the edges in flight
+//   on an SM for the same registers. `load8` brings a bf16 row in as its raw
+//   bits (a uint4: 8 values in 4 registers, so 4 edges of two bf16 rows take
+//   the 32 registers that 4 edges of two f32 float4s take) and an f32 row as
+//   two float4s; a value is widened only at the fold, where it is added in
+//   (lo4, hi4: one integer instruction a value, exact). The fold is the
+//   4-feature walk's (the same Agg::add on each half), in the same order, so
+//   a bf16 instance gives the f32 instance's bits on the widened values. It
+//   needs F % 8 == 0 and its row operands 16-byte aligned.
 
 #pragma once
 
@@ -78,6 +103,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace pieces {
 
@@ -95,6 +121,52 @@ __device__ __forceinline__ float4 load4(const bf16* p, int64_t i) {
   return make_float4(bf16_at(u.x, 0), bf16_at(u.x, 1), bf16_at(u.y, 0), bf16_at(u.y, 1));
 }
 
+// Features 8i..8i+7 of a row operand for the 8-feature walk: a bf16 row's
+// raw bits as one 16-byte load (Raw8<bf16>: uint4), an f32 row's values as
+// two (Raw8<float>: f32x8, also the walk's accumulator); lo4 and hi4 give
+// features 0-3 and 4-7 as f32. bf16 is the high half of an f32, so widening
+// a value is one shift or one mask, and exact.
+struct f32x8 {
+  float4 lo, hi;
+};
+template <class T>
+struct Raw8;
+template <>
+struct Raw8<float> {
+  using type = f32x8;
+};
+template <>
+struct Raw8<bf16> {
+  using type = uint4;
+};
+__device__ __forceinline__ uint4 load8(const bf16* p, int64_t i) {
+  return __ldg(reinterpret_cast<const uint4*>(p) + i);
+}
+__device__ __forceinline__ f32x8 load8(const float* p, int64_t i) {
+  const float4* q = reinterpret_cast<const float4*>(p) + 2 * i;
+  return {__ldg(q), __ldg(q + 1)};
+}
+__device__ __forceinline__ float4 widen(uint32_t a, uint32_t b) {
+  return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+}
+__device__ __forceinline__ float4 lo4(const uint4& r) { return widen(r.x, r.y); }
+__device__ __forceinline__ float4 hi4(const uint4& r) { return widen(r.z, r.w); }
+__device__ __forceinline__ float4 lo4(const f32x8& r) { return r.lo; }
+__device__ __forceinline__ float4 hi4(const f32x8& r) { return r.hi; }
+
+// The accumulator of walk W: W::Acc, else a float4 (the 4-feature walk).
+template <class W, class = void>
+struct AccOf {
+  using type = float4;
+};
+template <class W>
+struct AccOf<W, std::void_t<typename W::Acc>> {
+  using type = typename W::Acc;
+};
+template <class W>
+using Acc = typename AccOf<W>::type;
+
 constexpr int kBlock = 256;      // threads of a pass-1 block
 constexpr int kStage = 128;      // edges of a piece staged in shared memory at once
 constexpr int kMaxThreads = 1024;  // threads of a pass-2 block at most
@@ -111,7 +183,7 @@ struct Table {
   float4* out;                   // (rows, width)
   int64_t num_pieces;
   int64_t num_long;
-  int64_t width;                 // row length in float4s (F / 4)
+  int64_t width;                 // row length in accumulator units (F / 4 or F / 8)
 };
 
 struct NoRow {};
@@ -127,7 +199,7 @@ struct Adds {
   }
 };
 
-// Threads of a group for a row of `width` float4s.
+// Threads of a group for a row of `width` accumulator units.
 inline int group_size(long long width) {
   if (width > 32) return width >= kBlock ? kBlock : static_cast<int>((width + 31) / 32 * 32);
   int group = 8;
@@ -164,7 +236,7 @@ __global__ void __launch_bounds__(kBlock, W::kMinBlocks)
     begin = t.piece_ptr[piece];
     len = t.piece_ptr[piece + 1] - begin;
   }
-  float4 acc = W::init();
+  Acc<W> acc = W::init();
   typename W::Row row{};
   if (len > 0 && mine) row = W::row(a, t.piece_row[piece], t.width, j);
   for (int64_t base = 0; base < len; base += kStage) {
@@ -187,8 +259,10 @@ __global__ void __launch_bounds__(kBlock, W::kMinBlocks)
   }
   if (piece < t.num_pieces && mine) {
     const int32_t slot = t.piece_slot[piece];
-    float4* dst = slot < 0 ? t.out + static_cast<int64_t>(t.piece_row[piece]) * t.width
-                           : t.partial + static_cast<int64_t>(slot) * t.width;
+    Acc<W>* const out = reinterpret_cast<Acc<W>*>(t.out);
+    Acc<W>* const partial = reinterpret_cast<Acc<W>*>(t.partial);
+    Acc<W>* dst = slot < 0 ? out + static_cast<int64_t>(t.piece_row[piece]) * t.width
+                           : partial + static_cast<int64_t>(slot) * t.width;
     dst[j] = acc;
   }
 }
@@ -201,12 +275,13 @@ __global__ void __launch_bounds__(kBlock) long_row_kernel(const Table t, int gro
   const int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x / group) + g;
   const int64_t j = static_cast<int64_t>(blockIdx.y) * group + (threadIdx.x - g * group);
   if (i >= t.num_long || j >= t.width) return;
+  const Acc<W>* partial = reinterpret_cast<const Acc<W>*>(t.partial);
   const int64_t first = t.long_slot_ptr[i];
   const int64_t end = t.long_slot_ptr[i + 1];
-  float4 acc = t.partial[first * t.width + j];
+  Acc<W> acc = partial[first * t.width + j];
 #pragma unroll 4
-  for (int64_t s = first + 1; s < end; ++s) W::merge(acc, t.partial[s * t.width + j]);
-  t.out[static_cast<int64_t>(t.long_rows[i]) * t.width + j] = acc;
+  for (int64_t s = first + 1; s < end; ++s) W::merge(acc, partial[s * t.width + j]);
+  reinterpret_cast<Acc<W>*>(t.out)[static_cast<int64_t>(t.long_rows[i]) * t.width + j] = acc;
 }
 
 // Pass 2 with `split` groups a long row: a block holds blockDim.x / (split *
@@ -214,53 +289,60 @@ __global__ void __launch_bounds__(kBlock) long_row_kernel(const Table t, int gro
 template <class W>
 __global__ void __launch_bounds__(kMaxThreads) split_row_kernel(const Table t, int group,
                                                                  int split) {
-  extern __shared__ float4 sums[];  // per group after a row's first: group float4s
+  extern __shared__ float4 shared[];  // per group after a row's first: group accumulators
+  Acc<W>* sums = reinterpret_cast<Acc<W>*>(shared);
+  const Acc<W>* partial = reinterpret_cast<const Acc<W>*>(t.partial);
   const int g = threadIdx.x / group;
   const int lane = threadIdx.x - g * group;
   const int part = g % split;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x / (group * split)) + g / split;
   const int64_t j = static_cast<int64_t>(blockIdx.y) * group + lane;
   const bool mine = i < t.num_long && j < t.width;
-  float4 acc = W::init();
+  Acc<W> acc = W::init();
   if (mine) {
     const int64_t first = t.long_slot_ptr[i] + part;
     const int64_t end = t.long_slot_ptr[i + 1];
-    if (first < end) acc = t.partial[first * t.width + j];
+    if (first < end) acc = partial[first * t.width + j];
 #pragma unroll 4
-    for (int64_t s = first + split; s < end; s += split) {
-      W::merge(acc, t.partial[s * t.width + j]);
-    }
+    for (int64_t s = first + split; s < end; s += split) W::merge(acc, partial[s * t.width + j]);
   }
   if (part > 0) sums[(g - g / split - 1) * group + lane] = acc;
   __syncthreads();
   if (part > 0 || !mine) return;
   for (int p = 1; p < split; ++p) W::merge(acc, sums[(g - g / split + p - 1) * group + lane]);
-  t.out[static_cast<int64_t>(t.long_rows[i]) * t.width + j] = acc;
+  reinterpret_cast<Acc<W>*>(t.out)[static_cast<int64_t>(t.long_rows[i]) * t.width + j] = acc;
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-// Whether a row operand of element type T starts where load4 can read it:
-// 16-byte aligned for f32, 8-byte for bf16.
-template <class T>
+// Whether a row operand of element type T starts where a walk of kFeat
+// features a thread can read it: where one load of the walk is aligned
+// (16-byte for f32 and for the 8-feature walk's bf16, 8-byte for the
+// 4-feature walk's bf16).
+template <class T, int kFeat = 4>
 inline bool aligned_rows(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T))) == 0;
+  constexpr size_t load = kFeat * sizeof(T) < 16 ? kFeat * sizeof(T) : 16;
+  return (reinterpret_cast<uintptr_t>(p) % load) == 0;
 }
 
+// Features a thread of walk W owns: 4, or 8 for the 8-feature walk.
+template <class W>
+constexpr int kFeatures = static_cast<int>(sizeof(Acc<W>) / sizeof(float));
+
 // Checks what the walk needs, launches both passes on `stream` and returns
-// cudaGetLastError() (0 on success). num_feat % 4 != 0, no piece, or an out
-// (or, with long rows, partial) not 16-byte aligned returns
-// cudaErrorInvalidValue and launches nothing; the caller checks its own
-// row operands' alignment.
+// cudaGetLastError() (0 on success). num_feat not a multiple of the walk's
+// features a thread (4 or 8), no piece, or an out (or, with long rows,
+// partial) not 16-byte aligned returns cudaErrorInvalidValue and launches
+// nothing; the caller checks its own row operands' alignment.
 template <class W>
 int launch(Table t, const typename W::Args& a, long long num_feat, void* stream) {
-  if (t.num_pieces <= 0 || t.num_long < 0 || num_feat <= 0 || num_feat % 4 != 0) {
+  if (t.num_pieces <= 0 || t.num_long < 0 || num_feat <= 0 || num_feat % kFeatures<W> != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!aligned16(t.out) || (t.num_long > 0 && !aligned16(t.partial))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  t.width = num_feat / 4;
+  t.width = num_feat / kFeatures<W>;
   const int group = group_size(t.width);
   const int groups = kBlock / group;
   const unsigned tiles = static_cast<unsigned>((t.width + group - 1) / group);
@@ -270,13 +352,15 @@ int launch(Table t, const typename W::Args& a, long long num_feat, void* stream)
   piece_kernel<W><<<grid, groups * group, smem, s>>>(t, a, group);
   const int status = static_cast<int>(cudaGetLastError());
   if (status != 0 || t.num_long == 0) return status;
+  // the split of the 4-feature walk's group, which is at least as wide
+  const int group4 = group_size(num_feat / 4);
   int split = 1;
-  while (split * 2 <= W::kSplit && split * 2 * group <= kMaxThreads) split *= 2;
+  while (split * 2 <= W::kSplit && split * 2 * group4 <= kMaxThreads) split *= 2;
   if constexpr (W::kSplit > 1) {
     if (split > 1) {
       const int threads = split * group > kBlock ? split * group : kBlock;
       const int rows = threads / (split * group);  // long rows a block combines
-      const size_t smem2 = sizeof(float4) * (split - 1) * group * rows;
+      const size_t smem2 = sizeof(Acc<W>) * (split - 1) * group * rows;
       const dim3 grid2(static_cast<unsigned>((t.num_long + rows - 1) / rows), tiles);
       split_row_kernel<W><<<grid2, threads, smem2, s>>>(t, group, split);
       return static_cast<int>(cudaGetLastError());
@@ -295,8 +379,8 @@ struct GatherArgs {
   const int32_t* etype;
   const int32_t* eid;
   const float* weight;  // indexed by eid
-  const R* rel;         // (R, 4 * width)
-  const X* x;           // (N, 4 * width)
+  const R* rel;         // (R, F)
+  const X* x;           // (N, F)
 };
 
 // The forward walk of B1 and B3: an edge brings x[col] and rel[etype],
@@ -327,6 +411,55 @@ struct Gather {
   }
   __device__ static float4 init() { return Agg::init(); }
   __device__ static void merge(float4& acc, const float4& p) { Agg::merge(acc, p); }
+};
+
+// The sizes of B1's 8-feature walk (edges whose loads a thread keeps in
+// flight, blocks an SM must hold), timed on an H100 (PERF.md,
+// scripts/torch_row_piece_sweep.py --walk8): 6 edges in flight, and as
+// many blocks as their registers let in: 3 for bf16 x rows (the forward, 8
+// registers of raw rows an edge; 80 registers a thread), 2 for f32 x rows
+// (the input gradient's g, 12 an edge). 4 edges at 4 blocks, the 4-feature
+// walk's sizes, spill the f32 x rows' instance and leave a relation-graph
+// row's chain of rounds long (32 rounds for a piece of 128 edges).
+constexpr int kGather8Unroll = 6, kGather8MinBlocks = 3;
+constexpr int kGather8F32Unroll = 6, kGather8F32MinBlocks = 2;
+
+// The forward walk of B1 on the 8-feature walk (its bf16 instances): an
+// edge brings x[col] and rel[etype] as their raw loads, and Agg folds each
+// half in at the fold, widened, as Gather folds its float4.
+template <class Agg, class R, class X>
+struct Gather8 {
+  using Args = GatherArgs<R, X>;
+  using Acc = f32x8;
+  struct Edge {
+    typename Raw8<X>::type x;
+    typename Raw8<R>::type rel;
+  };
+  using Row = NoRow;
+  static constexpr bool kF32X = std::is_same_v<X, float>;
+  static constexpr int kWords = 3, kSplit = 1;
+  static constexpr int kUnroll = kF32X ? kGather8F32Unroll : kGather8Unroll;
+  static constexpr int kMinBlocks = kF32X ? kGather8F32MinBlocks : kGather8MinBlocks;
+
+  __device__ static Row row(const Args&, int64_t, int64_t, int64_t) { return {}; }
+  __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {
+    Gather<Agg, R, X>::stage(a, e, s, i);
+  }
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    return {load8(a.x, static_cast<int64_t>(s[i]) * width + j),
+            load8(a.rel, static_cast<int64_t>(s[kStage + i]) * width + j)};
+  }
+  __device__ static void add(f32x8& acc, const Row&, const int32_t* s, int i, const Edge& e) {
+    const float w = __int_as_float(s[2 * kStage + i]);
+    Agg::add(acc.lo, w, lo4(e.rel), lo4(e.x));
+    Agg::add(acc.hi, w, hi4(e.rel), hi4(e.x));
+  }
+  __device__ static f32x8 init() { return {Agg::init(), Agg::init()}; }
+  __device__ static void merge(f32x8& acc, const f32x8& p) {
+    Agg::merge(acc.lo, p.lo);
+    Agg::merge(acc.hi, p.hi);
+  }
 };
 
 }  // namespace pieces

@@ -33,14 +33,22 @@
 //   relation graph a type has hundreds of pieces, so several groups share a
 //   type, each adding every split-th partial, and the first adds their sums
 //   in group order. No atomics anywhere, so two runs give the same bits;
-// - each thread owns 4 contiguous features and loads float4 (or, for bf16 x
-//   rows, 4 values in 8 bytes widened to f32 in registers), so a group
-//   reads every gathered row in whole pieces, neighbouring threads on
-//   neighbouring addresses. F must be a multiple of 4, g, partial and out
-//   16-byte aligned and x 16-byte (f32) or 8-byte (bf16); anything else is
-//   refused, never run on a slower path. Within a type the edges keep
-//   destination order, so the g rows of neighbouring edges repeat and hit
-//   L1/L2.
+// - the f32 instance: each thread owns 4 contiguous features and loads
+//   float4, so a group reads every gathered row in whole pieces,
+//   neighbouring threads on neighbouring addresses. F must be a multiple of
+//   4, and x, g, partial and out 16-byte aligned; anything else is refused,
+//   never run on a slower path. Within a type the edges keep destination
+//   order, so the g rows of neighbouring edges repeat and hit L1/L2;
+// - the bf16 instance (bf16 x, f32 g) takes the 8-feature walk
+//   (rspmm_pieces.cuh, Drel8 below): each thread owns 8 features, an x row
+//   is one 16-byte load a thread kept raw until the fold and a g row two
+//   float4 loads, a group is F/8 threads wide, so a block walks twice the
+//   pieces, twice the edges in flight on an SM, which is what hides the
+//   gathers' latency; halving x's bytes alone bought nothing. The fold is
+//   the f32 instance's on each half, and pass 2 splits a type's partials as
+//   the f32 instance does, so on the same (widened) values it gives the
+//   same bits. It needs F % 8 == 0 and x, g, partial and out 16-byte
+//   aligned, and refuses anything else.
 
 #include "rspmm_pieces.cuh"
 
@@ -86,20 +94,69 @@ struct Drel : pieces::Adds {
   }
   __device__ static void add(float4& acc, const Row&, const int32_t* s, int i,
                              const Edge& e) {
-    const float w = __int_as_float(s[i]);
+    fold(acc, __int_as_float(s[i]), e.x, e.g);
+  }
+  // acc += w * x * g (mul_op 0) or w * g (mul_op 1), for 4 features
+  __device__ static void fold(float4& acc, float w, const float4& x, const float4& g) {
     if (OP == 0) {
-      acc.x += w * (e.x.x * e.g.x);
-      acc.y += w * (e.x.y * e.g.y);
-      acc.z += w * (e.x.z * e.g.z);
-      acc.w += w * (e.x.w * e.g.w);
+      acc.x += w * (x.x * g.x);
+      acc.y += w * (x.y * g.y);
+      acc.z += w * (x.z * g.z);
+      acc.w += w * (x.w * g.w);
     } else {
-      acc.x += w * e.g.x;
-      acc.y += w * e.g.y;
-      acc.z += w * e.g.z;
-      acc.w += w * e.g.w;
+      acc.x += w * g.x;
+      acc.y += w * g.y;
+      acc.z += w * g.z;
+      acc.w += w * g.w;
     }
   }
 };
+
+// The sizes of B2's 8-feature walk, timed on an H100 (PERF.md,
+// scripts/torch_row_piece_sweep.py --walk8): 6 edges in flight at 2 blocks
+// an SM, as B1's input gradient, whose edges bring the same registers (a
+// bf16 row's 16 bytes and an f32 g row's 32); pass 2 as Drel's.
+constexpr int kDrel8Unroll = 6, kDrel8MinBlocks = 2;
+
+// The bf16 instance's walk: Drel's stage, 8 features a thread, an x row
+// (mul_op 0) as its raw 16 bytes and a g row as two float4s, each half
+// folded in, widened, by Drel's fold.
+template <int OP, class X>
+struct Drel8 : Drel<OP, X> {
+  using Args = DrelArgs<X>;
+  using Row = pieces::NoRow;
+  using Acc = pieces::f32x8;
+  struct Edge {
+    typename pieces::Raw8<X>::type x;
+    pieces::f32x8 g;
+  };
+  static constexpr int kUnroll = kDrel8Unroll, kMinBlocks = kDrel8MinBlocks;
+
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    Edge e{};
+    e.g = pieces::load8(reinterpret_cast<const float*>(a.g),
+                        static_cast<int64_t>(s[pieces::kStage + i]) * width + j);
+    if (OP == 0) {
+      e.x = pieces::load8(a.x, static_cast<int64_t>(s[2 * pieces::kStage + i]) * width + j);
+    }
+    return e;
+  }
+  __device__ static void add(Acc& acc, const Row&, const int32_t* s, int i, const Edge& e) {
+    const float w = __int_as_float(s[i]);
+    Drel<OP, X>::fold(acc.lo, w, pieces::lo4(e.x), e.g.lo);
+    Drel<OP, X>::fold(acc.hi, w, pieces::hi4(e.x), e.g.hi);
+  }
+  __device__ static Acc init() { return {Drel<OP, X>::init(), Drel<OP, X>::init()}; }
+  __device__ static void merge(Acc& acc, const Acc& p) {
+    Drel<OP, X>::merge(acc.lo, p.lo);
+    Drel<OP, X>::merge(acc.hi, p.hi);
+  }
+};
+
+// The walk of an instance: Drel for f32 x rows, Drel8 for bf16 ones.
+template <int OP, class X>
+using Walk = std::conditional_t<std::is_same_v<X, float>, Drel<OP, X>, Drel8<OP, X>>;
 
 template <class X>
 int sum_drel(const void* piece_ptr, const void* piece_row, const void* piece_slot,
@@ -108,7 +165,7 @@ int sum_drel(const void* piece_ptr, const void* piece_row, const void* piece_slo
              const void* x, const void* g, void* partial, void* out, long long num_pieces,
              long long num_long, long long num_feat, int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!pieces::aligned_rows<X>(x) || !pieces::aligned16(g)) {
+  if (!pieces::aligned_rows<X, pieces::kFeatures<Walk<0, X>>>(x) || !pieces::aligned16(g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{
@@ -119,8 +176,8 @@ int sum_drel(const void* piece_ptr, const void* piece_row, const void* piece_slo
   const DrelArgs<X> a{static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
                       static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
                       static_cast<const X*>(x), static_cast<const float4*>(g)};
-  return mul_op == 0 ? pieces::launch<Drel<0, X>>(t, a, num_feat, stream)
-                     : pieces::launch<Drel<1, X>>(t, a, num_feat, stream);
+  return mul_op == 0 ? pieces::launch<Walk<0, X>>(t, a, num_feat, stream)
+                     : pieces::launch<Walk<1, X>>(t, a, num_feat, stream);
 }
 
 }  // namespace
@@ -133,8 +190,9 @@ int sum_drel(const void* piece_ptr, const void* piece_row, const void* piece_slo
 // or bf16 (rspmm_sum_drel_bf16), not read for mul_op 1; g: (V, num_feat)
 // f32; partial: (slots, num_feat) f32 scratch (unread without long types);
 // out: (num_types, num_feat) f32. All contiguous on one device; indices are
-// trusted to be in range. num_feat % 4 != 0 or a misaligned x, g, partial
-// or out returns cudaErrorInvalidValue and launches nothing.
+// trusted to be in range. num_feat % 4 != 0 (% 8 for rspmm_sum_drel_bf16)
+// or a misaligned x, g, partial or out returns cudaErrorInvalidValue and
+// launches nothing.
 PIECES_ENTRIES1(rspmm_sum_drel, sum_drel,
                 (const void* piece_ptr, const void* piece_row, const void* piece_slot,
                  const void* piece_order, const void* long_rows, const void* long_slot_ptr,

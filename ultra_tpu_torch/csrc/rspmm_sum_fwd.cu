@@ -28,20 +28,33 @@
 //   The sum within a piece, and over the pieces, runs in edge order, with
 //   no atomics, so two runs give the same bits;
 // - a group stages its piece's indices and weights in shared memory with
-//   coalesced loads, then keeps the x and rel loads of 4 edges in flight
-//   per thread, with 4 blocks of 256 threads on each SM (rspmm_pieces.cuh);
-// - each thread owns 4 contiguous features and loads float4, so a group
-//   reads every gathered row in 16-byte pieces, neighbouring threads on
-//   neighbouring addresses, and a group is F/4 threads wide, so at F=64 no
-//   lane idles. F must be a multiple of 4, out and the partial rows 16-byte
-//   aligned and rel and x rows 16-byte (f32) or 8-byte (bf16) aligned (every
-//   width on the serving path is B*64); anything else is refused, never run
-//   on a slower path;
-// - a bf16 row (compute_dtype: bfloat16) is loaded 4 features, 8 bytes, a
-//   thread and widened to f32 in registers: the walk, the f32 sums and
-//   their order are the f32 instance's, and the gathered bytes halve. The
-//   input gradient (this kernel on the source-major CSR) takes bf16 rel
-//   rows and the f32 output gradient as x: the (bf16, f32) instance;
+//   coalesced loads, then keeps the x and rel loads of several edges in
+//   flight per thread (the f32 instance 4, with 4 blocks of 256 threads on
+//   each SM; the bf16 instances 6, with 3 or 2: rspmm_pieces.cuh);
+// - the f32 instance: each thread owns 4 contiguous features and loads
+//   float4, so a group reads every gathered row in 16-byte pieces,
+//   neighbouring threads on neighbouring addresses, and a group is F/4
+//   threads wide, so at F=64 no lane idles. F must be a multiple of 4, out
+//   and the partial rows 16-byte aligned and rel and x rows 16-byte aligned
+//   (every width on the serving path is B*64); anything else is refused,
+//   never run on a slower path;
+// - the bf16 instances (compute_dtype: bfloat16) take the 8-feature walk:
+//   each thread owns 8 features, so a bf16 row is one 16-byte load a thread
+//   and a group is F/8 threads wide, and at F=512 a block walks 4 pieces
+//   where the f32 instance walks 2. Halving the bytes buys nothing on its
+//   own here, since x sits in L2 and the walk waits on the loads' latency;
+//   more edges in flight on an SM for the same registers is what the walk
+//   gains, and 6 edges a round (not 4) shorten a piece's chain of rounds,
+//   which sets the time on the relation graph, whose 474 rows are one
+//   piece each. A bf16 row is kept as its raw 16 bytes until the fold and
+//   widened there, one integer instruction a value; the f32 sums and their
+//   order are the f32 instance's, so on the same (widened) values it gives
+//   the same bits. They need F % 8 == 0 and every row operand 16-byte
+//   aligned (every width on the paths is B*64, or B*16 in the tests), and
+//   refuse anything else: nothing falls back to the 4-feature walk. The
+//   input gradient (this kernel on the source-major CSR) takes bf16 rel rows
+//   and the f32 output gradient as x: the (bf16, f32) instance, its x rows
+//   two float4 loads a thread;
 // - an x row is still gathered once per incoming edge (E*F*4 bytes in all,
 //   from L2 while x fits its 50 MB): the same edges with uniformly drawn
 //   destinations, whose rows are all short, are this design's floor.
@@ -66,6 +79,12 @@ struct Sum : pieces::Adds {
   }
 };
 
+// The walk of an instance: the 4-feature walk for f32 rows, the 8-feature
+// walk for bf16 ones.
+template <int OP, class R, class X>
+using Walk = std::conditional_t<std::is_same_v<R, float> && std::is_same_v<X, float>,
+                                pieces::Gather<Sum<OP>, R, X>, pieces::Gather8<Sum<OP>, R, X>>;
+
 template <class R, class X>
 int sum_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot,
             const void* piece_order, const void* long_rows, const void* long_slot_ptr,
@@ -73,7 +92,8 @@ int sum_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot
             const void* rel, const void* x, void* partial, void* out, long long num_pieces,
             long long num_long, long long num_feat, int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x)) {
+  constexpr int feat = pieces::kFeatures<Walk<0, R, X>>;
+  if (!pieces::aligned_rows<R, feat>(rel) || !pieces::aligned_rows<X, feat>(x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{
@@ -85,9 +105,8 @@ int sum_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot
       static_cast<const int32_t*>(col), static_cast<const int32_t*>(etype),
       static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
       static_cast<const R*>(rel), static_cast<const X*>(x)};
-  using pieces::Gather;
-  return mul_op == 0 ? pieces::launch<Gather<Sum<0>, R, X>>(t, a, num_feat, stream)
-                     : pieces::launch<Gather<Sum<1>, R, X>>(t, a, num_feat, stream);
+  return mul_op == 0 ? pieces::launch<Walk<0, R, X>>(t, a, num_feat, stream)
+                     : pieces::launch<Walk<1, R, X>>(t, a, num_feat, stream);
 }
 
 }  // namespace
@@ -101,8 +120,8 @@ int sum_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot
 // rspmm_sum_fwd_bf16_f32, the input gradient's: bf16 and f32);
 // partial: (slots, num_feat) f32 scratch; out: (rows, num_feat) f32. All
 // contiguous on one device; indices are trusted to be in range.
-// num_feat % 4 != 0 or a misaligned rel, x, out or partial returns
-// cudaErrorInvalidValue and launches nothing.
+// num_feat % 4 != 0 (% 8 for the bf16 instances) or a misaligned rel, x,
+// out or partial returns cudaErrorInvalidValue and launches nothing.
 #define SUM_FWD_PARAMS                                                                   \
   (const void* piece_ptr, const void* piece_row, const void* piece_slot,                   \
    const void* piece_order, const void* long_rows, const void* long_slot_ptr,              \

@@ -41,6 +41,11 @@ one its operands' types name: no operand is cast, and any other type or
 combination raises ``TypeError``, on the CPU too.
 The plain versions widen a bf16 row to f32 before any arithmetic, as the
 kernels do, so both compute f32 arithmetic on bf16-rounded operands.
+B1's and B2's bf16 instances walk 8 features a thread (one 16-byte load of
+a bf16 row, :data:`_FEATURES`): on the card they take only F % 8 == 0 and
+row operands that start 16-byte aligned; every other instance walks 4
+features a thread and takes F % 4 == 0 and rows aligned to one load of 4
+elements. Anything else raises ``ValueError`` before any launch.
 
 Each wrapper's ``launches`` is a :class:`collections.Counter` of its kernel
 launches by output shape ``(rows, F)`` since the last ``clear()``, so a
@@ -121,6 +126,9 @@ _ROW_TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INSTANCES = {"rspmm_sum_fwd": ("", "bf16_bf16", "bf16_f32"), "rspmm_sum_drel": ("", "bf16"),
               "rspmm_minmax_fwd": ("", "bf16_bf16"), "rspmm_minmax_dx": ("", "bf16_bf16"),
               "rspmm_minmax_drel": ("", "bf16_bf16"), "rspmm_dw": ("", "bf16_bf16")}
+# the features a thread owns in the entry points on the 8-feature walk
+# (csrc/rspmm_pieces.cuh); every other entry point's thread owns 4
+_FEATURES = {"rspmm_sum_fwd_bf16_bf16": 8, "rspmm_sum_fwd_bf16_f32": 8, "rspmm_sum_drel_bf16": 8}
 
 
 def _kernel(name: str):
@@ -195,19 +203,20 @@ def _compute_type(*tensors):
     return dtype
 
 
-def _check_device_tensors(op: str, device, rows, ptrs, ints, floats):
-    """What the kernels need of their operands: rows of 4-feature loads
-    (F % 4 == 0, starts 16-byte aligned for f32 and 8-byte for bf16),
-    everything contiguous on ``device`` (a CUDA device), ``ptrs`` 1-D int64
-    and ``ints`` 1-D int32 of one length. The kernels load 4 features a
-    thread only: they refuse other widths and alignments rather than
-    running them on a slower path."""
+def _check_device_tensors(op: str, device, rows, ptrs, ints, floats, features: int = 4):
+    """What the kernels need of their operands: rows of loads of
+    ``features`` features a thread (F % features == 0, each row operand's
+    start aligned to one load: 16 bytes, or 8 for a bf16 row of a 4-feature
+    walk), everything contiguous on ``device`` (a CUDA device), ``ptrs`` 1-D
+    int64 and ``ints`` 1-D int32 of one length. The kernels refuse other
+    widths and alignments rather than running them on a slower path."""
     feat = next(iter(rows.values())).shape[1]
-    if feat % 4:
-        raise ValueError(f"{op}: the kernel needs F % 4 == 0, got F={feat}")
+    if feat % features:
+        raise ValueError(f"{op}: the kernel needs F % {features} == 0, got F={feat}")
     for name, t in rows.items():
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{op}: {name} must start {4 * t.element_size()}-byte aligned")
+        load = min(16, features * t.element_size())
+        if t.data_ptr() % load:
+            raise ValueError(f"{op}: {name} must start {load}-byte aligned")
     for name, t in {**rows, **ptrs, **ints, **floats}.items():
         if t.device != device or not t.is_cuda:
             raise ValueError(f"{op}: {name} is on {t.device}, want the CUDA device {device}")
@@ -249,7 +258,8 @@ def _launch_walk(name: str, op: str, table, num_rows: int, indices: dict, edge_w
     # for all of them
     first = next(iter(indices))
     _check_device_tensors(op, device, rows={**rows, **scratch}, ptrs={},
-                          ints={first: indices[first]}, floats={"edge_weight": edge_weight})
+                          ints={first: indices[first]}, floats={"edge_weight": edge_weight},
+                          features=_FEATURES.get(name, 4))
     if num_rows == 0 or num_feat == 0:
         return out
     operands = ([getattr(table, f) for f in _TABLE] + list(indices.values()) + [edge_weight]
@@ -304,7 +314,8 @@ def rspmm_sum_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul"):
 
     ``relation`` (R, F) and ``x`` (N, F) are f32 or bf16 each and
     contiguous (and on the card, F % 4 == 0 and both aligned to 4
-    elements); ``mul`` is ``"mul"`` (distmult) or ``"add"`` (transe). On a
+    elements; for bf16 rows F % 8 == 0 and both 16-byte aligned); ``mul`` is
+    ``"mul"`` (distmult) or ``"add"`` (transe). On a
     CPU tensor this runs :func:`rspmm_sum_fwd_plain`; on a CUDA tensor it
     launches B1's instance for the two types, building it first if needed,
     and raises if it cannot.
@@ -339,7 +350,8 @@ def rspmm_sum_dx(csr_src: CSR, edge_weight, relation, g, mul: str = "mul"):
     """Input gradient of the sum rspmm: (N, F) f32 from the f32 output
     gradient ``g`` (V, F) and the f32 or bf16 ``relation``, walking the
     source-major CSR ``csr_src``. Launches B1 on a CUDA tensor (its
-    (relation type, f32) instance; counted here, not in
+    (relation type, f32) instance, which for bf16 relation rows takes F %
+    8 == 0 and 16-byte aligned rows; counted here, not in
     :func:`rspmm_sum_fwd`), runs :func:`rspmm_sum_dx_plain` on a CPU one."""
     _check_dtypes(edge_weight, relation, g, mul, op="rspmm_sum_dx", g=g)
     instance = _instance("rspmm_sum_dx", "rspmm_sum_fwd", relation, g)
@@ -374,8 +386,8 @@ def rspmm_sum_drel(seg: TypeSegments, edge_weight, x, g, mul: str = "mul"):
     ``"add"``) and the f32 output gradient ``g`` (V, F). On a CPU tensor
     this runs :func:`rspmm_sum_drel_plain`; on a CUDA tensor it launches
     B2's instance for x's type over the segments' piece table (both of its
-    passes, one count), building it first if needed, and raises if it
-    cannot."""
+    passes, one count; for bf16 x, F % 8 == 0 and x and g 16-byte
+    aligned), building it first if needed, and raises if it cannot."""
     _check_mul(mul)
     _check_types("rspmm_sum_drel", {"x": x}, {"g": g, "edge_weight": edge_weight})
     if x.dim() != 2 or g.dim() != 2 or x.shape[1] != g.shape[1]:
