@@ -64,10 +64,11 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    width) on the card against the same conv on the CPU;
 9. runs ``compute_dtype: bfloat16`` (``[bf16]``, see BF16_REL): the bf16
    instances of B1-B6 against their plain versions in f64 on the same bf16
-   operands, each timed beside the f32 instance (B1's and B2's, which walk
-   8 features a thread, also with the ratio of the two times and
-   ``f32_equal``, their largest difference from the f32 instance on the
-   same values, 0 where the two add in the same order); then ultra_3g
+   operands, each timed beside the f32 instance (B1-B5's also with the
+   ratio of the two times and ``f32_equal``, their largest difference from
+   the f32 instance on the same values: 0 where the two compute in the same
+   order, as the 8-feature walk of B1-B4 does, and held to 0 for B3 and
+   B4); then ultra_3g
    serving and fine-tuning, the PNA model's scores and step (the step also
    against the same step on the plain versions), attribution and a CLQA
    batch, each in bf16 against f32 from the same weights and inputs, with their launches
@@ -482,6 +483,12 @@ def sum_kernel_error(got, plain, layout, weight, a, b, mul):
     return float(err.max()), rel, within, ok
 
 
+def largest_difference(a, b):
+    """max |a - b|, where equal values (the same infinities included) differ
+    by 0."""
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+
 def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
     """``kernel(layout, weight, a, b, mul)`` against ``plain`` for mul and
     add (:func:`sum_kernel_error`); times both (``plain`` in f32, as the
@@ -520,8 +527,8 @@ def hold(name, source, timed, kernel, plain, layout, weight, a, b, bound):
             a32, b32 = a.float(), b.float()
             extra["f32_ms"] = device_ms(lambda: kernel(layout, weight, a32, b32, mul))
             extra["f32_ratio"] = ms / extra["f32_ms"]
-            extra["f32_equal"] = float((kernel(layout, weight, a, b, mul)
-                                        - kernel(layout, weight, a32, b32, mul)).abs().max())
+            extra["f32_equal"] = largest_difference(kernel(layout, weight, a, b, mul),
+                                                    kernel(layout, weight, a32, b32, mul))
         rows.append(kernel_row(
             row_name, source, replaces, key, ms,
             device_ms(lambda: plain(layout, weight, a, b, mul), samples=PLAIN_SAMPLES),
@@ -634,7 +641,10 @@ def hold_minmax(tag, g_, feat, gen, replaces, dtype=torch.float32):
     and add in f64. Times the three (normal inputs, mul, max) beside their
     plain versions in f32. With ``dtype`` bf16 the relation and x rows are
     rounded to bf16 (their bf16 instances; rows named ``...[bf16]/...``,
-    each with ``f32_ms``, the f32 instance on the same values widened).
+    each with ``f32_ms``, the f32 instance on the same values widened,
+    ``f32_ratio``, ms over it, and ``f32_equal``, max |bf16 instance - f32
+    instance| on those values). ``f32_equal`` must be 0 for B3 and B4, which
+    compute the f32 instance's values in its order; B5's is reported.
     Returns ({row name: row}, ok)."""
     from ultra_tpu_torch.ops import rspmm_minmax_cuda as k
     from ultra_tpu_torch.utils.benchlib import device_ms
@@ -681,13 +691,24 @@ def hold_minmax(tag, g_, feat, gen, replaces, dtype=torch.float32):
         "drel": lambda rel, x: k.rspmm_minmax_drel(g_.segments, w, rel, x, g, out, "mul"),
     }
     rel32, x32 = rel.float(), x.float()
-    extra = {name: ({"f32_ms": device_ms(lambda: call(rel32, x32))} if kind_tag else {})
-             for name, call in calls.items()}
+    ms, extra = {}, {}
+    for name, call in calls.items():
+        ms[name], extra[name] = device_ms(lambda: call(rel, x)), {}
+        if kind_tag:
+            f32_ms = device_ms(lambda: call(rel32, x32))
+            equal = largest_difference(call(rel, x), call(rel32, x32))
+            extra[name] = {"f32_ms": f32_ms, "f32_ratio": ms[name] / f32_ms, "f32_equal": equal}
+            # B3's and B4's bf16 instances (the 8-feature walk) must give the
+            # f32 instance's values on the widened rows; B5's is reported
+            same_ok = equal == 0 or name == "drel"
+            ok &= same_ok
+            print(f"[kernel] rspmm_minmax_{name}{kind_tag} {tag} against the f32 instance: "
+                  f"ok={same_ok} f32_equal={equal!r}", flush=True)
     rows = [
         kernel_row(
             f"rspmm_minmax_fwd{kind_tag}/{tag}/F{feat}",
             "ultra_tpu_torch/csrc/rspmm_minmax_fwd.cu", replaces["fwd"],
-            tuple(out.shape) + key_tag, device_ms(lambda: calls["fwd"](rel, x)),
+            tuple(out.shape) + key_tag, ms["fwd"],
             device_ms(lambda: k.rspmm_minmax_fwd_plain(g_.csr, w, rel, x, "mul", False),
                       samples=PLAIN_SAMPLES),
             rspmm_bound_ms(g_.csr, w, rel, x), errs["fwd"],
@@ -696,7 +717,7 @@ def hold_minmax(tag, g_, feat, gen, replaces, dtype=torch.float32):
         kernel_row(
             f"rspmm_minmax_dx{kind_tag}/{tag}/F{feat}",
             "ultra_tpu_torch/csrc/rspmm_minmax_dx.cu", replaces["dx"],
-            tuple(x.shape) + key_tag, device_ms(lambda: calls["dx"](rel, x)),
+            tuple(x.shape) + key_tag, ms["dx"],
             device_ms(lambda: k.rspmm_minmax_dx_plain(g_.csr_src, w, rel, x, g, out, "mul"),
                       samples=PLAIN_SAMPLES),
             minmax_dx_bound_ms(g_.csr_src, w, rel, x, g), errs["dx"], grad_tol,
@@ -704,7 +725,7 @@ def hold_minmax(tag, g_, feat, gen, replaces, dtype=torch.float32):
         kernel_row(
             f"rspmm_minmax_drel{kind_tag}/{tag}/F{feat}",
             "ultra_tpu_torch/csrc/rspmm_minmax_drel.cu", replaces["drel"],
-            tuple(rel.shape) + key_tag, device_ms(lambda: calls["drel"](rel, x)),
+            tuple(rel.shape) + key_tag, ms["drel"],
             device_ms(lambda: k.rspmm_minmax_drel_plain(g_.segments, w, rel, x, g, out, "mul"),
                       samples=PLAIN_SAMPLES),
             minmax_drel_bound_ms(g_.segments, w, rel, x, g), errs["drel"], grad_tol,
@@ -4498,11 +4519,12 @@ def main() -> int:
         build.load(name)
         for usage in build.ptxas_usage(logs.get(name, "")):
             print(f"[build] {name}: {usage}", flush=True)
-    # B1's and B2's bf16 instances: their passes on the 8-feature walk
-    walk8 = [usage for name in KERNELS[:2] for usage in build.ptxas_usage(logs.get(name, ""))
-             if "Gather8" in usage or "Drel8" in usage]
+    # the bf16 instances of B1-B4: their passes on the 8-feature walk
+    walk8 = [usage for name in KERNELS[:4] for usage in build.ptxas_usage(logs.get(name, ""))
+             if any(policy in usage for policy in ("Gather8", "Drel8", "Dx8"))]
     print("[build] 8-feature walk (rspmm_sum_fwd_bf16_bf16, rspmm_sum_fwd_bf16_f32, "
-          "rspmm_sum_drel_bf16): " + (" | ".join(walk8) or "built before this run"), flush=True)
+          "rspmm_sum_drel_bf16, rspmm_minmax_fwd_bf16_bf16, rspmm_minmax_dx_bf16_bf16): "
+          + (" | ".join(walk8) or "built before this run"), flush=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False

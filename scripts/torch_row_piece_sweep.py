@@ -35,18 +35,21 @@ At the default pieces it times the bf16 instances that walk 8 features a
 thread (``csrc/rspmm_pieces.cuh``: B1's ``rspmm_sum_fwd_bf16_bf16`` on the
 entity graph at F = 512 and the relation graph at 512 and 4096, its input
 gradient ``rspmm_sum_fwd_bf16_f32`` on both graphs at 512, B2's
-``rspmm_sum_drel_bf16`` on both at 512) beside the f32 instance on the same
-values widened to f32 (``f32_ms``), with ``f32_equal``, the largest
+``rspmm_sum_drel_bf16`` on both at 512, B3's ``rspmm_minmax_fwd_bf16_bf16``
+and B4's ``rspmm_minmax_dx_bf16_bf16`` (mul, max) at 512 on the entity
+graph and on the uniform graph's short rows) beside the f32 instance on the
+same values widened to f32 (``f32_ms``), with ``f32_equal``, the largest
 difference between the two outputs. ``--walk8`` takes sizes of that walk,
 each ``UNROLLxBLOCKS`` (edges whose loads a thread keeps in flight, blocks
 an SM must hold): for each it copies ``csrc/`` under ``build/walk8/`` with
-all of B1's and B2's sizes (``kGather8Unroll``/``kGather8MinBlocks``,
-``kGather8F32...``, ``kDrel8...``) set so, builds the two sources, one
+every size pair of the walk (``WALK8_SIZES``: B1's ``kGather8Unroll``/
+``kGather8MinBlocks`` and ``kGather8F32...``, B2's ``kDrel8...``, B3's
+``kMinmax8...``, B4's ``kDx8...``) set so, builds the four sources, one
 ``nvcc`` each, all at once, and times the same launches through it, the
 source's own build first and last. It also counts, in the SASS of each
-pass-1 kernel of B1 and B2 (``cuobjdump -sass``), the instructions that
-widen a bf16 value (a mask with 0xffff0000, a shift by 16), conversions
-(``F2F``, ``PRMT``) and the f32 arithmetic. An empty list skips a sweep.
+pass-1 kernel of B1-B4 (``cuobjdump -sass``), the instructions that widen
+a bf16 value (a mask with 0xffff0000, a shift by 16), conversions (``F2F``,
+``PRMT``) and the f32 arithmetic. An empty list skips a sweep.
 
 Before it is timed, each launch's output is held against its plain version:
 B1 and B2 as ``chip_smoke.py`` holds them (in f64, within 1e-5 of the sum of
@@ -77,9 +80,18 @@ SOURCES = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
 
 
 ROOT = Path(__file__).resolve().parent.parent
-# B1's and B2's sources and the C entry points on the 8-feature walk
-WALK8_SOURCES = ("rspmm_sum_fwd", "rspmm_sum_drel")
-WALK8_ENTRIES = ("rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16")
+# B1's, B2's, B3's and B4's sources and the C entry points on the 8-feature walk
+WALK8_SOURCES = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx")
+WALK8_ENTRIES = ("rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16",
+                 "rspmm_minmax_fwd_bf16_bf16", "rspmm_minmax_dx_bf16_bf16")
+# a size pair of the 8-feature walk in a source: "kNameUnroll = U, kNameMinBlocks = B"
+WALK8_PATTERN = re.compile(r"(k\w+8\w*)Unroll = \d+, \1MinBlocks = \d+")
+# the size pairs each file of csrc/ holds, by name (B1's sizes sit in the header)
+WALK8_SIZES = {"rspmm_pieces.cuh": ("kGather8", "kGather8F32"), "rspmm_sum_fwd.cu": (),
+               "rspmm_sum_drel.cu": ("kDrel8",), "rspmm_minmax_fwd.cu": ("kMinmax8",),
+               "rspmm_minmax_dx.cu": ("kDx8",)}
+# the policies of the 8-feature walk, as they appear in its kernels' names
+WALK8_POLICIES = ("Gather8", "Drel8", "Dx8")
 
 
 def ints(text):
@@ -88,7 +100,7 @@ def ints(text):
 
 
 def build_walk8(sizes):
-    """B1's and B2's sources with the 8-feature walk's sizes set to each
+    """The 8-feature walk's sources (B1-B4) with its sizes set to each
     (unroll, blocks) of ``sizes``, copied under build/walk8/<u>x<b>/ and
     built there, one nvcc per source, all at once. Returns ({(u, b): {entry
     point: bound C function}}, {"<u>x<b>": the compiler's resource lines of
@@ -101,11 +113,11 @@ def build_walk8(sizes):
         d = ROOT / "build" / "walk8" / f"{u}x{b}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(csrc, d)
-        for name, pairs in (("rspmm_pieces.cuh", 2), ("rspmm_sum_drel.cu", 1)):
-            text, n = re.subn(r"(k\w+8\w*)Unroll = \d+, \1MinBlocks = \d+",
-                              rf"\1Unroll = {u}, \1MinBlocks = {b}", (d / name).read_text())
-            if n != pairs:
-                raise RuntimeError(f"{name}: {n} sizes of the 8-feature walk, want {pairs}")
+        for name, pairs in WALK8_SIZES.items():
+            text, n = WALK8_PATTERN.subn(rf"\1Unroll = {u}, \1MinBlocks = {b}",
+                                         (d / name).read_text())
+            if n != len(pairs):
+                raise RuntimeError(f"{name}: {n} sizes of the 8-feature walk, want {len(pairs)}")
             (d / name).write_text(text)
         for src in WALK8_SOURCES:
             procs[(u, b), src] = (d / f"lib{src}.so", subprocess.Popen(
@@ -118,7 +130,7 @@ def build_walk8(sizes):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {src} at {size}:\n{log}")
         usage.setdefault("x".join(map(str, size)), []).extend(
-            u for u in build.ptxas_usage(log) if "Gather8" in u or "Drel8" in u)
+            u for u in build.ptxas_usage(log) if any(p in u for p in WALK8_POLICIES))
         cdll = ctypes.CDLL(str(lib))
         for entry in WALK8_ENTRIES:
             if entry.startswith(src + "_"):
@@ -196,8 +208,8 @@ def main() -> int:
     parser.add_argument("--dw-parts", default="1,2,4",
                         help="comma-separated counts of groups B6 splits a piece over")
     parser.add_argument("--walk8", default="",
-                        help="comma-separated UNROLLxBLOCKS sizes of B1's and B2's 8-feature "
-                             "walk to build and time beside the source's own")
+                        help="comma-separated UNROLLxBLOCKS sizes of the 8-feature walk "
+                             "(B1-B4) to build and time beside the source's own")
     parser.add_argument("--out", help="also write the record to this JSON file")
     args = parser.parse_args()
     walk8_sizes = [tuple(int(v) for v in size.split("x")) for size in args.walk8.split(",")
@@ -210,14 +222,15 @@ def main() -> int:
     from ultra_tpu_torch.data.kg import split_to_graph
     from ultra_tpu_torch.graph import build_segments
     from ultra_tpu_torch.ops import build
-    from chip_smoke import dw_error, minmax_grad_error
+    from chip_smoke import dw_error, largest_difference, minmax_grad_error
     from ultra_tpu_torch.ops import rspmm_cuda
     from ultra_tpu_torch.ops.rspmm_cuda import (
         rspmm_dw, rspmm_sum_drel, rspmm_sum_drel_plain, rspmm_sum_dx, rspmm_sum_dx_plain,
         rspmm_sum_fwd, rspmm_sum_fwd_plain,
     )
     from ultra_tpu_torch.ops.rspmm_minmax_cuda import (
-        rspmm_minmax_drel, rspmm_minmax_drel_terms, rspmm_minmax_fwd, rspmm_minmax_fwd_plain,
+        rspmm_minmax_drel, rspmm_minmax_drel_terms, rspmm_minmax_dx, rspmm_minmax_dx_terms,
+        rspmm_minmax_fwd, rspmm_minmax_fwd_plain,
     )
     from ultra_tpu_torch.utils.benchlib import (
         device_ms, fb15k237_split, uniform_destination_graph,
@@ -367,41 +380,61 @@ def main() -> int:
     # the f32 instance on the same values widened; then each --walk8 build
     # of them on the same inputs, the source's own first and last
     rel_graph = graph.relation_graph
-    cases = []  # (name, wrapper, plain version, layout, weights, bf16 rows, other rows)
+    cases = []  # (name, launch(a, b), held(a, b), bf16 rows a, other rows b)
+
+    def sum_case(name, fn, plain, layout, w, a, b):
+        cases.append((name, lambda a, b: fn(layout, w, a, b, "mul"),
+                      lambda a, b: held(fn, plain, layout, w, a, b, False), a, b))
+
     for tag, on, feats in (("entity", graph, (512,)), ("relation", rel_graph, (512, 4096))):
         w = masked(on.edge_weight)
         for feat in feats:
             rows16 = lambda n: rand(n, feat).bfloat16()
-            cases.append((f"rspmm_sum_fwd[bf16]/{tag}/F{feat}", rspmm_sum_fwd,
-                          rspmm_sum_fwd_plain, on.csr, w, rows16(on.num_relations),
-                          rows16(on.num_nodes)))
-        cases += [(f"rspmm_sum_dx[bf16]/{tag}/F512", rspmm_sum_dx, rspmm_sum_dx_plain,
-                   on.csr_src, w, rand(on.num_relations, 512).bfloat16(),
-                   rand(on.num_nodes, 512)),
-                  (f"rspmm_sum_drel[bf16]/{tag}/F512", rspmm_sum_drel, rspmm_sum_drel_plain,
-                   on.segments, w, rand(on.num_nodes, 512).bfloat16(),
-                   rand(on.num_nodes, 512))]
+            sum_case(f"rspmm_sum_fwd[bf16]/{tag}/F{feat}", rspmm_sum_fwd, rspmm_sum_fwd_plain,
+                     on.csr, w, rows16(on.num_relations), rows16(on.num_nodes))
+        sum_case(f"rspmm_sum_dx[bf16]/{tag}/F512", rspmm_sum_dx, rspmm_sum_dx_plain,
+                 on.csr_src, w, rand(on.num_relations, 512).bfloat16(), rand(on.num_nodes, 512))
+        sum_case(f"rspmm_sum_drel[bf16]/{tag}/F512", rspmm_sum_drel, rspmm_sum_drel_plain,
+                 on.segments, w, rand(on.num_nodes, 512).bfloat16(), rand(on.num_nodes, 512))
+    # B3 and B4 (mul, max) at F = 512 on the entity graph's rows and on the
+    # uniform graph's short ones (B4 given B3's output, as time_minmax_dx)
+    for tag, on, fwd_csr, out_csr, dx_csr in (
+            ("entity", graph, graph.csr, graph.csr, graph.csr_src),
+            ("uniform", uniform, uniform.csr, uniform.csr_src, uniform.csr)):
+        w = masked(on.edge_weight)
+        rel, x = rand(on.num_relations, 512).bfloat16(), rand(on.num_nodes, 512).bfloat16()
+        g, out = rand(on.num_nodes, 512), rspmm_minmax_fwd(out_csr, w, rel, x)
+        fwd = lambda a, b, csr=fwd_csr, w=w: rspmm_minmax_fwd(csr, w, a, b, "mul")
+        dx = lambda a, b, csr=dx_csr, w=w, g=g, out=out: rspmm_minmax_dx(csr, w, a, b, g, out)
+        cases += [
+            (f"rspmm_minmax_fwd[bf16]/{tag}/F512", fwd,
+             lambda a, b, fwd=fwd, csr=fwd_csr, w=w: bool(torch.equal(
+                 fwd(a, b), rspmm_minmax_fwd_plain(csr, w, a, b, "mul"))), rel, x),
+            (f"rspmm_minmax_dx[bf16]/{tag}/F512", dx,
+             lambda a, b, dx=dx, csr=dx_csr, w=w, g=g, out=out: minmax_grad_error(
+                 dx(a, b), rspmm_minmax_dx_terms, csr, w, a, b, g, out, "mul", b.shape[0])[2],
+             rel, x)]
 
     def time_bf16(label):
         rows = {}
-        for name, fn, plain, layout, w, a, b in cases:
-            f32 = fn(layout, w, a.float(), b.float(), "mul")
+        for name, launch, agrees, a, b in cases:
             row = rows[name] = {
-                "ok": held(fn, plain, layout, w, a, b, False),
-                "f32_equal": float((fn(layout, w, a, b, "mul") - f32).abs().max()),
-                "ms": device_ms(lambda: fn(layout, w, a, b, "mul"))}
+                "ok": agrees(a, b),
+                "f32_equal": largest_difference(launch(a, b), launch(a.float(), b.float())),
+                "ms": device_ms(lambda: launch(a, b))}
             print(f"[sweep] {label} {name}: {json.dumps(row)}", flush=True)
         return rows
 
-    for name, fn, plain, layout, w, a, b in cases:
+    for name, launch, _, a, b in cases:
         a32, b32 = a.float(), b.float()
-        record["bf16"][name] = {"f32_ms": device_ms(lambda: fn(layout, w, a32, b32, "mul"))}
+        record["bf16"][name] = {"f32_ms": device_ms(lambda: launch(a32, b32))}
     for name, row in time_bf16("walk8 source").items():
         record["bf16"][name].update(row, f32_ratio=row["ms"] / record["bf16"][name]["f32_ms"])
         ok &= row["ok"]
     if walk8_fns:
         own = {entry: rspmm_cuda._kernel(entry) for entry in WALK8_ENTRIES}
         for size, fns in walk8_fns.items():
+            # the min/max wrappers bind their entry points through rspmm_cuda too
             rspmm_cuda._KERNELS.update(fns)
             rows = record["walk8"]["x".join(map(str, size))] = time_bf16(f"walk8 {size}")
             ok &= all(row["ok"] for row in rows.values())

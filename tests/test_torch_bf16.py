@@ -20,12 +20,14 @@ Tolerances:
   ``GRAD_ULPS`` of its largest entry, and the loss to the f32 rtol of
   ``test_torch_train.py``. The same f32 model (no cast) lies outside both
   bounds: the test fails if the cast is skipped.
-- the shape contract on the card: B1's and B2's bf16 instances walk 8
-  features a thread (F % 8 == 0, bf16 rows 16-byte aligned) and raise
-  ``ValueError`` before any launch on anything else; B3-B6's bf16 instances
-  walk 4 (F % 4 == 0, bf16 rows 8-byte aligned). Held on meta tensors (a
-  device that is not the CPU), as ``test_torch_rspmm.py`` holds the f32
-  instances' contract.
+- the shape contract on the card: B1's, B2's, B3's and B4's bf16
+  instances walk 8 features a thread (F % 8 == 0, bf16 rows 16-byte
+  aligned) and raise ``ValueError`` before any launch on anything else;
+  B5's and B6's bf16 instances walk 4 (F % 4 == 0, bf16 rows 8-byte
+  aligned). Held on meta tensors (a device that is not the CPU), as
+  ``test_torch_rspmm.py`` holds the f32 instances' contract; the sizes of
+  the 8-feature walk that ``scripts/torch_row_piece_sweep.py --walk8``
+  rewrites are held to the sources as text.
 - the divergence from the JAX package's XLA path (path (b), where it runs
   without plans: bf16 weights and bf16 accumulation) is pinned against an
   f64 reference on the same bf16 operands: the port within 1e-6 of the
@@ -335,8 +337,8 @@ def _meta_bf16_calls(feat, offset=0):
     """The bf16 instances on meta tensors (a device that is not the CPU) of
     width ``feat``, the bf16 relation and x rows starting ``offset``
     elements into their storage; the output gradient and the saved output
-    f32 and aligned. Returns (B1's two instances and B2's: the 8-feature
-    walk, B3-B6's: the 4-feature walk)."""
+    f32 and aligned. Returns (B1's two instances, B2's, B3's and B4's: the
+    8-feature walk; B5's and B6's: the 4-feature walk)."""
     ei, et, ew, *_ = make_inputs()
     graph = port_graph(ei, et, ew)
     csr, csr_src, seg = (l.to("meta") for l in (graph.csr, graph.csr_src, graph.segments))
@@ -348,20 +350,20 @@ def _meta_bf16_calls(feat, offset=0):
     k, mk = rspmm_cuda, rspmm_minmax_cuda
     return ((lambda: k.rspmm_sum_fwd(csr, w, rel, x),
              lambda: k.rspmm_sum_dx(csr_src, w, rel, g),
-             lambda: k.rspmm_sum_drel(seg, w, x, g)),
-            (lambda: mk.rspmm_minmax_fwd(csr, w, rel, x),
-             lambda: mk.rspmm_minmax_dx(csr_src, w, rel, x, g, g),
-             lambda: mk.rspmm_minmax_drel(seg, w, rel, x, g, g),
+             lambda: k.rspmm_sum_drel(seg, w, x, g),
+             lambda: mk.rspmm_minmax_fwd(csr, w, rel, x),
+             lambda: mk.rspmm_minmax_dx(csr_src, w, rel, x, g, g)),
+            (lambda: mk.rspmm_minmax_drel(seg, w, rel, x, g, g),
              lambda: k.rspmm_dw(csr, w, rel, x, g),
              lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", g)))
 
 
 @pytest.mark.parametrize("feat, offset", [(36, 0), (32, 4)])
-def test_bf16_rows_off_the_8_feature_layout_are_refused_by_b1_and_b2(monkeypatch, feat, offset):
-    """B1's two bf16 instances and B2's load 8 features a thread, a bf16 row
-    in one 16-byte load: a width that is a multiple of 4 but not of 8, or a
-    bf16 row that starts 8-byte aligned but not 16-byte, raises before any
-    launch; nothing falls back to the 4-feature walk."""
+def test_bf16_rows_off_the_8_feature_layout_are_refused_by_b1_to_b4(monkeypatch, feat, offset):
+    """B1's two bf16 instances, B2's, B3's and B4's load 8 features a
+    thread, a bf16 row in one 16-byte load: a width that is a multiple of 4
+    but not of 8, or a bf16 row that starts 8-byte aligned but not 16-byte,
+    raises before any launch; nothing falls back to the 4-feature walk."""
     monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
     eight, _ = _meta_bf16_calls(feat, offset)
     for call in eight:
@@ -371,10 +373,10 @@ def test_bf16_rows_off_the_8_feature_layout_are_refused_by_b1_and_b2(monkeypatch
 
 
 @pytest.mark.parametrize("feat, offset", [(36, 0), (32, 4)])
-def test_bf16_rows_off_the_8_feature_layout_are_taken_by_b3_to_b6(monkeypatch, feat, offset):
-    """B3-B6's bf16 instances keep the 4-feature walk and its contract: the
-    rows B1 and B2 refuse pass the width and alignment checks and meet the
-    next one, the device (meta is not a CUDA device)."""
+def test_bf16_rows_off_the_8_feature_layout_are_taken_by_b5_and_b6(monkeypatch, feat, offset):
+    """B5's and B6's bf16 instances keep the 4-feature walk and its
+    contract: the rows B1-B4 refuse pass the width and alignment checks and
+    meet the next one, the device (meta is not a CUDA device)."""
     monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
     _, four = _meta_bf16_calls(feat, offset)
     for call in four:
@@ -384,22 +386,60 @@ def test_bf16_rows_off_the_8_feature_layout_are_taken_by_b3_to_b6(monkeypatch, f
 
 
 def test_bf16_entry_points_and_launch_keys_are_unchanged(monkeypatch):
-    """Each bf16 call of B1 and B2 launches the entry point it launched on
-    the 4-feature walk, counted under the same key, and only those three
-    entry points take the 8-feature walk."""
+    """Each bf16 call of B1-B4 launches the entry point it launched on the
+    4-feature walk, counted under the same key, and only those five entry
+    points take the 8-feature walk."""
     names = []
 
     def launch(name, op, table, num_rows, indices, edge_weight, rows, *codes, out_name="out"):
         names.append(name)
         return torch.empty(num_rows, next(iter(rows.values())).shape[1], device="meta")
 
+    # B3 launches through rspmm_cuda._launch_pieces, B4 through the name it imported
     monkeypatch.setattr(rspmm_cuda, "_launch_walk", launch)
-    for wrapper in (rspmm_cuda.rspmm_sum_fwd, rspmm_cuda.rspmm_sum_dx, rspmm_cuda.rspmm_sum_drel):
+    monkeypatch.setattr(rspmm_minmax_cuda, "_launch_walk", launch)
+    wrappers = (rspmm_cuda.rspmm_sum_fwd, rspmm_cuda.rspmm_sum_dx, rspmm_cuda.rspmm_sum_drel,
+                rspmm_minmax_cuda.rspmm_minmax_fwd, rspmm_minmax_cuda.rspmm_minmax_dx)
+    for wrapper in wrappers:
         monkeypatch.setattr(wrapper, "launches", collections.Counter())
     for call in _meta_bf16_calls(32)[0]:
         call()
-    assert names == ["rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16"]
+    assert names == ["rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16",
+                     "rspmm_minmax_fwd_bf16_bf16", "rspmm_minmax_dx_bf16_bf16"]
     assert rspmm_cuda._FEATURES == dict.fromkeys(names, 8)
     assert rspmm_cuda.rspmm_sum_fwd.launches == {(V, 32, "bf16_bf16"): 1}
     assert rspmm_cuda.rspmm_sum_dx.launches == {(V, 32, "bf16_f32"): 1}
     assert rspmm_cuda.rspmm_sum_drel.launches == {(V, R, 32, "bf16"): 1}
+    assert rspmm_minmax_cuda.rspmm_minmax_fwd.launches == {(V, 32, "bf16_bf16"): 1}
+    assert rspmm_minmax_cuda.rspmm_minmax_dx.launches == {(V, 32, "bf16_bf16"): 1}
+
+
+def test_walk8_sweep_finds_each_sources_size_pairs():
+    """``scripts/torch_row_piece_sweep.py --walk8`` rewrites the sizes of
+    the 8-feature walk by a pattern over the sources' text: in each file it
+    names it finds exactly the size pairs that file defines, so that a
+    renamed constant fails here and not by timing the wrong kernel. Every
+    source of the walk's entry points is one of those files, and each pair
+    is read by a walk in its file."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "torch_row_piece_sweep", root / "scripts" / "torch_row_piece_sweep.py")
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    csrc = root / "ultra_tpu_torch" / "csrc"
+    assert {f"{src}.cu" for src in sweep.WALK8_SOURCES} <= set(sweep.WALK8_SIZES)
+    assert {re.sub(r"(_(?:bf16|f32))+$", "", e) for e in sweep.WALK8_ENTRIES} == set(
+        sweep.WALK8_SOURCES)
+    assert set(sweep.WALK8_ENTRIES) == set(rspmm_cuda._FEATURES)
+    for name, pairs in sweep.WALK8_SIZES.items():
+        text = (csrc / name).read_text()
+        assert sweep.WALK8_PATTERN.findall(text) == list(pairs), name
+        for pair in pairs:  # and a walk in the same file takes its sizes from it
+            assert re.search(rf"\b{pair}Unroll\b(?! =)", text), pair
+        rewritten, n = sweep.WALK8_PATTERN.subn(r"\1Unroll = 99, \1MinBlocks = 98", text)
+        assert n == len(pairs)
+        assert all(f"{pair}Unroll = 99, {pair}MinBlocks = 98" in rewritten for pair in pairs)

@@ -36,11 +36,21 @@
 //   that are in the CSR) or one that does not route folds in a selected 0,
 //   and nothing waits on a test;
 // - x[u]'s tile is loaded once per piece, not once per edge;
-// - each thread owns 4 contiguous features and loads float4, or 4 bf16
-//   values in 8 bytes widened to f32 in registers (F % 4 == 0; f32 rows
-//   16-byte aligned, bf16 rows 8-byte; anything else is refused). A bf16
-//   instance recomputes the message from the widened rel and x values, as
-//   the forward's bf16 instance computed it, so ties route bit for bit.
+// - the f32 instance: each thread owns 4 contiguous features and loads
+//   float4 (F % 4 == 0, every row operand 16-byte aligned);
+// - the bf16 instance walks 8 features a thread (Dx8): x[u] and an edge's
+//   rel row are one 16-byte load each, kept raw until the fold and widened
+//   there, out and g two float4s each. Its edges bring 20 registers for 8
+//   features where Dx's bring 12 for 4, and the f32 out and g rows are 4 of
+//   an edge's 5 KB at F=512, so the wider walk gains little here: 2 edges
+//   in flight at 3 blocks an SM (80 registers) beat the 4-feature bf16
+//   walk by 2% on the entity graph, where 4-8 edges at 1-2 blocks and 2-4
+//   at 4 were slower than it (PERF.md). It needs F % 8 == 0 and 16-byte
+//   aligned rows; anything else is refused. It recomputes the message from
+//   the widened rel and x values, as the forward's bf16 instance computed
+//   it, so ties route bit for bit, and adds each feature's terms in the f32
+//   instance's order: on the widened values it gives the f32 instance's
+//   bits.
 
 #include "rspmm_pieces.cuh"
 
@@ -71,8 +81,8 @@ struct DxArgs {
   const float4* out;    // (V, width), the forward's output
 };
 
-// An edge brings rel[etype], out[dst] and g[dst]; a piece's row brings
-// x[u].
+// The f32 instance's walk, 4 features a thread: an edge brings rel[etype],
+// out[dst] and g[dst]; a piece's row brings x[u].
 template <int OP, class R, class X>
 struct Dx : pieces::Adds {
   using Args = DxArgs<R, X>;
@@ -101,13 +111,64 @@ struct Dx : pieces::Adds {
   }
   __device__ static void add(float4& acc, const Row& x, const int32_t* s, int i,
                              const Edge& e) {
-    const float w = __int_as_float(s[2 * pieces::kStage + i]);
-    acc.x += term<OP>(e.rel.x, x.x, w, e.out.x, e.g.x);
-    acc.y += term<OP>(e.rel.y, x.y, w, e.out.y, e.g.y);
-    acc.z += term<OP>(e.rel.z, x.z, w, e.out.z, e.g.z);
-    acc.w += term<OP>(e.rel.w, x.w, w, e.out.w, e.g.w);
+    fold(acc, __int_as_float(s[2 * pieces::kStage + i]), e.rel, x, e.out, e.g);
+  }
+  // acc += the routed terms of one edge, for 4 features
+  __device__ static void fold(float4& acc, float w, const float4& r, const float4& x,
+                              const float4& o, const float4& g) {
+    acc.x += term<OP>(r.x, x.x, w, o.x, g.x);
+    acc.y += term<OP>(r.y, x.y, w, o.y, g.y);
+    acc.z += term<OP>(r.z, x.z, w, o.z, g.z);
+    acc.w += term<OP>(r.w, x.w, w, o.w, g.w);
   }
 };
+
+// The sizes of B4's 8-feature walk (its bf16 instance), timed on an H100
+// (PERF.md, scripts/torch_row_piece_sweep.py --walk8): 2 edges in flight at
+// 3 blocks an SM, 80 registers a thread (20 bytes spilled); 3-4 edges at 2
+// blocks (116-128 registers, none spilled) were 3-4% slower.
+constexpr int kDx8Unroll = 2, kDx8MinBlocks = 3;
+
+// The bf16 instance's walk: Dx's stage, 8 features a thread, x[u] and an
+// edge's rel row as their raw 16 bytes, out and g as two float4s each (20
+// registers an edge), each half folded in, widened, by Dx's fold.
+template <int OP, class R, class X>
+struct Dx8 : Dx<OP, R, X> {
+  using Args = DxArgs<R, X>;
+  using Acc = pieces::f32x8;
+  using Row = typename pieces::Raw8<X>::type;
+  struct Edge {
+    typename pieces::Raw8<R>::type rel;
+    pieces::f32x8 out, g;
+  };
+  static constexpr int kUnroll = kDx8Unroll, kMinBlocks = kDx8MinBlocks;
+
+  __device__ static Row row(const Args& a, int64_t u, int64_t width, int64_t j) {
+    return pieces::load8(a.x, u * width + j);
+  }
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    const int64_t dst = static_cast<int64_t>(s[i]) * width + j;
+    return {pieces::load8(a.rel, static_cast<int64_t>(s[pieces::kStage + i]) * width + j),
+            pieces::load8(reinterpret_cast<const float*>(a.out), dst),
+            pieces::load8(reinterpret_cast<const float*>(a.g), dst)};
+  }
+  __device__ static void add(Acc& acc, const Row& x, const int32_t* s, int i, const Edge& e) {
+    const float w = __int_as_float(s[2 * pieces::kStage + i]);
+    Dx<OP, R, X>::fold(acc.lo, w, pieces::lo4(e.rel), pieces::lo4(x), e.out.lo, e.g.lo);
+    Dx<OP, R, X>::fold(acc.hi, w, pieces::hi4(e.rel), pieces::hi4(x), e.out.hi, e.g.hi);
+  }
+  __device__ static Acc init() { return {pieces::Adds::init(), pieces::Adds::init()}; }
+  __device__ static void merge(Acc& acc, const Acc& p) {
+    pieces::Adds::merge(acc.lo, p.lo);
+    pieces::Adds::merge(acc.hi, p.hi);
+  }
+};
+
+// The walk of an instance: Dx for f32 rows, Dx8 for bf16 ones.
+template <int OP, class R, class X>
+using Walk = std::conditional_t<std::is_same_v<R, float> && std::is_same_v<X, float>,
+                                Dx<OP, R, X>, Dx8<OP, R, X>>;
 
 template <class R, class X>
 int minmax_dx(const void* piece_ptr, const void* piece_row, const void* piece_slot,
@@ -117,8 +178,9 @@ int minmax_dx(const void* piece_ptr, const void* piece_row, const void* piece_sl
               void* dx, long long num_pieces, long long num_long, long long num_feat,
               int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x) || !pieces::aligned16(g) ||
-      !pieces::aligned16(out)) {
+  constexpr int feat = pieces::kFeatures<Walk<0, R, X>>;
+  if (!pieces::aligned_rows<R, feat>(rel) || !pieces::aligned_rows<X, feat>(x) ||
+      !pieces::aligned16(g) || !pieces::aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{
@@ -130,8 +192,8 @@ int minmax_dx(const void* piece_ptr, const void* piece_row, const void* piece_sl
                        static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
                        static_cast<const R*>(rel), static_cast<const X*>(x),
                        static_cast<const float4*>(g), static_cast<const float4*>(out)};
-  return mul_op == 0 ? pieces::launch<Dx<0, R, X>>(t, a, num_feat, stream)
-                     : pieces::launch<Dx<1, R, X>>(t, a, num_feat, stream);
+  return mul_op == 0 ? pieces::launch<Walk<0, R, X>>(t, a, num_feat, stream)
+                     : pieces::launch<Walk<1, R, X>>(t, a, num_feat, stream);
 }
 
 }  // namespace
@@ -145,8 +207,8 @@ int minmax_dx(const void* piece_ptr, const void* piece_row, const void* piece_sl
 // rspmm_minmax_dx_bf16_bf16: bf16 and bf16); g, out: (V, num_feat) f32;
 // partial: (slots, num_feat) f32 scratch (unread without long rows); dx:
 // (N, num_feat) f32. All contiguous on one device; indices are trusted to
-// be in range. num_feat % 4 != 0 or a misaligned row operand returns
-// cudaErrorInvalidValue and launches nothing.
+// be in range. num_feat % 4 != 0 (% 8 for rspmm_minmax_dx_bf16_bf16) or a
+// misaligned row operand returns cudaErrorInvalidValue and launches nothing.
 PIECES_ENTRIES2(rspmm_minmax_dx, minmax_dx,
                 (const void* piece_ptr, const void* piece_row, const void* piece_slot,
                  const void* piece_order, const void* long_rows, const void* long_slot_ptr,

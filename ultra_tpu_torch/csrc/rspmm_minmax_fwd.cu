@@ -36,12 +36,19 @@
 //   a masked edge (the runtime easy-edge mask zeroes weights of edges that
 //   are in the CSR) no longer holds up the next edge's loads: its rows are
 //   loaded and left out;
-// - each thread owns 4 contiguous features and loads them as one float4, or
-//   as 4 bf16 values (8 bytes) widened to f32 in registers (F % 4 == 0, out
-//   and partial rows 16-byte aligned, rel and x rows 16-byte for f32 and
-//   8-byte for bf16; anything else is refused). The message of a bf16
-//   instance is the f32 message of the widened values, which the backward
-//   kernels recompute from the same bf16 rows bit for bit.
+// - the f32 instance: each thread owns 4 contiguous features and loads them
+//   as one float4 (F % 4 == 0, every row operand 16-byte aligned);
+// - the bf16 instance takes B1's 8-feature walk (Gather8): each thread owns
+//   8 features, so a bf16 row is one 16-byte load a thread, kept raw until
+//   the fold and widened there, and at F=512 a block walks 4 pieces, not 2.
+//   Its sizes are its own (kMinmax8...): 3 edges in flight at 4 blocks an
+//   SM (64 registers, no spill), which beat B1's 6 at 3 (80, with spills)
+//   and 2-8 edges at 2-4 blocks on the entity graph's and the uniform
+//   graph's rows (PERF.md). It needs F % 8 == 0 and 16-byte aligned rows;
+//   anything else is refused. Its message is the f32 message of the
+//   widened values, each row's extreme taken in the f32 instance's order,
+//   so it equals the f32 instance on those values, and the backward kernels
+//   recompute it from the same bf16 rows bit for bit.
 
 #include "rspmm_pieces.cuh"
 
@@ -78,6 +85,19 @@ struct Extreme {
   }
 };
 
+// The sizes of B3's 8-feature walk (its bf16 instance), timed on an H100
+// (PERF.md, scripts/torch_row_piece_sweep.py --walk8): 3 edges in flight at
+// 4 blocks an SM, 64 registers a thread.
+constexpr int kMinmax8Unroll = 3, kMinmax8MinBlocks = 4;
+
+// The walk of an instance: the 4-feature walk for f32 rows, the 8-feature
+// walk with B3's own sizes for bf16 ones.
+template <int OP, bool IS_MIN, class R, class X>
+using Walk = std::conditional_t<
+    std::is_same_v<R, float> && std::is_same_v<X, float>,
+    pieces::Gather<Extreme<OP, IS_MIN>, R, X>,
+    pieces::Gather8<Extreme<OP, IS_MIN>, R, X, kMinmax8Unroll, kMinmax8MinBlocks>>;
+
 template <class R, class X>
 int minmax_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot,
                const void* piece_order, const void* long_rows, const void* long_slot_ptr,
@@ -87,7 +107,8 @@ int minmax_fwd(const void* piece_ptr, const void* piece_row, const void* piece_s
   if ((mul_op != 0 && mul_op != 1) || (is_min != 0 && is_min != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x)) {
+  constexpr int feat = pieces::kFeatures<Walk<0, false, R, X>>;
+  if (!pieces::aligned_rows<R, feat>(rel) || !pieces::aligned_rows<X, feat>(x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{
@@ -99,13 +120,12 @@ int minmax_fwd(const void* piece_ptr, const void* piece_row, const void* piece_s
       static_cast<const int32_t*>(col), static_cast<const int32_t*>(etype),
       static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
       static_cast<const R*>(rel), static_cast<const X*>(x)};
-  using pieces::Gather;
   if (mul_op == 0) {
-    return is_min ? pieces::launch<Gather<Extreme<0, true>, R, X>>(t, a, num_feat, stream)
-                  : pieces::launch<Gather<Extreme<0, false>, R, X>>(t, a, num_feat, stream);
+    return is_min ? pieces::launch<Walk<0, true, R, X>>(t, a, num_feat, stream)
+                  : pieces::launch<Walk<0, false, R, X>>(t, a, num_feat, stream);
   }
-  return is_min ? pieces::launch<Gather<Extreme<1, true>, R, X>>(t, a, num_feat, stream)
-                : pieces::launch<Gather<Extreme<1, false>, R, X>>(t, a, num_feat, stream);
+  return is_min ? pieces::launch<Walk<1, true, R, X>>(t, a, num_feat, stream)
+                : pieces::launch<Walk<1, false, R, X>>(t, a, num_feat, stream);
 }
 
 }  // namespace
@@ -113,8 +133,8 @@ int minmax_fwd(const void* piece_ptr, const void* piece_row, const void* piece_s
 // Launches both passes on `stream` and returns cudaGetLastError() (0 on
 // success). The operands are rspmm_sum_fwd's (rspmm_sum_fwd.cu), rel and x
 // of the entry point's types; is_min 1 takes the minimum, 0 the maximum.
-// num_feat % 4 != 0 or a misaligned rel, x, out or partial returns
-// cudaErrorInvalidValue and launches nothing.
+// num_feat % 4 != 0 (% 8 for rspmm_minmax_fwd_bf16_bf16) or a misaligned
+// rel, x, out or partial returns cudaErrorInvalidValue and launches nothing.
 PIECES_ENTRIES2(rspmm_minmax_fwd, minmax_fwd,
                 (const void* piece_ptr, const void* piece_row, const void* piece_slot,
                  const void* piece_order, const void* long_rows, const void* long_slot_ptr,

@@ -41,9 +41,12 @@
 //   piece at ROW_PIECE 128); for B1 and B3, 4 edges in flight with
 //   registers capped so that 4 blocks fit an SM beat 8 in flight at 2
 //   blocks and 2 at 8: what hides the gathers' latency is warps in flight
-//   as much as loads per warp. The 8-feature walk keeps 6 edges in flight,
-//   at 3 or 2 blocks (Gather8, Drel8: their registers decide), chosen from
-//   2-16 edges at 1-8 blocks over each instance's rows on the paths.
+//   as much as loads per warp. The 8-feature walk's sizes are each
+//   kernel's own, chosen from 2-16 edges at 1-8 blocks over each instance's
+//   rows on the paths: B1 and B2 keep 6 edges in flight at 3 or 2 blocks
+//   (Gather8, Drel8: their registers decide), B3 3 at 4 (Gather8 at
+//   rspmm_minmax_fwd.cu's sizes), B4 4 at 2 (Dx8, whose edges bring the
+//   most registers).
 // Pass 2. A group per (long row, tile) adds the row's partials in slot order
 // and writes the row of `out` (long_row_kernel: B1, B3, B4). A walk whose
 // long rows have hundreds of partials (B2 and B5 on the relation graph's 4
@@ -80,22 +83,24 @@
 // accumulators, the partial rows and the output are f32 in every instance,
 // so a bf16 instance computes the f32 instance's arithmetic on bf16-rounded
 // operands and moves half of their bytes.
-// - The 4-feature walk (every f32 instance; B3-B5's bf16 instances): a
+// - The 4-feature walk (every f32 instance; B5's bf16 instance): a
 //   thread owns 4 contiguous features of every row, and `load4` brings them
 //   in as a float4: an f32 row as one 16-byte load, a bf16 row as one 8-byte
 //   load widened to f32 in registers (exact).
-// - The 8-feature walk (B1's and B2's bf16 instances, Gather8 and B2's
-//   Drel8): a thread owns 8 contiguous features, so that a bf16 row is read
-//   16 bytes a thread, as Hopper loads fastest, and a group is half as wide:
-//   at F=512 a block walks 4 pieces instead of 2, twice the edges in flight
-//   on an SM for the same registers. `load8` brings a bf16 row in as its raw
-//   bits (a uint4: 8 values in 4 registers, so 4 edges of two bf16 rows take
-//   the 32 registers that 4 edges of two f32 float4s take) and an f32 row as
-//   two float4s; a value is widened only at the fold, where it is added in
+// - The 8-feature walk (the bf16 instances of B1 and B3, Gather8; of B2,
+//   Drel8; of B4, Dx8): a thread owns 8 contiguous features, so that a bf16
+//   row is read 16 bytes a thread, as Hopper loads fastest, and a group is
+//   half as wide: at F=512 a block walks 4 pieces instead of 2, twice the
+//   edges in flight on an SM for the same registers. `load8` brings a bf16
+//   row in as its raw bits (a uint4: 8 values in 4 registers, so 4 edges of
+//   two bf16 rows take the 32 registers that 4 edges of two f32 float4s
+//   take) and an f32 row as two float4s; a value is widened only at the
+//   fold, where it is added in
 //   (lo4, hi4: one integer instruction a value, exact). The fold is the
-//   4-feature walk's (the same Agg::add on each half), in the same order, so
-//   a bf16 instance gives the f32 instance's bits on the widened values. It
-//   needs F % 8 == 0 and its row operands 16-byte aligned.
+//   4-feature walk's (the same Agg::add, or B4's term, on each half), in the
+//   same order, so a bf16 instance gives the f32 instance's bits on the
+//   widened values. It needs F % 8 == 0 and its row operands 16-byte
+//   aligned.
 
 #pragma once
 
@@ -424,10 +429,14 @@ struct Gather {
 constexpr int kGather8Unroll = 6, kGather8MinBlocks = 3;
 constexpr int kGather8F32Unroll = 6, kGather8F32MinBlocks = 2;
 
-// The forward walk of B1 on the 8-feature walk (its bf16 instances): an
-// edge brings x[col] and rel[etype] as their raw loads, and Agg folds each
-// half in at the fold, widened, as Gather folds its float4.
-template <class Agg, class R, class X>
+// The forward walk of B1 and B3 on the 8-feature walk (their bf16
+// instances): an edge brings x[col] and rel[etype] as their raw loads, and
+// Agg folds each half in at the fold, widened, as Gather folds its float4.
+// kU and kB are the walk's sizes (edges in flight, blocks an SM): B1's
+// above unless the kernel names its own (B3: rspmm_minmax_fwd.cu).
+template <class Agg, class R, class X,
+          int kU = std::is_same_v<X, float> ? kGather8F32Unroll : kGather8Unroll,
+          int kB = std::is_same_v<X, float> ? kGather8F32MinBlocks : kGather8MinBlocks>
 struct Gather8 {
   using Args = GatherArgs<R, X>;
   using Acc = f32x8;
@@ -436,10 +445,7 @@ struct Gather8 {
     typename Raw8<R>::type rel;
   };
   using Row = NoRow;
-  static constexpr bool kF32X = std::is_same_v<X, float>;
-  static constexpr int kWords = 3, kSplit = 1;
-  static constexpr int kUnroll = kF32X ? kGather8F32Unroll : kGather8Unroll;
-  static constexpr int kMinBlocks = kF32X ? kGather8F32MinBlocks : kGather8MinBlocks;
+  static constexpr int kWords = 3, kSplit = 1, kUnroll = kU, kMinBlocks = kB;
 
   __device__ static Row row(const Args&, int64_t, int64_t, int64_t) { return {}; }
   __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {

@@ -41,11 +41,12 @@ one its operands' types name: no operand is cast, and any other type or
 combination raises ``TypeError``, on the CPU too.
 The plain versions widen a bf16 row to f32 before any arithmetic, as the
 kernels do, so both compute f32 arithmetic on bf16-rounded operands.
-B1's and B2's bf16 instances walk 8 features a thread (one 16-byte load of
-a bf16 row, :data:`_FEATURES`): on the card they take only F % 8 == 0 and
-row operands that start 16-byte aligned; every other instance walks 4
-features a thread and takes F % 4 == 0 and rows aligned to one load of 4
-elements. Anything else raises ``ValueError`` before any launch.
+The bf16 instances of B1 (both), B2, B3 and B4 walk 8 features a thread
+(one 16-byte load of a bf16 row, :data:`_FEATURES`): on the card they take
+only F % 8 == 0 and row operands that start 16-byte aligned; every other
+instance walks 4 features a thread and takes F % 4 == 0 and rows aligned
+to one load of 4 elements. Anything else raises ``ValueError`` before any
+launch.
 
 Each wrapper's ``launches`` is a :class:`collections.Counter` of its kernel
 launches by output shape ``(rows, F)`` since the last ``clear()``, so a
@@ -128,7 +129,9 @@ _INSTANCES = {"rspmm_sum_fwd": ("", "bf16_bf16", "bf16_f32"), "rspmm_sum_drel": 
               "rspmm_minmax_drel": ("", "bf16_bf16"), "rspmm_dw": ("", "bf16_bf16")}
 # the features a thread owns in the entry points on the 8-feature walk
 # (csrc/rspmm_pieces.cuh); every other entry point's thread owns 4
-_FEATURES = {"rspmm_sum_fwd_bf16_bf16": 8, "rspmm_sum_fwd_bf16_f32": 8, "rspmm_sum_drel_bf16": 8}
+_FEATURES = dict.fromkeys(("rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32",
+                           "rspmm_sum_drel_bf16", "rspmm_minmax_fwd_bf16_bf16",
+                           "rspmm_minmax_dx_bf16_bf16"), 8)
 
 
 def _kernel(name: str):

@@ -84,8 +84,9 @@ def rspmm_minmax_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul",
     """Min/max rspmm forward over a destination-major CSR; (V, F) f32 out.
 
     ``relation`` (R, F) and ``x`` (N, F) are f32 or bf16 each and
-    contiguous (and on the card, F % 4 == 0 and both aligned to 4
-    elements). On a CPU tensor this runs :func:`rspmm_minmax_fwd_plain`; on
+    contiguous (and on the card, F % 4 == 0 and both 16-byte aligned for f32
+    rows; for bf16 rows F % 8 == 0 and both 16-byte aligned). On a CPU
+    tensor this runs :func:`rspmm_minmax_fwd_plain`; on
     a CUDA tensor it launches B3's instance for the two types, building it
     first if needed, and raises if it cannot."""
     _check_dtypes(edge_weight, relation, x, mul, op="rspmm_minmax_fwd")
@@ -143,7 +144,9 @@ def rspmm_minmax_dx(csr_src: CSR, edge_weight, relation, x, g, out, mul: str = "
     """Input gradient of the min/max rspmm: (N, F) f32 from the forward's
     inputs (``relation`` (R, F) and ``x`` (N, F), f32 or bf16 each), its
     saved output ``out`` (V, F; +-inf rows kept) and the output gradient
-    ``g`` (V, F), both f32, walking the source-major CSR ``csr_src``. On a
+    ``g`` (V, F), both f32, walking the source-major CSR ``csr_src``; all
+    contiguous (and on the card, F % 4 == 0 for f32 rows and F % 8 == 0
+    for bf16 ones, and every row operand 16-byte aligned). On a
     CPU tensor this runs :func:`rspmm_minmax_dx_plain`; on a CUDA tensor it
     launches B4's instance for the two row types over ``csr_src``'s piece
     table (both of its passes, one count), building it first if needed, and
@@ -196,8 +199,9 @@ def rspmm_minmax_drel(seg: TypeSegments, edge_weight, relation, x, g, out, mul: 
     """Relation gradient of the min/max rspmm: (R, F) f32, R =
     ``seg.num_types`` = the rows of ``relation``, from the forward's inputs,
     its saved output ``out`` and the output gradient ``g`` (types as for
-    :func:`rspmm_minmax_dx`). ``x`` is read for ``"add"`` too: the route
-    needs the message. On a CPU tensor this runs
+    :func:`rspmm_minmax_dx`; on the card F % 4 == 0, f32 rows 16-byte and
+    bf16 rows 8-byte aligned, in both instances). ``x`` is read for
+    ``"add"`` too: the route needs the message. On a CPU tensor this runs
     :func:`rspmm_minmax_drel_plain`; on a CUDA tensor it launches B5's
     instance for the two row types over the segments' piece table (both of
     its passes, one count), building it first if needed, and raises if it
