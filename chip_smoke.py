@@ -64,11 +64,11 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    width) on the card against the same conv on the CPU;
 9. runs ``compute_dtype: bfloat16`` (``[bf16]``, see BF16_REL): the bf16
    instances of B1-B6 against their plain versions in f64 on the same bf16
-   operands, each timed beside the f32 instance (B1-B5's also with the
-   ratio of the two times and ``f32_equal``, their largest difference from
-   the f32 instance on the same values: 0 where the two compute in the same
-   order, as the 8-feature walk of B1-B4 does, and held to 0 for B3 and
-   B4); then ultra_3g
+   operands, each timed beside the f32 instance (with the ratio of the two
+   times and ``f32_equal``, their largest difference from the f32 instance
+   on the same values: 0 where the two compute in the same order, as the
+   8-feature walk of every bf16 instance does, and held to 0 for B3-B6);
+   then ultra_3g
    serving and fine-tuning, the PNA model's scores and step (the step also
    against the same step on the plain versions), attribution and a CLQA
    batch, each in bf16 against f32 from the same weights and inputs, with their launches
@@ -643,8 +643,8 @@ def hold_minmax(tag, g_, feat, gen, replaces, dtype=torch.float32):
     rounded to bf16 (their bf16 instances; rows named ``...[bf16]/...``,
     each with ``f32_ms``, the f32 instance on the same values widened,
     ``f32_ratio``, ms over it, and ``f32_equal``, max |bf16 instance - f32
-    instance| on those values). ``f32_equal`` must be 0 for B3 and B4, which
-    compute the f32 instance's values in its order; B5's is reported.
+    instance| on those values). ``f32_equal`` must be 0 for B3, B4 and B5,
+    whose bf16 instances compute the f32 instance's values in its order.
     Returns ({row name: row}, ok)."""
     from ultra_tpu_torch.ops import rspmm_minmax_cuda as k
     from ultra_tpu_torch.utils.benchlib import device_ms
@@ -698,9 +698,9 @@ def hold_minmax(tag, g_, feat, gen, replaces, dtype=torch.float32):
             f32_ms = device_ms(lambda: call(rel32, x32))
             equal = largest_difference(call(rel, x), call(rel32, x32))
             extra[name] = {"f32_ms": f32_ms, "f32_ratio": ms[name] / f32_ms, "f32_equal": equal}
-            # B3's and B4's bf16 instances (the 8-feature walk) must give the
-            # f32 instance's values on the widened rows; B5's is reported
-            same_ok = equal == 0 or name == "drel"
+            # the bf16 instances (the 8-feature walk) must give the f32
+            # instance's values on the widened rows
+            same_ok = equal == 0
             ok &= same_ok
             print(f"[kernel] rspmm_minmax_{name}{kind_tag} {tag} against the f32 instance: "
                   f"ok={same_ok} f32_equal={equal!r}", flush=True)
@@ -744,7 +744,10 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512), dtype=torch.float32):
     normal inputs. The plain version routes in f32 as the forward did and
     adds in f64. Times the sum (mul) at each width and min/max (mul, max)
     at F=512 beside the plain version in f32. With ``dtype`` bf16 the
-    relation and x rows are rounded to bf16, as in :func:`hold_minmax`.
+    relation and x rows are rounded to bf16, as in :func:`hold_minmax`: each
+    case's output must also equal the f32 instance's on the same values
+    widened (its 8-feature pass adds in the f32 instance's order at every
+    F), and each timed row gets ``f32_ms``, ``f32_ratio`` and ``f32_equal``.
     Returns ({row name: row}, ok)."""
     from ultra_tpu_torch.ops import rspmm_cuda as k
     from ultra_tpu_torch.ops.rspmm_minmax_cuda import rspmm_minmax_fwd
@@ -765,14 +768,20 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512), dtype=torch.float32):
         for agg, kind, mul, is_min in DW_CASES:
             rel, x = inputs[kind]
             out = None if agg == "sum" else rspmm_minmax_fwd(csr, w, rel, x, mul, is_min)
-            err, within, case_ok, routed = dw_error(k.rspmm_dw(csr, w, rel, x, g, mul, out), csr,
-                                                    w, rel, x, g, mul, out, masked)
+            got = k.rspmm_dw(csr, w, rel, x, g, mul, out)
+            err, within, case_ok, routed = dw_error(got, csr, w, rel, x, g, mul, out, masked)
+            same = ""
+            if kind_tag:
+                equal = largest_difference(got, k.rspmm_dw(csr, w, rel.float(), x.float(), g,
+                                                           mul, out))
+                case_ok &= equal == 0
+                same = f" f32_equal={equal!r}"
             ok &= case_ok
             errs[agg] = max(errs[agg], err)
             name = "sum" if agg == "sum" else ("min" if is_min else "max")
-            print(f"[kernel] rspmm_dw {tag} F={feat} {kind} mul={mul} {name}: ok={case_ok} "
-                  f"max_abs_err={err!r} worst_err_over_tolerance={within!r} "
-                  f"routed_terms={routed}", flush=True)
+            print(f"[kernel] rspmm_dw{kind_tag} {tag} F={feat} {kind} mul={mul} {name}: "
+                  f"ok={case_ok} max_abs_err={err!r} worst_err_over_tolerance={within!r} "
+                  f"routed_terms={routed}{same}", flush=True)
         rel, x = inputs["normal"]
         timed = [(f"rspmm_dw{kind_tag}/{tag}/F{feat}", None, feat == 64)]
         if feat == 512:
@@ -781,11 +790,16 @@ def hold_dw(g_, gen, tag="entity", feats=(64, 512), dtype=torch.float32):
         for name, out, on_path in timed:
             agg = "sum" if out is None else "minmax"
             rel32, x32 = rel.float(), x.float()
-            extra = ({"f32_ms": device_ms(lambda: k.rspmm_dw(csr, w, rel32, x32, g, "mul", out))}
-                     if kind_tag else {})
+            ms = device_ms(lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", out))
+            extra = {}
+            if kind_tag:
+                extra["f32_ms"] = device_ms(lambda: k.rspmm_dw(csr, w, rel32, x32, g, "mul", out))
+                extra["f32_ratio"] = ms / extra["f32_ms"]
+                extra["f32_equal"] = largest_difference(
+                    k.rspmm_dw(csr, w, rel, x, g, "mul", out),
+                    k.rspmm_dw(csr, w, rel32, x32, g, "mul", out))
             rows[name] = kernel_row(
-                name, "ultra_tpu_torch/csrc/rspmm_dw.cu", replaces, (n, feat) + key_tag,
-                device_ms(lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", out)),
+                name, "ultra_tpu_torch/csrc/rspmm_dw.cu", replaces, (n, feat) + key_tag, ms,
                 device_ms(lambda: k.rspmm_dw_plain(csr, w, rel, x, g, "mul", out),
                           samples=PLAIN_SAMPLES),
                 dw_bound_ms(csr, w, rel, x, g, out), errs[agg], tol, on_path=on_path,
@@ -4079,9 +4093,11 @@ def bf16_kernels(graph, cfg, gen):
     same bf16 operands, at the main path's shapes: B1 on the entity graph at
     F=512 and on the relation graph at F=512 and 4096 (the precompute), B1
     on the source-major CSR and B2 on both graphs at F=512, B3, B4 and B5 on
-    the entity graph at F=512, B6 at attribution's F=64; each timed beside
-    its plain version and the f32 instance (``f32_ms``). Returns ({row name:
-    row}, ok)."""
+    the entity graph at F=512, B6 at attribution's F=64 and a batch's
+    F=512 (which puts K > 1 units of 8 features on a lane of its 8-feature
+    pass); each timed beside its plain version and the f32 instance
+    (``f32_ms``, ``f32_ratio``, ``f32_equal``). Returns ({row name: row},
+    ok)."""
     from ultra_tpu_torch.ops import rspmm_cuda as k
 
     fwd_src, drel_src = (f"ultra_tpu_torch/csrc/{n}.cu" for n in KERNELS[:2])
@@ -4118,7 +4134,7 @@ def bf16_kernels(graph, cfg, gen):
         {"fwd": "ultra_tpu/ops/rspmm_pallas_v2.py:704",
          "dx": "ultra_tpu/ops/rspmm_pallas_v2.py:927",
          "drel": "ultra_tpu/ops/rspmm_pallas_v2.py:982"}, dtype=torch.bfloat16)
-    dw_rows, dw_ok = hold_dw(graph, gen, "entity", (dim,), dtype=torch.bfloat16)
+    dw_rows, dw_ok = hold_dw(graph, gen, "entity", (dim, feat), dtype=torch.bfloat16)
     rows.update(minmax_rows)
     rows.update(dw_rows)
     return rows, ok and minmax_ok and dw_ok
@@ -4519,11 +4535,12 @@ def main() -> int:
         build.load(name)
         for usage in build.ptxas_usage(logs.get(name, "")):
             print(f"[build] {name}: {usage}", flush=True)
-    # the bf16 instances of B1-B4: their passes on the 8-feature walk
-    walk8 = [usage for name in KERNELS[:4] for usage in build.ptxas_usage(logs.get(name, ""))
-             if any(policy in usage for policy in ("Gather8", "Drel8", "Dx8"))]
+    # the bf16 instances of B1-B6: their passes on the 8-feature walk
+    walk8 = [usage for name in KERNELS[:6] for usage in build.ptxas_usage(logs.get(name, ""))
+             if any(policy in usage for policy in ("Gather8", "Drel8", "Dx8", "dw8_kernel"))]
     print("[build] 8-feature walk (rspmm_sum_fwd_bf16_bf16, rspmm_sum_fwd_bf16_f32, "
-          "rspmm_sum_drel_bf16, rspmm_minmax_fwd_bf16_bf16, rspmm_minmax_dx_bf16_bf16): "
+          "rspmm_sum_drel_bf16, rspmm_minmax_fwd_bf16_bf16, rspmm_minmax_dx_bf16_bf16, "
+          "rspmm_minmax_drel_bf16_bf16, rspmm_dw_bf16_bf16): "
           + (" | ".join(walk8) or "built before this run"), flush=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 

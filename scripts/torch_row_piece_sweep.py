@@ -31,25 +31,28 @@ length). For each length of ``--segment-pieces`` it rebuilds both graphs'
 segments with pieces of that length and times B2 (mul) and B5 (mul, max,
 given B3's output) at F = 512 on each.
 
-At the default pieces it times the bf16 instances that walk 8 features a
-thread (``csrc/rspmm_pieces.cuh``: B1's ``rspmm_sum_fwd_bf16_bf16`` on the
-entity graph at F = 512 and the relation graph at 512 and 4096, its input
-gradient ``rspmm_sum_fwd_bf16_f32`` on both graphs at 512, B2's
-``rspmm_sum_drel_bf16`` on both at 512, B3's ``rspmm_minmax_fwd_bf16_bf16``
-and B4's ``rspmm_minmax_dx_bf16_bf16`` (mul, max) at 512 on the entity
-graph and on the uniform graph's short rows) beside the f32 instance on the
-same values widened to f32 (``f32_ms``), with ``f32_equal``, the largest
-difference between the two outputs. ``--walk8`` takes sizes of that walk,
-each ``UNROLLxBLOCKS`` (edges whose loads a thread keeps in flight, blocks
-an SM must hold): for each it copies ``csrc/`` under ``build/walk8/`` with
-every size pair of the walk (``WALK8_SIZES``: B1's ``kGather8Unroll``/
+At the default pieces it times the bf16 instances, which walk 8 features
+a thread (``csrc/rspmm_pieces.cuh``: B1's ``rspmm_sum_fwd_bf16_bf16`` on
+the entity graph at F = 512 and the relation graph at 512 and 4096, its
+input gradient ``rspmm_sum_fwd_bf16_f32`` on both graphs at 512, B2's
+``rspmm_sum_drel_bf16`` on both at 512, B3's ``rspmm_minmax_fwd_bf16_bf16``,
+B4's ``rspmm_minmax_dx_bf16_bf16`` and B5's ``rspmm_minmax_drel_bf16_bf16``
+(mul, max; B4 and B5 given B3's output) at 512, and B6's
+``rspmm_dw_bf16_bf16`` (the sum) at 64, each on the entity graph and on the
+uniform graph's short rows) beside the f32 instance on the same values
+widened to f32 (``f32_ms``), with ``f32_equal``, the largest difference
+between the two outputs. ``--walk8`` takes sizes of that walk, each
+``UNROLLxBLOCKS`` (edges whose loads a thread keeps in flight, blocks an SM
+must hold): for each it copies ``csrc/`` under ``build/walk8/`` with every
+size pair of the walk (``WALK8_SIZES``: B1's ``kGather8Unroll``/
 ``kGather8MinBlocks`` and ``kGather8F32...``, B2's ``kDrel8...``, B3's
-``kMinmax8...``, B4's ``kDx8...``) set so, builds the four sources, one
-``nvcc`` each, all at once, and times the same launches through it, the
-source's own build first and last. It also counts, in the SASS of each
-pass-1 kernel of B1-B4 (``cuobjdump -sass``), the instructions that widen
-a bf16 value (a mask with 0xffff0000, a shift by 16), conversions (``F2F``,
-``PRMT``) and the f32 arithmetic. An empty list skips a sweep.
+``kMinmax8...``, B4's ``kDx8...``, B5's ``kMinmaxDrel8...``, B6's
+``kDw8...``) set so, builds the six sources, one ``nvcc`` each, all at
+once, and times the same launches through it, the source's own build first
+and last. It also counts, in the SASS of each pass-1 kernel of B1-B6
+(``cuobjdump -sass``), the instructions that widen a bf16 value (a mask
+with 0xffff0000, a shift by 16), conversions (``F2F``, ``PRMT``) and the
+f32 arithmetic. An empty list skips a sweep.
 
 Before it is timed, each launch's output is held against its plain version:
 B1 and B2 as ``chip_smoke.py`` holds them (in f64, within 1e-5 of the sum of
@@ -80,18 +83,24 @@ SOURCES = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
 
 
 ROOT = Path(__file__).resolve().parent.parent
-# B1's, B2's, B3's and B4's sources and the C entry points on the 8-feature walk
-WALK8_SOURCES = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx")
+# the sources of the 8-feature walk (B1-B6: every rspmm source) and its C
+# entry points (every bf16 instance)
+WALK8_SOURCES = SOURCES
 WALK8_ENTRIES = ("rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16",
-                 "rspmm_minmax_fwd_bf16_bf16", "rspmm_minmax_dx_bf16_bf16")
+                 "rspmm_minmax_fwd_bf16_bf16", "rspmm_minmax_dx_bf16_bf16",
+                 "rspmm_minmax_drel_bf16_bf16", "rspmm_dw_bf16_bf16")
 # a size pair of the 8-feature walk in a source: "kNameUnroll = U, kNameMinBlocks = B"
 WALK8_PATTERN = re.compile(r"(k\w+8\w*)Unroll = \d+, \1MinBlocks = \d+")
 # the size pairs each file of csrc/ holds, by name (B1's sizes sit in the header)
 WALK8_SIZES = {"rspmm_pieces.cuh": ("kGather8", "kGather8F32"), "rspmm_sum_fwd.cu": (),
                "rspmm_sum_drel.cu": ("kDrel8",), "rspmm_minmax_fwd.cu": ("kMinmax8",),
-               "rspmm_minmax_dx.cu": ("kDx8",)}
+               "rspmm_minmax_dx.cu": ("kDx8",), "rspmm_minmax_drel.cu": ("kMinmaxDrel8",),
+               "rspmm_dw.cu": ("kDw8",)}
 # the policies of the 8-feature walk, as they appear in its kernels' names
-WALK8_POLICIES = ("Gather8", "Drel8", "Dx8")
+# (MinMaxDrel8 holds Drel8), and B6's own 8-feature pass
+WALK8_POLICIES = ("Gather8", "Drel8", "Dx8", "dw8_kernel")
+# the pass-1 kernels whose SASS is counted: the piece walk's, B6's two passes
+PASS1_KERNELS = re.compile(r"piece_kernel|dw8?_kernel")
 
 
 def ints(text):
@@ -100,7 +109,7 @@ def ints(text):
 
 
 def build_walk8(sizes):
-    """The 8-feature walk's sources (B1-B4) with its sizes set to each
+    """The 8-feature walk's sources (B1-B6) with its sizes set to each
     (unroll, blocks) of ``sizes``, copied under build/walk8/<u>x<b>/ and
     built there, one nvcc per source, all at once. Returns ({(u, b): {entry
     point: bound C function}}, {"<u>x<b>": the compiler's resource lines of
@@ -141,7 +150,7 @@ def build_walk8(sizes):
 
 
 def sass_counts(library):
-    """For each pass-1 kernel (``piece_kernel``) in ``library``'s SASS: its
+    """For each pass-1 kernel (``PASS1_KERNELS``) in ``library``'s SASS: its
     instructions in all, the bf16 widenings (a mask with 0xffff0000; a
     shift by 16, as SHF by 0x10 or IMAD by 0x10000), the conversions (F2F,
     PRMT) and the f32 FFMA and FMUL."""
@@ -154,7 +163,7 @@ def sass_counts(library):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            name = name if "piece_kernel" in name else None
+            name = name if PASS1_KERNELS.search(name) else None
             if name:
                 counts[name] = Counter()
             continue
@@ -209,7 +218,7 @@ def main() -> int:
                         help="comma-separated counts of groups B6 splits a piece over")
     parser.add_argument("--walk8", default="",
                         help="comma-separated UNROLLxBLOCKS sizes of the 8-feature walk "
-                             "(B1-B4) to build and time beside the source's own")
+                             "(B1-B6) to build and time beside the source's own")
     parser.add_argument("--out", help="also write the record to this JSON file")
     args = parser.parse_args()
     walk8_sizes = [tuple(int(v) for v in size.split("x")) for size in args.walk8.split(",")
@@ -396,8 +405,9 @@ def main() -> int:
                  on.csr_src, w, rand(on.num_relations, 512).bfloat16(), rand(on.num_nodes, 512))
         sum_case(f"rspmm_sum_drel[bf16]/{tag}/F512", rspmm_sum_drel, rspmm_sum_drel_plain,
                  on.segments, w, rand(on.num_nodes, 512).bfloat16(), rand(on.num_nodes, 512))
-    # B3 and B4 (mul, max) at F = 512 on the entity graph's rows and on the
-    # uniform graph's short ones (B4 given B3's output, as time_minmax_dx)
+    # B3, B4 and B5 (mul, max) at F = 512 and B6 (the sum) at 64 on the
+    # entity graph's rows and on the uniform graph's short ones (B4 and B5
+    # given B3's output, as time_minmax_dx and time_minmax_drel)
     for tag, on, fwd_csr, out_csr, dx_csr in (
             ("entity", graph, graph.csr, graph.csr, graph.csr_src),
             ("uniform", uniform, uniform.csr, uniform.csr_src, uniform.csr)):
@@ -406,6 +416,13 @@ def main() -> int:
         g, out = rand(on.num_nodes, 512), rspmm_minmax_fwd(out_csr, w, rel, x)
         fwd = lambda a, b, csr=fwd_csr, w=w: rspmm_minmax_fwd(csr, w, a, b, "mul")
         dx = lambda a, b, csr=dx_csr, w=w, g=g, out=out: rspmm_minmax_dx(csr, w, a, b, g, out)
+        # B5 routes against the forward over the CSR by destination
+        out_d = rspmm_minmax_fwd(on.csr, w, rel, x)
+        drel = lambda a, b, seg=on.segments, w=w, g=g, out=out_d: rspmm_minmax_drel(
+            seg, w, a, b, g, out)
+        rel64, x64, g64 = (rand(on.num_relations, 64).bfloat16(),
+                           rand(on.num_nodes, 64).bfloat16(), rand(on.num_nodes, 64))
+        dw = lambda a, b, csr=on.csr, w=w, g=g64: rspmm_dw(csr, w, a, b, g, "mul")
         cases += [
             (f"rspmm_minmax_fwd[bf16]/{tag}/F512", fwd,
              lambda a, b, fwd=fwd, csr=fwd_csr, w=w: bool(torch.equal(
@@ -413,7 +430,14 @@ def main() -> int:
             (f"rspmm_minmax_dx[bf16]/{tag}/F512", dx,
              lambda a, b, dx=dx, csr=dx_csr, w=w, g=g, out=out: minmax_grad_error(
                  dx(a, b), rspmm_minmax_dx_terms, csr, w, a, b, g, out, "mul", b.shape[0])[2],
-             rel, x)]
+             rel, x),
+            (f"rspmm_minmax_drel[bf16]/{tag}/F512", drel,
+             lambda a, b, drel=drel, seg=on.segments, w=w, g=g, out=out_d: minmax_grad_error(
+                 drel(a, b), rspmm_minmax_drel_terms, seg, w, a, b, g, out, "mul",
+                 a.shape[0])[2], rel, x),
+            (f"rspmm_dw[bf16]/{tag}/F64", dw,
+             lambda a, b, dw=dw, csr=on.csr, w=w, g=g64: dw_error(
+                 dw(a, b), csr, w, a, b, g, "mul", None)[2], rel64, x64)]
 
     def time_bf16(label):
         rows = {}

@@ -20,11 +20,11 @@ Tolerances:
   ``GRAD_ULPS`` of its largest entry, and the loss to the f32 rtol of
   ``test_torch_train.py``. The same f32 model (no cast) lies outside both
   bounds: the test fails if the cast is skipped.
-- the shape contract on the card: B1's, B2's, B3's and B4's bf16
-  instances walk 8 features a thread (F % 8 == 0, bf16 rows 16-byte
-  aligned) and raise ``ValueError`` before any launch on anything else;
-  B5's and B6's bf16 instances walk 4 (F % 4 == 0, bf16 rows 8-byte
-  aligned). Held on meta tensors (a device that is not the CPU), as
+- the shape contract on the card: every bf16 instance (B1-B6) walks 8
+  features a thread (F % 8 == 0, bf16 rows 16-byte aligned) and raises
+  ``ValueError`` before any launch on anything else; every f32 instance
+  walks 4 (F % 4 == 0, rows 16-byte aligned). Held on meta tensors (a
+  device that is not the CPU), as
   ``test_torch_rspmm.py`` holds the f32 instances' contract; the sizes of
   the 8-feature walk that ``scripts/torch_row_piece_sweep.py --walk8``
   rewrites are held to the sources as text.
@@ -333,85 +333,104 @@ def test_attribution_rounds_the_entity_layers_where_jax_does_not():
     assert within == {"relation_only": True, "both": False}
 
 
-def _meta_bf16_calls(feat, offset=0):
-    """The bf16 instances on meta tensors (a device that is not the CPU) of
-    width ``feat``, the bf16 relation and x rows starting ``offset``
-    elements into their storage; the output gradient and the saved output
-    f32 and aligned. Returns (B1's two instances, B2's, B3's and B4's: the
-    8-feature walk; B5's and B6's: the 4-feature walk)."""
+def _meta_calls(feat, offset=0, dtype=torch.bfloat16):
+    """Each instance of B1-B6 for ``dtype`` rows on meta tensors (a device
+    that is not the CPU) of width ``feat``, the relation and x rows
+    starting ``offset`` elements into their storage; the output gradient
+    and the saved output f32 and aligned: B1's forward and input gradient,
+    B2, B3, B4, B5, B6's sum and B6's min/max."""
     ei, et, ew, *_ = make_inputs()
     graph = port_graph(ei, et, ew)
     csr, csr_src, seg = (l.to("meta") for l in (graph.csr, graph.csr_src, graph.segments))
 
-    def rows(n, dtype=torch.bfloat16, at=offset):
+    def rows(n, dtype=dtype, at=offset):
         return torch.empty(n * feat + at, dtype=dtype, device="meta")[at:].view(n, feat)
 
     w, rel, x, g = torch.empty(E_PAD, device="meta"), rows(R), rows(V), rows(V, torch.float32, 0)
     k, mk = rspmm_cuda, rspmm_minmax_cuda
-    return ((lambda: k.rspmm_sum_fwd(csr, w, rel, x),
-             lambda: k.rspmm_sum_dx(csr_src, w, rel, g),
-             lambda: k.rspmm_sum_drel(seg, w, x, g),
-             lambda: mk.rspmm_minmax_fwd(csr, w, rel, x),
-             lambda: mk.rspmm_minmax_dx(csr_src, w, rel, x, g, g)),
-            (lambda: mk.rspmm_minmax_drel(seg, w, rel, x, g, g),
-             lambda: k.rspmm_dw(csr, w, rel, x, g),
-             lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", g)))
+    return (lambda: k.rspmm_sum_fwd(csr, w, rel, x),
+            lambda: k.rspmm_sum_dx(csr_src, w, rel, g),
+            lambda: k.rspmm_sum_drel(seg, w, x, g),
+            lambda: mk.rspmm_minmax_fwd(csr, w, rel, x),
+            lambda: mk.rspmm_minmax_dx(csr_src, w, rel, x, g, g),
+            lambda: mk.rspmm_minmax_drel(seg, w, rel, x, g, g),
+            lambda: k.rspmm_dw(csr, w, rel, x, g),
+            lambda: k.rspmm_dw(csr, w, rel, x, g, "mul", g))
 
 
 @pytest.mark.parametrize("feat, offset", [(36, 0), (32, 4)])
-def test_bf16_rows_off_the_8_feature_layout_are_refused_by_b1_to_b4(monkeypatch, feat, offset):
-    """B1's two bf16 instances, B2's, B3's and B4's load 8 features a
-    thread, a bf16 row in one 16-byte load: a width that is a multiple of 4
-    but not of 8, or a bf16 row that starts 8-byte aligned but not 16-byte,
-    raises before any launch; nothing falls back to the 4-feature walk."""
+def test_bf16_rows_off_the_8_feature_layout_are_refused_by_every_bf16_instance(monkeypatch, feat,
+                                                                               offset):
+    """Every bf16 instance (B1's two, B2's, B3's, B4's, B5's and B6's) loads
+    8 features a thread, a bf16 row in one 16-byte load: a width that is a
+    multiple of 4 but not of 8, or a bf16 row that starts 8-byte aligned
+    but not 16-byte, raises before any launch; nothing falls back to the
+    4-feature walk."""
     monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
-    eight, _ = _meta_bf16_calls(feat, offset)
-    for call in eight:
+    for call in _meta_calls(feat, offset):
         with pytest.raises(ValueError, match="F % 8|16-byte"):
             call()
     assert _no_launches()
 
 
-@pytest.mark.parametrize("feat, offset", [(36, 0), (32, 4)])
-def test_bf16_rows_off_the_8_feature_layout_are_taken_by_b5_and_b6(monkeypatch, feat, offset):
-    """B5's and B6's bf16 instances keep the 4-feature walk and its
-    contract: the rows B1-B4 refuse pass the width and alignment checks and
-    meet the next one, the device (meta is not a CUDA device)."""
+@pytest.mark.parametrize("feat, offset", [(36, 0), (32, 4), (36, 4)])
+def test_f32_rows_keep_the_4_feature_layout_in_every_f32_instance(monkeypatch, feat, offset):
+    """The f32 instances of B1-B6 keep the 4-feature walk and its contract:
+    a width that is a multiple of 4 but not of 8, and f32 rows that start
+    16 bytes into their storage, pass the width and alignment checks that
+    the bf16 instances fail and meet the next one, the device (meta is not
+    a CUDA device)."""
     monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
-    _, four = _meta_bf16_calls(feat, offset)
-    for call in four:
+    for call in _meta_calls(feat, offset, torch.float32):
         with pytest.raises(ValueError, match="want the CUDA device"):
             call()
     assert _no_launches()
 
 
 def test_bf16_entry_points_and_launch_keys_are_unchanged(monkeypatch):
-    """Each bf16 call of B1-B4 launches the entry point it launched on the
-    4-feature walk, counted under the same key, and only those five entry
-    points take the 8-feature walk."""
-    names = []
+    """Each bf16 call of B1-B6 launches the entry point it launched on the
+    4-feature walk, counted under the same key, after the 8-feature walk's
+    checks (F % 8); those seven entry points, every bf16 instance, are the
+    ones on the 8-feature walk."""
+    names, features = [], []
 
     def launch(name, op, table, num_rows, indices, edge_weight, rows, *codes, out_name="out"):
         names.append(name)
+        features.append(rspmm_cuda._FEATURES.get(name, 4))
         return torch.empty(num_rows, next(iter(rows.values())).shape[1], device="meta")
 
-    # B3 launches through rspmm_cuda._launch_pieces, B4 through the name it imported
+    def check(op, device, rows, ptrs, ints, floats, features=4):
+        # B6 checks its operands itself, then binds its entry point
+        assert op == "rspmm_dw"
+        features_dw.append(features)
+
+    features_dw = []
+    # B3 launches through rspmm_cuda._launch_pieces, B4 and B5 through the name they imported
     monkeypatch.setattr(rspmm_cuda, "_launch_walk", launch)
     monkeypatch.setattr(rspmm_minmax_cuda, "_launch_walk", launch)
+    monkeypatch.setattr(rspmm_cuda, "_check_device_tensors", check)
+    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: names.append(name) or name)
+    monkeypatch.setattr(rspmm_cuda, "_launch_dw", lambda *_: None)
     wrappers = (rspmm_cuda.rspmm_sum_fwd, rspmm_cuda.rspmm_sum_dx, rspmm_cuda.rspmm_sum_drel,
-                rspmm_minmax_cuda.rspmm_minmax_fwd, rspmm_minmax_cuda.rspmm_minmax_dx)
+                rspmm_minmax_cuda.rspmm_minmax_fwd, rspmm_minmax_cuda.rspmm_minmax_dx,
+                rspmm_minmax_cuda.rspmm_minmax_drel, rspmm_cuda.rspmm_dw)
     for wrapper in wrappers:
         monkeypatch.setattr(wrapper, "launches", collections.Counter())
-    for call in _meta_bf16_calls(32)[0]:
+    for call in _meta_calls(32):
         call()
-    assert names == ["rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16",
-                     "rspmm_minmax_fwd_bf16_bf16", "rspmm_minmax_dx_bf16_bf16"]
-    assert rspmm_cuda._FEATURES == dict.fromkeys(names, 8)
+    entries = ["rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32", "rspmm_sum_drel_bf16",
+               "rspmm_minmax_fwd_bf16_bf16", "rspmm_minmax_dx_bf16_bf16",
+               "rspmm_minmax_drel_bf16_bf16", "rspmm_dw_bf16_bf16"]
+    assert names == entries + ["rspmm_dw_bf16_bf16"]
+    assert features == [8] * 6 and features_dw == [8, 8]
+    assert rspmm_cuda._FEATURES == dict.fromkeys(entries, 8)
     assert rspmm_cuda.rspmm_sum_fwd.launches == {(V, 32, "bf16_bf16"): 1}
     assert rspmm_cuda.rspmm_sum_dx.launches == {(V, 32, "bf16_f32"): 1}
     assert rspmm_cuda.rspmm_sum_drel.launches == {(V, R, 32, "bf16"): 1}
     assert rspmm_minmax_cuda.rspmm_minmax_fwd.launches == {(V, 32, "bf16_bf16"): 1}
     assert rspmm_minmax_cuda.rspmm_minmax_dx.launches == {(V, 32, "bf16_bf16"): 1}
+    assert rspmm_minmax_cuda.rspmm_minmax_drel.launches == {(R, 32, "bf16_bf16"): 1}
+    assert rspmm_cuda.rspmm_dw.launches == {(V, 32, "bf16_bf16"): 2}
 
 
 def test_walk8_sweep_finds_each_sources_size_pairs():

@@ -9,8 +9,11 @@ partials combined in slot order, or, for B2 and B5, by several groups in a
 fixed order) is held against the wrappers' plain versions and against the
 JAX package's XLA backend (its values, and its gradients through
 ``jax.vjp``); B6's one pass (each piece's edges, each summed over the
-features and written at its ``eid``) likewise. The rule that chooses the
-segments' piece length is held on FB15k-237's shape.
+features and written at its ``eid``) likewise. The order in which B6's f32
+instance and its bf16 instance's 8-feature pass add an edge's terms over
+the features (lanes, shuffles, passes) is emulated in f32 for both, which
+must agree bit for bit. The rule that chooses the segments' piece length
+is held on FB15k-237's shape.
 
 Tolerance: sums' emulations in f64 against the plain versions in f64
 within rtol 1e-12 (only the order of the additions differs); in f32 against
@@ -666,3 +669,105 @@ def test_dw_walk_matches_jax(small_pieces, agg, mul):
     np.testing.assert_allclose(got.numpy()[built], np.asarray(want)[built], rtol=1e-5,
                                atol=1e-5)
     assert np.abs(np.asarray(want)[built]).sum() > 0
+
+
+def dw_lanes(num_feat):
+    """B6's f32 instance's lanes (``csrc/rspmm_dw.cu``, ``launch``) for F =
+    ``num_feat``: (float4 units of the row, lanes of a group, units a lane
+    in a pass K, passes)."""
+    width = num_feat // 4
+    group = 32 if width > 32 else max(8, 1 << (width - 1).bit_length())
+    k = 1 if width <= group else 2 if width <= 2 * group else 4
+    return width, group, k, -(-width // (k * group))
+
+
+def butterfly(acc, group):
+    """``acc += __shfl_xor_sync(acc, offset)`` for offset group/2 ... 1 over
+    the lanes (the last axis), each lane's own value first."""
+    offset = group // 2
+    while offset:
+        acc = acc + acc[:, torch.arange(group) ^ offset]
+        offset //= 2
+    return acc
+
+
+def quads(terms, unit):
+    """Each edge's 4 terms of float4 unit ``unit`` (a (E,) column per lane),
+    added as ``terms`` in csrc/rspmm_dw.cu adds them: ((t0 + t1) + t2) + t3."""
+    q = terms[:, 4 * unit:4 * unit + 4]
+    return ((q[..., 0] + q[..., 1]) + q[..., 2]) + q[..., 3]
+
+
+def dw_sum_f32_lanes(terms):
+    """Each edge's sum over its (E, F) f32 ``terms`` in the order of B6's
+    f32 instance: lane m adds its units (pass * K + c) * group + m, c < K,
+    to 0 in order, a butterfly of shuffles adds the lanes, lane 0's value
+    is the pass's sum, and the passes add in order."""
+    width, group, k, passes = dw_lanes(terms.shape[1])
+    total = None
+    for p in range(passes):
+        acc = torch.zeros(terms.shape[0], group)
+        for c in range(k):
+            for m in range(group):
+                unit = (p * k + c) * group + m
+                if unit < width:
+                    acc[:, m] = acc[:, m] + quads(terms, unit)
+        acc = butterfly(acc, group)[:, 0]
+        total = acc if total is None else total + acc
+    return total
+
+
+def dw_sum_8_feature_lanes(terms):
+    """The same sums in the order of B6's 8-feature pass (its bf16
+    instance): lane l of a group of group / 2 holds units of 8 features,
+    (pass * K + c) * group / 2 + l, and adds the two float4 halves of each
+    into sums of its own, lo and hi (the f32 instance's lanes 2l and
+    2l + 1); the butterfly runs on both over group / 2 lanes, and lane 0's
+    lo + hi is the pass's sum."""
+    width, group, k, passes = dw_lanes(terms.shape[1])
+    half = group // 2
+    total = None
+    for p in range(passes):
+        lo, hi = torch.zeros(terms.shape[0], half), torch.zeros(terms.shape[0], half)
+        for c in range(k):
+            for lane in range(half):
+                unit8 = (p * k + c) * half + lane
+                if 2 * unit8 < width:
+                    lo[:, lane] = lo[:, lane] + quads(terms, 2 * unit8)
+                    hi[:, lane] = hi[:, lane] + quads(terms, 2 * unit8 + 1)
+        acc = butterfly(lo, half)[:, 0] + butterfly(hi, half)[:, 0]
+        total = acc if total is None else total + acc
+    return total
+
+
+@pytest.mark.parametrize("agg", ["sum", "max", "min"])
+@pytest.mark.parametrize("num_feat", [16, 64, 128, 256, 512, 1056])
+def test_dw_8_feature_pass_adds_in_the_f32_instances_order(agg, num_feat):
+    """B6's 8-feature pass (its bf16 instance) adds each edge's terms in
+    the f32 instance's order, so the two give the same bits on the same
+    bf16-rounded operands: in f32, the sums of both orders are equal bit
+    for bit, at the widths where a lane holds one float4 (F <= 128; F = 16
+    leaves lanes idle), several (256, 512) and where the row takes passes
+    (1,056, the last one ragged); for the sum and for min/max routing. A
+    plain left-to-right sum differs from both on some edge (the order
+    matters on these inputs), and both agree with ``rspmm_dw_plain`` within
+    f32 rounding."""
+    ei, et, ew, mask, *_ = power_law_inputs(seed=40)
+    graph = port_graph(ei, et, ew)
+    rng = np.random.default_rng(num_feat)
+    rel, x = (torch.from_numpy(rng.normal(size=(n, num_feat)).astype(np.float32))
+              .bfloat16() for n in (2 * R, V))
+    g = torch.from_numpy(rng.normal(size=(V, num_feat)).astype(np.float32))
+    w = torch.from_numpy(mask)
+    out = None if agg == "sum" else rspmm_minmax_fwd_plain(graph.csr, w, rel, x, "mul",
+                                                           agg == "min")
+    terms = rspmm_cuda.rspmm_dw_terms(graph.csr, w, rel, x, g, "mul", out)
+    assert terms.dtype == torch.float32 and (terms != 0).any()
+    f32_order, walk8_order = dw_sum_f32_lanes(terms), dw_sum_8_feature_lanes(terms)
+    assert torch.equal(f32_order.view(torch.int32), walk8_order.view(torch.int32))
+    left_to_right = terms[:, 0].clone()
+    for f in range(1, num_feat):
+        left_to_right = left_to_right + terms[:, f]
+    assert not torch.equal(left_to_right, f32_order)
+    want = rspmm_dw_plain(graph.csr, w, rel, x, g.double(), "mul", out)[graph.csr.eid.long()]
+    torch.testing.assert_close(f32_order.double(), want, rtol=1e-5, atol=1e-5)

@@ -46,10 +46,23 @@
 //   butterfly of shuffles in a fixed order and written once, to d_w[eid], by
 //   the group's first lane. An edge lies in exactly one part of one piece,
 //   so there is no second pass and no atomic: two runs give the same bits;
-// - loads are float4, or 4 bf16 values in 8 bytes widened to f32 in
-//   registers, neighbouring lanes on neighbouring addresses (F % 4 == 0; f32
-//   rows 16-byte aligned, bf16 rows 8-byte; anything else is refused). A
-//   bf16 instance recomputes the message from the widened values, as B3's
+// - the f32 instance loads float4s, neighbouring lanes on neighbouring
+//   addresses (F % 4 == 0, every row operand 16-byte aligned);
+// - the bf16 instance runs a pass of its own, 8 features a lane
+//   (dw8_kernel): an edge's rel and x rows come in as one 16-byte load each,
+//   kept raw until the fold and widened there (8 registers an edge for the
+//   two rows, where the f32 instance's two float4s take 8 for 4 features),
+//   and the piece's g (and out) row as two float4s a lane, once a pass.
+//   Its lane l takes the f32 instance's lanes 2l and 2l + 1 (their K
+//   float4s each), keeps their two sums apart and runs the f32 instance's
+//   butterfly on both, one offset down, then adds them as its offset 1
+//   did: float addition commutes, so every edge's sum has the f32
+//   instance's bits on the widened values, at every F. A group is half as
+//   wide and stages a part's 64 edges and only the words it reads (the sum
+//   needs no weight): a block of 256 threads walks 32 parts at F=64 where
+//   the f32 instance's walks 16, each in 3/8 of its shared memory (1/2 for
+//   min/max). It needs F % 8 == 0 and 16-byte aligned rows; anything else
+//   is refused. It recomputes the message from the widened values, as B3's
 //   bf16 instance computed it.
 // Offsets row*F are 64-bit.
 
@@ -86,10 +99,10 @@ struct DwArgs {
   const int32_t* etype;
   const int32_t* eid;
   const float* weight;  // indexed by eid
-  const R* rel;         // (R, 4 * width)
-  const X* x;           // (N, 4 * width)
-  const float4* g;      // (V, width)
-  const float4* out;    // (V, width) for min/max, else unread
+  const R* rel;         // (R, F)
+  const X* x;           // (N, F)
+  const float4* g;      // (V, F / 4)
+  const float4* out;    // (V, F / 4) for min/max, else unread
   float* dw;            // indexed by eid
 };
 
@@ -188,23 +201,155 @@ __global__ void __launch_bounds__(pieces::kBlock, K == 1 ? 4 : 2)
   }
 }
 
+// The sizes of B6's 8-feature pass (its bf16 instance; edges whose row
+// loads a lane keeps in flight where it holds one unit of the row, blocks
+// of 256 threads an SM must hold), timed on an H100 (PERF.md,
+// scripts/torch_row_piece_sweep.py --walk8): 4 edges at 3 blocks (78
+// registers for the sum) beat the f32 instance's 4 at 4 (which spill here)
+// by 12% on the entity graph; 3-4 edges at 2-3 blocks were within 1.5% of
+// it, 5-6 edges 6-7% slower, 2 edges or 4-5 blocks 9-42%. Staging 4 edges
+// a lane at once, its loads issued together, was no faster. A wider row, K
+// units a lane, keeps kDw8Unroll / K edges in flight at 2 blocks, as the
+// f32 instance.
+constexpr int kDw8Unroll = 4, kDw8MinBlocks = 3;
+constexpr int kStage8 = 64;  // edges staged at once: a part of a piece (DW_PARTS 2)
+
+// dw_kernel's pass for bf16 rows: lane l of a group of `group` lanes (half
+// the f32 instance's) holds units base + l + k * group, k < K, of 8
+// features each, where the f32 instance's lanes 2l and 2l + 1 hold the
+// same features 4 apiece; `t.width` counts units of 8. Shared memory per
+// group: kWords8 * kStage8 staged words, then, where the row takes more
+// than one pass, kStage8 partial sums.
 template <int OP, bool MINMAX, int K, class R, class X>
-int launch_lanes(const pieces::Table& t, const DwArgs<R, X>& a, int group, int parts,
+__global__ void __launch_bounds__(pieces::kBlock, K == 1 ? kDw8MinBlocks : 2)
+    dw8_kernel(const pieces::Table t, const DwArgs<R, X> a, int group, int parts, int passes) {
+  constexpr int kWords8 = MINMAX ? 4 : 3;  // source, type, eid, and the weight for min/max
+  constexpr int kUnroll = kDw8Unroll / K > 0 ? kDw8Unroll / K : 1;
+  extern __shared__ int32_t staged[];
+  const int groups = blockDim.x / group;
+  const int g = threadIdx.x / group;
+  const int lane = threadIdx.x - g * group;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * groups + g;
+  if (k >= t.num_pieces * parts) return;  // the whole group leaves: no barrier is skipped
+  const int64_t piece = t.piece_order[k / parts];
+  const int64_t first = t.piece_ptr[piece];
+  const int64_t span = (t.piece_ptr[piece + 1] - first + parts - 1) / parts;
+  const int64_t begin = first + (k % parts) * span;
+  const int64_t end = begin + span < t.piece_ptr[piece + 1] ? begin + span : t.piece_ptr[piece + 1];
+  const int64_t len = end - begin;
+  if (len <= 0) return;
+  int32_t* s = staged + kWords8 * kStage8 * g;
+  float* sums = reinterpret_cast<float*>(staged + kWords8 * kStage8 * groups) + kStage8 * g;
+  const unsigned lanes = (group == 32 ? 0xffffffffu : (1u << group) - 1)
+                         << ((threadIdx.x & 31) & ~(group - 1));
+  const int64_t row = static_cast<int64_t>(t.piece_row[piece]) * t.width;
+  const float* g_rows = reinterpret_cast<const float*>(a.g);
+  const float* out_rows = reinterpret_cast<const float*>(a.out);
+  for (int64_t base = 0; base < len; base += kStage8) {
+    const int n = len - base < kStage8 ? static_cast<int>(len - base) : kStage8;
+    pieces::group_sync(g, group);  // the group is done with the last stage
+    for (int i = lane; i < n; i += group) {
+      const int64_t e = begin + base + i;
+      const int32_t id = __ldg(a.eid + e);
+      s[i] = __ldg(a.col + e);
+      s[kStage8 + i] = __ldg(a.etype + e);
+      s[2 * kStage8 + i] = id;
+      if (MINMAX) s[3 * kStage8 + i] = __float_as_int(__ldg(a.weight + id));
+    }
+    pieces::group_sync(g, group);
+    for (int pass = 0; pass < passes; ++pass) {
+      int64_t j[K];
+      pieces::f32x8 g_row[K], o_row[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        j[c] = static_cast<int64_t>(pass * K + c) * group + lane;
+        if (j[c] < t.width) {
+          g_row[c] = pieces::load8(g_rows, row + j[c]);
+          if (MINMAX) o_row[c] = pieces::load8(out_rows, row + j[c]);
+        }
+      }
+      for (int i = 0; i < n; i += kUnroll) {
+        typename pieces::Raw8<R>::type rv[kUnroll][K];
+        typename pieces::Raw8<X>::type xv[kUnroll][K];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (i + u >= n) continue;
+          const int64_t r = static_cast<int64_t>(s[kStage8 + i + u]) * t.width;
+          const int64_t src = static_cast<int64_t>(s[i + u]) * t.width;
+#pragma unroll
+          for (int c = 0; c < K; ++c) {
+            if (j[c] < t.width) {
+              rv[u][c] = pieces::load8(a.rel, r + j[c]);
+              xv[u][c] = pieces::load8(a.x, src + j[c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (i + u >= n) continue;  // the same for every lane of the group
+          const float w = MINMAX ? __int_as_float(s[3 * kStage8 + i + u]) : 0.f;
+          float lo = 0.f, hi = 0.f;  // the f32 instance's lanes 2l and 2l + 1
+#pragma unroll
+          for (int c = 0; c < K; ++c) {
+            if (j[c] < t.width) {
+              lo += terms<OP, MINMAX>(pieces::lo4(rv[u][c]), pieces::lo4(xv[u][c]), g_row[c].lo,
+                                      w, MINMAX ? o_row[c].lo : g_row[c].lo);
+              hi += terms<OP, MINMAX>(pieces::hi4(rv[u][c]), pieces::hi4(xv[u][c]), g_row[c].hi,
+                                      w, MINMAX ? o_row[c].hi : g_row[c].hi);
+            }
+          }
+          // the f32 instance's offsets group ... 2, each at half of it here;
+          // lo + hi below is its offset 1
+          for (int offset = group / 2; offset > 0; offset >>= 1) {
+            lo += __shfl_xor_sync(lanes, lo, offset);
+            hi += __shfl_xor_sync(lanes, hi, offset);
+          }
+          if (lane == 0) {
+            const float acc = lo + hi;
+            const float sum = pass == 0 ? acc : sums[i + u] + acc;
+            if (pass == passes - 1) {
+              a.dw[s[2 * kStage8 + i + u]] = sum;
+            } else {
+              sums[i + u] = sum;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int OP, bool MINMAX, int K, class R, class X>
+int launch_lanes(pieces::Table t, const DwArgs<R, X>& a, int group, int parts,
                  cudaStream_t stream) {
-  const int groups = pieces::kBlock / group < kMaxGroups ? pieces::kBlock / group : kMaxGroups;
   const int passes = static_cast<int>((t.width + K * group - 1) / (K * group));
-  const size_t words = kWords * pieces::kStage + (passes > 1 ? pieces::kStage : 0);
-  const dim3 grid(static_cast<unsigned>((t.num_pieces * parts + groups - 1) / groups));
-  dw_kernel<OP, MINMAX, K, R, X>
-      <<<grid, groups * group, sizeof(int32_t) * words * groups, stream>>>(t, a, group, parts,
-                                                                          passes);
+  if constexpr (std::is_same_v<R, float> && std::is_same_v<X, float>) {
+    const int groups = pieces::kBlock / group < kMaxGroups ? pieces::kBlock / group : kMaxGroups;
+    const size_t words = kWords * pieces::kStage + (passes > 1 ? pieces::kStage : 0);
+    const dim3 grid(static_cast<unsigned>((t.num_pieces * parts + groups - 1) / groups));
+    dw_kernel<OP, MINMAX, K, R, X>
+        <<<grid, groups * group, sizeof(int32_t) * words * groups, stream>>>(t, a, group, parts,
+                                                                            passes);
+  } else {
+    // half the lanes, each on 8 features; at most 32 groups a block, so
+    // that its stage stays within 48 KB of shared memory
+    const int group8 = group / 2;
+    const int groups = pieces::kBlock / group8 < 32 ? pieces::kBlock / group8 : 32;
+    const size_t words = (MINMAX ? 4 : 3) * kStage8 + (passes > 1 ? kStage8 : 0);
+    const dim3 grid(static_cast<unsigned>((t.num_pieces * parts + groups - 1) / groups));
+    t.width /= 2;
+    dw8_kernel<OP, MINMAX, K, R, X>
+        <<<grid, groups * group8, sizeof(int32_t) * words * groups, stream>>>(t, a, group8,
+                                                                             parts, passes);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int OP, bool MINMAX, class R, class X>
 int launch(const pieces::Table& t, const DwArgs<R, X>& a, int parts, cudaStream_t stream) {
   // a group of at most one warp, as many lanes as float4s up to 32; a wider
-  // row puts 2 or 4 float4s on a lane, and one wider still takes passes
+  // row puts 2 or 4 float4s on a lane, and one wider still takes passes (the
+  // bf16 instance's lanes each take two of these lanes)
   const int group = t.width > 32 ? 32 : pieces::group_size(t.width);
   if (t.width <= group) return launch_lanes<OP, MINMAX, 1>(t, a, group, parts, stream);
   if (t.width <= 2 * group) return launch_lanes<OP, MINMAX, 2>(t, a, group, parts, stream);
@@ -221,10 +366,11 @@ int dw(const void* piece_ptr, const void* piece_row, const void* piece_order, co
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (parts < 1 || parts > pieces::kStage) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_pieces <= 0 || num_feat <= 0 || num_feat % 4 != 0) {
+  constexpr int feat = std::is_same_v<R, float> && std::is_same_v<X, float> ? 4 : 8;
+  if (num_pieces <= 0 || num_feat <= 0 || num_feat % feat != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x) || !pieces::aligned16(g) ||
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
       (minmax && !pieces::aligned16(out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -262,8 +408,8 @@ int dw(const void* piece_ptr, const void* piece_row, const void* piece_order, co
 // num_feat) f32; out: (rows, num_feat) f32 for minmax 1, unread (may be
 // null) for minmax 0. All contiguous on one device; indices are trusted to be
 // in range. Each piece is walked by `parts` groups (1 to kStage). num_feat %
-// 4 != 0, no piece, parts out of range or a misaligned row operand returns
-// cudaErrorInvalidValue and launches nothing.
+// 4 != 0 (% 8 for rspmm_dw_bf16_bf16), no piece, parts out of range or a
+// misaligned row operand returns cudaErrorInvalidValue and launches nothing.
 PIECES_ENTRIES2(rspmm_dw, dw,
                 (const void* piece_ptr, const void* piece_row, const void* piece_order,
                  const void* col, const void* etype, const void* eid, const void* weight,

@@ -38,12 +38,19 @@
 // - pass 2 adds a long type's partial rows in slot order, split over up to
 //   8 groups (the relation graph's 4 types have hundreds of pieces each) in
 //   a fixed order. No atomics anywhere, so two runs give the same bits;
-// - each thread owns 4 contiguous features and loads float4, or 4 bf16
-//   values in 8 bytes widened to f32 in registers (F % 4 == 0; f32 rows
-//   16-byte aligned, bf16 rows 8-byte; anything else is refused), and
-//   recomputes a bf16 instance's message from the widened values, as B3's
-//   bf16 instance computed it. Within a type the edges keep destination
-//   order, so neighbouring edges share g and out rows.
+// - the f32 instance: each thread owns 4 contiguous features and loads
+//   float4 (F % 4 == 0, every row operand 16-byte aligned);
+// - the bf16 instance walks 8 features a thread (MinMaxDrel8): rel[t] and
+//   an edge's x row are one 16-byte load each, kept raw until the fold and
+//   widened there, out and g two float4s each (20 registers an edge, as
+//   B4's Dx8). It needs F % 8 == 0 and 16-byte aligned rows; anything else
+//   is refused. It recomputes the message from the widened rel and x
+//   values, as the forward's bf16 instance computed it, so ties route bit
+//   for bit, and adds each feature's terms in the f32 instance's order, its
+//   partials in pass 2 too: on the widened values it gives the f32
+//   instance's bits.
+// Within a type the edges keep destination order, so neighbouring edges
+// share g and out rows.
 
 #include "rspmm_pieces.cuh"
 
@@ -74,7 +81,8 @@ struct MinMaxDrelArgs {
   const float4* out;    // (V, width), the forward's output
 };
 
-// An edge brings x[src], out[dst] and g[dst]; a piece's row brings rel[t].
+// The f32 instance's walk, 4 features a thread: an edge brings x[src],
+// out[dst] and g[dst]; a piece's row brings rel[t].
 template <int OP, class R, class X>
 struct MinMaxDrel : pieces::Adds {
   using Args = MinMaxDrelArgs<R, X>;
@@ -82,8 +90,8 @@ struct MinMaxDrel : pieces::Adds {
   struct Edge {
     float4 x, out, g;
   };
-  // B4's sizes (3 rows an edge, 2 edges in flight at 4 blocks an SM) and
-  // B2's pass 2 (up to 8 groups a long type)
+  // B4's f32 sizes (3 rows an edge, 2 edges in flight at 4 blocks an SM)
+  // and B2's pass 2 (up to 8 groups a long type)
   static constexpr int kWords = 3, kUnroll = 2, kMinBlocks = 4, kSplit = 8;
 
   __device__ static Row row(const Args& a, int64_t t, int64_t width, int64_t j) {
@@ -102,13 +110,66 @@ struct MinMaxDrel : pieces::Adds {
   }
   __device__ static void add(float4& acc, const Row& r, const int32_t* s, int i,
                              const Edge& e) {
-    const float w = __int_as_float(s[2 * pieces::kStage + i]);
-    acc.x += term<OP>(r.x, e.x.x, w, e.out.x, e.g.x);
-    acc.y += term<OP>(r.y, e.x.y, w, e.out.y, e.g.y);
-    acc.z += term<OP>(r.z, e.x.z, w, e.out.z, e.g.z);
-    acc.w += term<OP>(r.w, e.x.w, w, e.out.w, e.g.w);
+    fold(acc, __int_as_float(s[2 * pieces::kStage + i]), r, e.x, e.out, e.g);
+  }
+  // acc += the routed terms of one edge, for 4 features
+  __device__ static void fold(float4& acc, float w, const float4& r, const float4& x,
+                              const float4& o, const float4& g) {
+    acc.x += term<OP>(r.x, x.x, w, o.x, g.x);
+    acc.y += term<OP>(r.y, x.y, w, o.y, g.y);
+    acc.z += term<OP>(r.z, x.z, w, o.z, g.z);
+    acc.w += term<OP>(r.w, x.w, w, o.w, g.w);
   }
 };
+
+// The sizes of B5's 8-feature walk (its bf16 instance), timed on an H100
+// (PERF.md, scripts/torch_row_piece_sweep.py --walk8): 4 edges in flight at
+// 2 blocks an SM (128 registers, none spilled) beat B4's 2 at 3 (20 bytes
+// spilled) by 7% on the entity graph and 11% on the uniform one; 5 or
+// more edges, or 3 or more blocks with more than 2 edges, spill and lose.
+constexpr int kMinmaxDrel8Unroll = 4, kMinmaxDrel8MinBlocks = 2;
+
+// The bf16 instance's walk: MinMaxDrel's stage and pass 2, 8 features a
+// thread, rel[t] and an edge's x row as their raw 16 bytes, out and g as
+// two float4s each (20 registers an edge), each half folded in, widened,
+// by MinMaxDrel's fold.
+template <int OP, class R, class X>
+struct MinMaxDrel8 : MinMaxDrel<OP, R, X> {
+  using Args = MinMaxDrelArgs<R, X>;
+  using Acc = pieces::f32x8;
+  using Row = typename pieces::Raw8<R>::type;
+  struct Edge {
+    typename pieces::Raw8<X>::type x;
+    pieces::f32x8 out, g;
+  };
+  static constexpr int kUnroll = kMinmaxDrel8Unroll, kMinBlocks = kMinmaxDrel8MinBlocks;
+
+  __device__ static Row row(const Args& a, int64_t t, int64_t width, int64_t j) {
+    return pieces::load8(a.rel, t * width + j);
+  }
+  __device__ static Edge load(const Args& a, const int32_t* s, int i, int64_t width,
+                              int64_t j) {
+    const int64_t dst = static_cast<int64_t>(s[pieces::kStage + i]) * width + j;
+    return {pieces::load8(a.x, static_cast<int64_t>(s[i]) * width + j),
+            pieces::load8(reinterpret_cast<const float*>(a.out), dst),
+            pieces::load8(reinterpret_cast<const float*>(a.g), dst)};
+  }
+  __device__ static void add(Acc& acc, const Row& r, const int32_t* s, int i, const Edge& e) {
+    const float w = __int_as_float(s[2 * pieces::kStage + i]);
+    MinMaxDrel<OP, R, X>::fold(acc.lo, w, pieces::lo4(r), pieces::lo4(e.x), e.out.lo, e.g.lo);
+    MinMaxDrel<OP, R, X>::fold(acc.hi, w, pieces::hi4(r), pieces::hi4(e.x), e.out.hi, e.g.hi);
+  }
+  __device__ static Acc init() { return {pieces::Adds::init(), pieces::Adds::init()}; }
+  __device__ static void merge(Acc& acc, const Acc& p) {
+    pieces::Adds::merge(acc.lo, p.lo);
+    pieces::Adds::merge(acc.hi, p.hi);
+  }
+};
+
+// The walk of an instance: MinMaxDrel for f32 rows, MinMaxDrel8 for bf16 ones.
+template <int OP, class R, class X>
+using Walk = std::conditional_t<std::is_same_v<R, float> && std::is_same_v<X, float>,
+                                MinMaxDrel<OP, R, X>, MinMaxDrel8<OP, R, X>>;
 
 template <class R, class X>
 int minmax_drel(const void* piece_ptr, const void* piece_row, const void* piece_slot,
@@ -118,7 +179,7 @@ int minmax_drel(const void* piece_ptr, const void* piece_row, const void* piece_
                 void* d_rel, long long num_pieces, long long num_long, long long num_feat,
                 int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!pieces::aligned_rows<R>(rel) || !pieces::aligned_rows<X>(x) || !pieces::aligned16(g) ||
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
       !pieces::aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -132,8 +193,8 @@ int minmax_drel(const void* piece_ptr, const void* piece_row, const void* piece_
       static_cast<const int32_t*>(eid), static_cast<const float*>(weight),
       static_cast<const R*>(rel),       static_cast<const X*>(x),
       static_cast<const float4*>(g),    static_cast<const float4*>(out)};
-  return mul_op == 0 ? pieces::launch<MinMaxDrel<0, R, X>>(t, a, num_feat, stream)
-                     : pieces::launch<MinMaxDrel<1, R, X>>(t, a, num_feat, stream);
+  return mul_op == 0 ? pieces::launch<Walk<0, R, X>>(t, a, num_feat, stream)
+                     : pieces::launch<Walk<1, R, X>>(t, a, num_feat, stream);
 }
 
 }  // namespace
@@ -147,8 +208,9 @@ int minmax_drel(const void* piece_ptr, const void* piece_row, const void* piece_
 // rspmm_minmax_drel_bf16_bf16: bf16 and bf16); g, out: (V, num_feat)
 // f32; partial: (slots, num_feat) f32 scratch (unread without long types);
 // d_rel: (num_types, num_feat) f32. All contiguous on one device; indices
-// are trusted to be in range. num_feat % 4 != 0 or a misaligned row operand
-// returns cudaErrorInvalidValue and launches nothing.
+// are trusted to be in range. num_feat % 4 != 0 (% 8 for
+// rspmm_minmax_drel_bf16_bf16) or a misaligned row operand returns
+// cudaErrorInvalidValue and launches nothing.
 PIECES_ENTRIES2(rspmm_minmax_drel, minmax_drel,
                 (const void* piece_ptr, const void* piece_row, const void* piece_slot,
                  const void* piece_order, const void* long_rows, const void* long_slot_ptr,

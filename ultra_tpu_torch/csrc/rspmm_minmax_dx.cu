@@ -178,9 +178,8 @@ int minmax_dx(const void* piece_ptr, const void* piece_row, const void* piece_sl
               void* dx, long long num_pieces, long long num_long, long long num_feat,
               int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int feat = pieces::kFeatures<Walk<0, R, X>>;
-  if (!pieces::aligned_rows<R, feat>(rel) || !pieces::aligned_rows<X, feat>(x) ||
-      !pieces::aligned16(g) || !pieces::aligned16(out)) {
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x) || !pieces::aligned16(g) ||
+      !pieces::aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{

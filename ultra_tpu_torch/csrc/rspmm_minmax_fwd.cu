@@ -107,8 +107,7 @@ int minmax_fwd(const void* piece_ptr, const void* piece_row, const void* piece_s
   if ((mul_op != 0 && mul_op != 1) || (is_min != 0 && is_min != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int feat = pieces::kFeatures<Walk<0, false, R, X>>;
-  if (!pieces::aligned_rows<R, feat>(rel) || !pieces::aligned_rows<X, feat>(x)) {
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{

@@ -45,8 +45,9 @@
 //   kernel's own, chosen from 2-16 edges at 1-8 blocks over each instance's
 //   rows on the paths: B1 and B2 keep 6 edges in flight at 3 or 2 blocks
 //   (Gather8, Drel8: their registers decide), B3 3 at 4 (Gather8 at
-//   rspmm_minmax_fwd.cu's sizes), B4 4 at 2 (Dx8, whose edges bring the
-//   most registers).
+//   rspmm_minmax_fwd.cu's sizes), B4 2 at 3 and B5 4 at 2 (Dx8,
+//   MinMaxDrel8, whose edges bring the most registers: a bf16 row and f32
+//   out and g rows).
 // Pass 2. A group per (long row, tile) adds the row's partials in slot order
 // and writes the row of `out` (long_row_kernel: B1, B3, B4). A walk whose
 // long rows have hundreds of partials (B2 and B5 on the relation graph's 4
@@ -83,24 +84,22 @@
 // accumulators, the partial rows and the output are f32 in every instance,
 // so a bf16 instance computes the f32 instance's arithmetic on bf16-rounded
 // operands and moves half of their bytes.
-// - The 4-feature walk (every f32 instance; B5's bf16 instance): a
-//   thread owns 4 contiguous features of every row, and `load4` brings them
-//   in as a float4: an f32 row as one 16-byte load, a bf16 row as one 8-byte
-//   load widened to f32 in registers (exact).
-// - The 8-feature walk (the bf16 instances of B1 and B3, Gather8; of B2,
-//   Drel8; of B4, Dx8): a thread owns 8 contiguous features, so that a bf16
-//   row is read 16 bytes a thread, as Hopper loads fastest, and a group is
-//   half as wide: at F=512 a block walks 4 pieces instead of 2, twice the
-//   edges in flight on an SM for the same registers. `load8` brings a bf16
-//   row in as its raw bits (a uint4: 8 values in 4 registers, so 4 edges of
-//   two bf16 rows take the 32 registers that 4 edges of two f32 float4s
-//   take) and an f32 row as two float4s; a value is widened only at the
-//   fold, where it is added in
+// - The 4-feature walk (every f32 instance): a thread owns 4 contiguous
+//   features of every row, and `load4` brings them in as one float4.
+// - The 8-feature walk (every bf16 instance: B1 and B3, Gather8; B2, Drel8;
+//   B4, Dx8; B5, MinMaxDrel8; and B6's own 8-feature pass): a thread owns 8
+//   contiguous features, so that a bf16 row is read 16 bytes a thread, as
+//   Hopper loads fastest, and a group is half as wide: at F=512 a block
+//   walks 4 pieces instead of 2, twice the edges in flight on an SM for the
+//   same registers. `load8` brings a bf16 row in as its raw bits (a uint4: 8
+//   values in 4 registers, so 4 edges of two bf16 rows take the 32
+//   registers that 4 edges of two f32 float4s take) and an f32 row as two
+//   float4s; a value is widened only at the fold, where it is added in
 //   (lo4, hi4: one integer instruction a value, exact). The fold is the
-//   4-feature walk's (the same Agg::add, or B4's term, on each half), in the
-//   same order, so a bf16 instance gives the f32 instance's bits on the
-//   widened values. It needs F % 8 == 0 and its row operands 16-byte
-//   aligned.
+//   4-feature walk's (the same Agg::add, or the kernel's term, on each
+//   half), in the same order, so a bf16 instance gives the f32 instance's
+//   bits on the widened values. It needs F % 8 == 0.
+// Every row operand of every walk starts 16-byte aligned.
 
 #pragma once
 
@@ -114,16 +113,9 @@ namespace pieces {
 
 using bf16 = __nv_bfloat16;
 
-// Features 4i..4i+3 of a row operand that starts at p, as f32.
+// Features 4i..4i+3 of an f32 row operand that starts at p (the 4-feature walk).
 __device__ __forceinline__ float4 load4(const float* p, int64_t i) {
   return __ldg(reinterpret_cast<const float4*>(p) + i);
-}
-__device__ __forceinline__ float bf16_at(uint32_t word, int half) {
-  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(word >> (16 * half))));
-}
-__device__ __forceinline__ float4 load4(const bf16* p, int64_t i) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p) + i);
-  return make_float4(bf16_at(u.x, 0), bf16_at(u.x, 1), bf16_at(u.y, 0), bf16_at(u.y, 1));
 }
 
 // Features 8i..8i+7 of a row operand for the 8-feature walk: a bf16 row's
@@ -318,17 +310,9 @@ __global__ void __launch_bounds__(kMaxThreads) split_row_kernel(const Table t, i
   reinterpret_cast<Acc<W>*>(t.out)[static_cast<int64_t>(t.long_rows[i]) * t.width + j] = acc;
 }
 
+// Whether p is 16-byte aligned: where every walk's row operands must start
+// (one float4, or 8 bf16 values, a load).
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-// Whether a row operand of element type T starts where a walk of kFeat
-// features a thread can read it: where one load of the walk is aligned
-// (16-byte for f32 and for the 8-feature walk's bf16, 8-byte for the
-// 4-feature walk's bf16).
-template <class T, int kFeat = 4>
-inline bool aligned_rows(const void* p) {
-  constexpr size_t load = kFeat * sizeof(T) < 16 ? kFeat * sizeof(T) : 16;
-  return (reinterpret_cast<uintptr_t>(p) % load) == 0;
-}
 
 // Features a thread of walk W owns: 4, or 8 for the 8-feature walk.
 template <class W>

@@ -165,7 +165,7 @@ int sum_drel(const void* piece_ptr, const void* piece_row, const void* piece_slo
              const void* x, const void* g, void* partial, void* out, long long num_pieces,
              long long num_long, long long num_feat, int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!pieces::aligned_rows<X, pieces::kFeatures<Walk<0, X>>>(x) || !pieces::aligned16(g)) {
+  if (!pieces::aligned16(x) || !pieces::aligned16(g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{

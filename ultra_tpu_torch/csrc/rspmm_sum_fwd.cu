@@ -92,8 +92,7 @@ int sum_fwd(const void* piece_ptr, const void* piece_row, const void* piece_slot
             const void* rel, const void* x, void* partial, void* out, long long num_pieces,
             long long num_long, long long num_feat, int mul_op, void* stream) {
   if (mul_op != 0 && mul_op != 1) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int feat = pieces::kFeatures<Walk<0, R, X>>;
-  if (!pieces::aligned_rows<R, feat>(rel) || !pieces::aligned_rows<X, feat>(x)) {
+  if (!pieces::aligned16(rel) || !pieces::aligned16(x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pieces::Table t{

@@ -41,12 +41,11 @@ one its operands' types name: no operand is cast, and any other type or
 combination raises ``TypeError``, on the CPU too.
 The plain versions widen a bf16 row to f32 before any arithmetic, as the
 kernels do, so both compute f32 arithmetic on bf16-rounded operands.
-The bf16 instances of B1 (both), B2, B3 and B4 walk 8 features a thread
-(one 16-byte load of a bf16 row, :data:`_FEATURES`): on the card they take
-only F % 8 == 0 and row operands that start 16-byte aligned; every other
-instance walks 4 features a thread and takes F % 4 == 0 and rows aligned
-to one load of 4 elements. Anything else raises ``ValueError`` before any
-launch.
+Every bf16 instance (B1's two, B2's, B3's, B4's, B5's and B6's) walks 8
+features a thread (one 16-byte load of a bf16 row, :data:`_FEATURES`) and
+takes on the card only F % 8 == 0; every f32 instance walks 4 and takes F
+% 4 == 0. Every row operand of every instance starts 16-byte aligned.
+Anything else raises ``ValueError`` before any launch.
 
 Each wrapper's ``launches`` is a :class:`collections.Counter` of its kernel
 launches by output shape ``(rows, F)`` since the last ``clear()``, so a
@@ -128,10 +127,12 @@ _INSTANCES = {"rspmm_sum_fwd": ("", "bf16_bf16", "bf16_f32"), "rspmm_sum_drel": 
               "rspmm_minmax_fwd": ("", "bf16_bf16"), "rspmm_minmax_dx": ("", "bf16_bf16"),
               "rspmm_minmax_drel": ("", "bf16_bf16"), "rspmm_dw": ("", "bf16_bf16")}
 # the features a thread owns in the entry points on the 8-feature walk
-# (csrc/rspmm_pieces.cuh); every other entry point's thread owns 4
+# (csrc/rspmm_pieces.cuh; B6's own 8-feature pass): every bf16 instance.
+# Every f32 instance's thread owns 4
 _FEATURES = dict.fromkeys(("rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32",
                            "rspmm_sum_drel_bf16", "rspmm_minmax_fwd_bf16_bf16",
-                           "rspmm_minmax_dx_bf16_bf16"), 8)
+                           "rspmm_minmax_dx_bf16_bf16", "rspmm_minmax_drel_bf16_bf16",
+                           "rspmm_dw_bf16_bf16"), 8)
 
 
 def _kernel(name: str):
@@ -208,18 +209,17 @@ def _compute_type(*tensors):
 
 def _check_device_tensors(op: str, device, rows, ptrs, ints, floats, features: int = 4):
     """What the kernels need of their operands: rows of loads of
-    ``features`` features a thread (F % features == 0, each row operand's
-    start aligned to one load: 16 bytes, or 8 for a bf16 row of a 4-feature
-    walk), everything contiguous on ``device`` (a CUDA device), ``ptrs`` 1-D
-    int64 and ``ints`` 1-D int32 of one length. The kernels refuse other
-    widths and alignments rather than running them on a slower path."""
+    ``features`` features a thread (F % features == 0, each row operand
+    starting 16-byte aligned, where one load of the walk is), everything
+    contiguous on ``device`` (a CUDA device), ``ptrs`` 1-D int64 and
+    ``ints`` 1-D int32 of one length. The kernels refuse other widths and
+    alignments rather than running them on a slower path."""
     feat = next(iter(rows.values())).shape[1]
     if feat % features:
         raise ValueError(f"{op}: the kernel needs F % {features} == 0, got F={feat}")
     for name, t in rows.items():
-        load = min(16, features * t.element_size())
-        if t.data_ptr() % load:
-            raise ValueError(f"{op}: {name} must start {load}-byte aligned")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must start 16-byte aligned")
     for name, t in {**rows, **ptrs, **ints, **floats}.items():
         if t.device != device or not t.is_cuda:
             raise ValueError(f"{op}: {name} is on {t.device}, want the CUDA device {device}")
@@ -316,8 +316,8 @@ def rspmm_sum_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul"):
     """Sum rspmm forward over a destination-major CSR; (V, F) f32 out.
 
     ``relation`` (R, F) and ``x`` (N, F) are f32 or bf16 each and
-    contiguous (and on the card, F % 4 == 0 and both aligned to 4
-    elements; for bf16 rows F % 8 == 0 and both 16-byte aligned); ``mul`` is
+    contiguous (and on the card both 16-byte aligned, and F % 4 == 0 for
+    f32 rows, F % 8 == 0 for bf16 ones); ``mul`` is
     ``"mul"`` (distmult) or ``"add"`` (transe). On a
     CPU tensor this runs :func:`rspmm_sum_fwd_plain`; on a CUDA tensor it
     launches B1's instance for the two types, building it first if needed,
@@ -443,9 +443,11 @@ def rspmm_dw(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):
     """Edge-weight gradient of the rspmm: (E_pad,) f32 from the forward's
     inputs (``relation`` (R, F), ``x`` (N, F), f32 or bf16 each) and the f32
     output gradient ``g`` (V, F), walking the destination-major CSR
-    ``csr``. ``out``, the min/max forward's saved output (f32), switches the
-    tie routing on; without it this is the sum's gradient, which a
-    runtime-masked edge gets in full. A slot not in the CSR is 0. On a CPU
+    ``csr``; all contiguous (and on the card 16-byte aligned, with F % 4
+    == 0 for f32 rows and F % 8 == 0 for bf16 ones). ``out``, the min/max
+    forward's saved output (f32), switches the tie routing on; without it
+    this is the sum's gradient, which a runtime-masked edge gets in full. A
+    slot not in the CSR is 0. On a CPU
     tensor this runs :func:`rspmm_dw_plain`; on a CUDA tensor it launches
     B6's instance for the two row types over ``csr``'s piece table, building
     it first if needed, and raises if it cannot."""
@@ -458,12 +460,14 @@ def rspmm_dw(csr: CSR, edge_weight, relation, x, g, mul: str = "mul", out=None):
     instance = _instance("rspmm_dw", "rspmm_dw", relation, x)
     if g.device.type == "cpu":
         return rspmm_dw_plain(csr, edge_weight, relation, x, g, mul, out)
-    kernel = _kernel(_entry("rspmm_dw", instance))
+    entry = _entry("rspmm_dw", instance)
+    kernel = _kernel(entry)
     rows = {"relation": relation, "x": x, "g": g, **({} if out is None else {"out": out})}
     # the CSR checked its own fields when it was made (graph.CSR): col stands
     # for them, as in the forwards' wrappers
     _check_device_tensors("rspmm_dw", g.device, rows=rows, ptrs={}, ints={"col": csr.col},
-                          floats={"edge_weight": edge_weight})
+                          floats={"edge_weight": edge_weight},
+                          features=_FEATURES.get(entry, 4))
     d_w = torch.zeros(edge_weight.shape, dtype=torch.float32, device=g.device)
     if num_rows == 0 or x.shape[1] == 0:
         return d_w

@@ -199,8 +199,8 @@ def rspmm_minmax_drel(seg: TypeSegments, edge_weight, relation, x, g, out, mul: 
     """Relation gradient of the min/max rspmm: (R, F) f32, R =
     ``seg.num_types`` = the rows of ``relation``, from the forward's inputs,
     its saved output ``out`` and the output gradient ``g`` (types as for
-    :func:`rspmm_minmax_dx`; on the card F % 4 == 0, f32 rows 16-byte and
-    bf16 rows 8-byte aligned, in both instances). ``x`` is read for
+    :func:`rspmm_minmax_dx`; on the card F % 4 == 0 for f32 rows and F % 8
+    == 0 for bf16 ones, every row operand 16-byte aligned). ``x`` is read for
     ``"add"`` too: the route needs the message. On a CPU tensor this runs
     :func:`rspmm_minmax_drel_plain`; on a CUDA tensor it launches B5's
     instance for the two row types over the segments' piece table (both of
