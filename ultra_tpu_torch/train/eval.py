@@ -21,6 +21,7 @@ from ultra_tpu_torch.graph import Graph
 from ultra_tpu_torch.models.nbfnet import (
     Ultra, entity_nbfnet_score_all, rel_nbfnet_apply, ultra_score_all,
 )
+from ultra_tpu_torch.utils import profiling
 
 
 @torch.no_grad()
@@ -111,32 +112,51 @@ def collect_rankings(
     precompute's passes) runs the relation model once for all R relations
     and both directions as one pass. The last batch is padded by repeating
     its last triple; the padded rows' results are dropped.
+
+    Under a profiler the call records the span ``ultra.eval.collect_rankings``
+    and in it ``ultra.eval.precompute`` and, for each batch, ``mask``,
+    ``upload``, ``score`` (the pass and the ranking enqueued), ``download``
+    (where the host waits on the device) and ``negatives``, each
+    ``ultra.eval.<name>``; and counts the bytes it uploads to a device
+    that is not the CPU as ``h2d_bytes`` (``utils/profiling.py``).
     """
-    model = model.eval()
-    if cache_relations is None:
-        cache_relations = len(trips) / batch_size > graph.num_relations / 64
-    rel_reprs_all = (precompute_relation_representations(model, graph)
-                     if cache_relations else None)
-    rankings, num_negatives, tail_rankings, num_tail_negs = [], [], [], []
-    for start in range(0, len(trips), batch_size):
-        batch = trips[start:start + batch_size]
-        valid = len(batch)
-        if valid < batch_size:
-            batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - valid, axis=0)])
-        t_mask, h_mask = tasks.strict_negative_mask(filtered_index, batch)
-        args = [torch.as_tensor(a, device=graph.device) for a in (batch, t_mask, h_mask)]
-        if rel_reprs_all is None:
-            t_rank, h_rank = score_and_rank_batch(model, graph, *args)
-        else:
-            t_rank, h_rank = score_and_rank_batch_cached(model, graph, rel_reprs_all, *args)
-        t_rank, h_rank = t_rank.cpu().numpy()[:valid], h_rank.cpu().numpy()[:valid]
-        t_neg, h_neg = t_mask.sum(axis=-1)[:valid], h_mask.sum(axis=-1)[:valid]
-        rankings += [t_rank, h_rank]
-        num_negatives += [t_neg, h_neg]
-        tail_rankings.append(t_rank)
-        num_tail_negs.append(t_neg)
-    return (np.concatenate(rankings), np.concatenate(num_negatives),
-            np.concatenate(tail_rankings), np.concatenate(num_tail_negs))
+    with profiling.annotate("ultra.eval.collect_rankings"):
+        model = model.eval()
+        if cache_relations is None:
+            cache_relations = len(trips) / batch_size > graph.num_relations / 64
+        rel_reprs_all = None
+        if cache_relations:
+            with profiling.annotate("ultra.eval.precompute"):
+                rel_reprs_all = precompute_relation_representations(model, graph)
+        copied = graph.device.type != "cpu"
+        rankings, num_negatives, tail_rankings, num_tail_negs = [], [], [], []
+        for start in range(0, len(trips), batch_size):
+            batch = trips[start:start + batch_size]
+            valid = len(batch)
+            if valid < batch_size:
+                batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - valid, axis=0)])
+            with profiling.annotate("ultra.eval.mask"):
+                t_mask, h_mask = tasks.strict_negative_mask(filtered_index, batch)
+            with profiling.annotate("ultra.eval.upload"):
+                args = [torch.as_tensor(a, device=graph.device) for a in (batch, t_mask, h_mask)]
+                if copied:
+                    profiling.count("h2d_bytes", batch.nbytes + t_mask.nbytes + h_mask.nbytes)
+            with profiling.annotate("ultra.eval.score"):
+                if rel_reprs_all is None:
+                    t_rank, h_rank = score_and_rank_batch(model, graph, *args)
+                else:
+                    t_rank, h_rank = score_and_rank_batch_cached(model, graph, rel_reprs_all,
+                                                                 *args)
+            with profiling.annotate("ultra.eval.download"):
+                t_rank, h_rank = t_rank.cpu().numpy()[:valid], h_rank.cpu().numpy()[:valid]
+            with profiling.annotate("ultra.eval.negatives"):
+                t_neg, h_neg = t_mask.sum(axis=-1)[:valid], h_mask.sum(axis=-1)[:valid]
+            rankings += [t_rank, h_rank]
+            num_negatives += [t_neg, h_neg]
+            tail_rankings.append(t_rank)
+            num_tail_negs.append(t_neg)
+        return (np.concatenate(rankings), np.concatenate(num_negatives),
+                np.concatenate(tail_rankings), np.concatenate(num_tail_negs))
 
 
 def compute_metrics(metrics, ranking, num_negative, ranking_t=None, num_negative_t=None):
