@@ -14,7 +14,10 @@ relation outputs) and the entity model over the whole batch:
 - :func:`execute_grouped` runs every query until it waits on a projection
   and batches the waiting projections into one pass, as the reference's
   deferred scheduler does (``ultraquery.py:109-133``): as many passes as
-  the deepest query has projections (:func:`projection_schedule`).
+  the deepest query has projections (:func:`projection_schedule`). The
+  host launches each cheap op as a few small operations, so it runs only
+  the (pass, slot, kind) parts where some query has one
+  (:func:`cheap_schedule`).
 
 Both take one graph, or in training one graph per slot (per round for the
 grouped one): traversal dropout (``ultraquery.py:34-83``) removes edges
@@ -52,6 +55,7 @@ from ultra_tpu_torch import tasks
 from ultra_tpu_torch.graph import Graph
 from ultra_tpu_torch.models.nbfnet import Ultra, query_nbfnet_apply, rel_nbfnet_apply
 from ultra_tpu_torch.query import ops
+from ultra_tpu_torch.utils import profiling
 
 STACK_SIZE = 2  # ultraquery.py:24
 
@@ -141,29 +145,36 @@ def relation_projection(model: Ultra, qcfg: QueryConfig, graph: Graph, h_prob, r
     return torch.sigmoid(output)
 
 
-def _cheap_ops(qcfg, stack, sp, k, arg, gate, num_nodes):
+CHEAP_KINDS = frozenset((ops.K_OPERAND, ops.K_INTERSECTION, ops.K_UNION, ops.K_NEGATION))
+
+
+def _cheap_ops(qcfg, stack, sp, k, arg, gate, num_nodes, kinds=CHEAP_KINDS):
     """A slot's operand push, binary operation and negation for the queries
-    where ``gate`` is set."""
-    is_operand = gate & (k == ops.K_OPERAND)
-    is_inter = gate & (k == ops.K_INTERSECTION)
-    is_union = gate & (k == ops.K_UNION)
-    is_neg = gate & (k == ops.K_NEGATION)
+    where ``gate`` is set. ``kinds``: the op kinds that some gated query
+    has at this slot; the parts for the others run under an empty gate,
+    which leaves the stack and the pointers as they were, and are skipped."""
+    if ops.K_OPERAND in kinds:
+        # operand: push a one-hot (ultraquery.py:147-154)
+        is_operand = gate & (k == ops.K_OPERAND)
+        onehot = F.one_hot(arg.clamp(0, num_nodes - 1).long(), num_nodes).to(stack.dtype)
+        stack, sp = stack_push(stack, sp, is_operand, onehot)
 
-    # operand: push a one-hot (ultraquery.py:147-154)
-    onehot = F.one_hot(arg.clamp(0, num_nodes - 1).long(), num_nodes).to(stack.dtype)
-    stack, sp = stack_push(stack, sp, is_operand, onehot)
+    if ops.K_INTERSECTION in kinds or ops.K_UNION in kinds:
+        # binary operations (ultraquery.py:156-182)
+        is_inter = gate & (k == ops.K_INTERSECTION)
+        is_binary = is_inter | (gate & (k == ops.K_UNION))
+        y, sp = stack_pop(stack, sp, is_binary)
+        x, sp = stack_pop(stack, sp, is_binary)
+        z = torch.where(is_inter[:, None], conjunction(qcfg.logic, x, y),
+                        disjunction(qcfg.logic, x, y))
+        stack, sp = stack_push(stack, sp, is_binary, z)
 
-    # binary operations (ultraquery.py:156-182)
-    is_binary = is_inter | is_union
-    y, sp = stack_pop(stack, sp, is_binary)
-    x, sp = stack_pop(stack, sp, is_binary)
-    z = torch.where(is_inter[:, None], conjunction(qcfg.logic, x, y),
-                    disjunction(qcfg.logic, x, y))
-    stack, sp = stack_push(stack, sp, is_binary, z)
-
-    # negation (ultraquery.py:184-194)
-    xn, sp = stack_pop(stack, sp, is_neg)
-    return stack_push(stack, sp, is_neg, negation(xn))
+    if ops.K_NEGATION in kinds:
+        # negation (ultraquery.py:184-194)
+        is_neg = gate & (k == ops.K_NEGATION)
+        xn, sp = stack_pop(stack, sp, is_neg)
+        stack, sp = stack_push(stack, sp, is_neg, negation(xn))
+    return stack, sp
 
 
 def _logit(t_prob):
@@ -273,14 +284,40 @@ def projection_schedule(kind: np.ndarray):
     return round_of, has_proj, arg_slot.astype(np.int32), n_rounds
 
 
+def cheap_schedule(kind: np.ndarray, round_of: np.ndarray, n_rounds: int):
+    """The host's plan of :func:`execute_grouped`'s n_rounds + 1 cheap
+    passes: for each, the (slot, op kinds) of every slot at which some query
+    has a cheap op (operand, intersection, union, negation) in that pass,
+    with the kinds present there. Every other (pass, slot), and every part
+    of a slot for a kind absent from it, runs under an empty gate, which
+    leaves the stack as it was: the plan skips them, and the logits and
+    their gradients are those of every slot run."""
+    kindn, roundn = np.asarray(kind), np.asarray(round_of)
+    cheap = np.isin(kindn, sorted(CHEAP_KINDS))
+    plan = []
+    for r in range(n_rounds + 1):
+        here = cheap & (roundn == r)
+        plan.append([(int(i), frozenset(kindn[here[:, i], i].tolist()))
+                     for i in np.flatnonzero(here.any(axis=0))])
+    return plan
+
+
 def execute_grouped(model: Ultra, qcfg: QueryConfig, graphs: Union[Graph, Sequence[Graph]],
                     kind, operand, round_of, has_proj, arg_slot, n_rounds: int,
-                    rel_reprs_all=None):
+                    rel_reprs_all=None, cheap=None):
     """(B, V) logits like :func:`execute`, with the projections grouped into
     ``n_rounds`` passes (:func:`projection_schedule`'s arrays, on the
     graphs' device). ``graphs`` is one graph, or in training one per round
     (:func:`simulate_symbolic_grouped`: one dropout mask a round for the
-    whole batch, the reference's own granularity, ``ultraquery.py:196-203``)."""
+    whole batch, the reference's own granularity, ``ultraquery.py:196-203``).
+    ``cheap``: :func:`cheap_schedule` of the batch, which the host reads
+    from ``kind`` and ``round_of``; without it every slot runs every cheap
+    op in every pass (the plain interpreter, which the tests compare with).
+
+    Under a profiler each round records the span ``ultra.query.cheap`` (its
+    cheap-op slots, which the host launches one small operation at a time)
+    and ``ultra.query.project`` (its projection pass), as
+    ``utils/profiling.py::annotate`` records."""
     graph_at, first = _graph_lookup(graphs, rel_reprs_all)
     b, length = kind.shape
     v = first.num_nodes
@@ -290,18 +327,22 @@ def execute_grouped(model: Ultra, qcfg: QueryConfig, graphs: Union[Graph, Sequen
     sp = torch.zeros(b, dtype=torch.int64, device=device)
 
     for r in range(n_rounds + 1):
-        for i in range(length):
-            stack, sp = _cheap_ops(qcfg, stack, sp, kind[:, i], operand[:, i],
-                                   round_of[:, i] == r, v)
+        with profiling.annotate("ultra.query.cheap"):
+            slots = [(i, CHEAP_KINDS) for i in range(length)] if cheap is None else cheap[r]
+            for i, kinds in slots:
+                stack, sp = _cheap_ops(qcfg, stack, sp, kind[:, i], operand[:, i],
+                                       round_of[:, i] == r, v, kinds)
         if r < n_rounds:
-            graph = graph_at(r)
-            proj = has_proj[:, r]
-            r_index = operand[rows, arg_slot[:, r].long()]
-            h_prob, sp = stack_pop(stack, sp, proj)
-            t_prob = relation_projection(
-                model, qcfg, graph, h_prob.detach(),
-                r_index.clamp(0, graph.num_relations - 1).long(), rel_reprs_all=rel_reprs_all)
-            stack, sp = stack_push(stack, sp, proj, t_prob)
+            with profiling.annotate("ultra.query.project"):
+                graph = graph_at(r)
+                proj = has_proj[:, r]
+                r_index = operand[rows, arg_slot[:, r].long()]
+                h_prob, sp = stack_pop(stack, sp, proj)
+                t_prob = relation_projection(
+                    model, qcfg, graph, h_prob.detach(),
+                    r_index.clamp(0, graph.num_relations - 1).long(),
+                    rel_reprs_all=rel_reprs_all)
+                stack, sp = stack_push(stack, sp, proj, t_prob)
 
     t_prob, sp = stack_pop(stack, sp, torch.ones(b, dtype=torch.bool, device=device))
     return _logit(t_prob)

@@ -1,4 +1,4 @@
-"""Complex-query evaluation metrics (numpy).
+"""Complex-query evaluation metrics.
 
 Counterpart of ``ultra_tpu/query/metrics.py``, a copy rather than an import
 (``query_utils.py:284-430`` of the reference). :func:`batch_evaluate` gives
@@ -6,14 +6,21 @@ the filtered rank of each hard answer among all nodes: its unfiltered rank,
 minus its rank among all answers (easy and hard), plus 1. :func:`evaluate`
 rolls per-query scores into per-type, EPFO and negation averages, and adds
 mape, spearmanr and auroc on the predicted answer-set size.
+
+:func:`batch_evaluate_device` is :func:`batch_evaluate` in torch ops on the
+logits' device, as the reference ranks (``query_utils.py:284-325``): the
+answer sets go up as flat index lists (:func:`pack_answers`), and only the
+per-query vectors need come back. :func:`predicted_size` is the predicted
+answer-set size on the same device.
 """
 
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 
 def batch_evaluate(pred: np.ndarray, easy_masks, hard_masks, restrict_nodes=None):
@@ -57,6 +64,81 @@ def batch_evaluate(pred: np.ndarray, easy_masks, hard_masks, restrict_nodes=None
         num_easy,
         num_hard,
     )
+
+
+class PackedAnswers(NamedTuple):
+    """One batch's answer sets as flat lists on a device: entry j is node
+    ``nodes[j]`` of query ``rows[j]``; each query's entries are its easy
+    answers, then its hard answers, each block by ascending node id and
+    without repeats, and the queries follow one another. ``first[j]`` is
+    the position of the first entry of ``rows[j]``'s block, ``hard`` the
+    positions of the hard entries in order."""
+
+    rows: torch.Tensor
+    nodes: torch.Tensor
+    first: torch.Tensor
+    hard: torch.Tensor
+    num_easy: torch.Tensor
+    num_hard: torch.Tensor
+
+    @classmethod
+    def split(cls, flat: torch.Tensor, sizes) -> "PackedAnswers":
+        """The fields of :func:`pack_answers`'s ``flat`` on a device."""
+        return cls(*torch.split(flat, list(sizes)))
+
+
+def pack_answers(easy_answers, hard_answers):
+    """(flat int64 host array, its split sizes): the answer sets of a batch
+    (one array of node ids a query, each read as :func:`batch_evaluate`
+    reads a mask) laid out as :class:`PackedAnswers`' fields one after the
+    other, to go to a device in one copy."""
+    b = len(easy_answers)
+    ids = [np.unique(np.asarray(a, dtype=np.int64))
+           for pair in zip(easy_answers, hard_answers) for a in pair]
+    sizes = np.array([len(a) for a in ids], dtype=np.int64)
+    num_easy, num_hard = sizes[0::2], sizes[1::2]
+    per_query = num_easy + num_hard
+    rows = np.repeat(np.arange(b, dtype=np.int64), per_query)
+    first = (np.cumsum(per_query) - per_query)[rows]
+    hard = np.flatnonzero(np.repeat(np.arange(2 * b) % 2, sizes))
+    nodes = np.concatenate(ids) if ids else np.zeros(0, np.int64)
+    n = len(rows)
+    flat = np.concatenate([rows, nodes, first, hard, num_easy, num_hard]).astype(np.int64)
+    return flat, (n, n, n, len(hard), b, b)
+
+
+def batch_evaluate_device(pred: torch.Tensor, answers: PackedAnswers, keep=None):
+    """:func:`batch_evaluate` on ``pred``'s device: (hard ranking, answer
+    ranking, num_easy, num_hard) int64 tensors, equal to
+    :func:`batch_evaluate`'s arrays. ``pred`` (B, V) scores; ``answers``
+    the batch's :class:`PackedAnswers`; ``keep`` (V,) bool, the nodes that
+    ``restrict_nodes`` keeps (the others score -inf).
+
+    A node's unfiltered rank is its position in a stable descending sort of
+    its row (ties by node index, as numpy's stable ``argsort(-pred)``); an
+    answer's rank among its query's answers is its position in a stable
+    sort of (query, unfiltered rank) less its query's first position. Only
+    sorts, gathers and scatters: nothing waits for the device."""
+    b, v = pred.shape
+    pred = pred + 0.0  # -0.0 to +0.0: the sort sees the bits, numpy the values
+    if keep is not None:
+        pred = pred.masked_fill(~keep, -torch.inf)
+    order = torch.sort(pred, dim=-1, descending=True, stable=True).indices
+    positions = torch.arange(v, device=pred.device).expand(b, v)
+    ranking = torch.empty_like(order).scatter_(1, order, positions)
+    answer_ranking = ranking[answers.rows, answers.nodes]
+    by_rank = torch.sort(answers.rows * v + answer_ranking, stable=True).indices
+    rank_among = torch.empty_like(answer_ranking)
+    rank_among[by_rank] = torch.arange(len(by_rank), device=pred.device) - answers.first[by_rank]
+    filtered = answer_ranking - rank_among + 1
+    return filtered[answers.hard], answer_ranking, answers.num_easy, answers.num_hard
+
+
+def predicted_size(pred: torch.Tensor) -> torch.Tensor:
+    """(B,) float64: the predicted answer-set size of each row of logits,
+    the sum of the probabilities above 0.5, on ``pred``'s device."""
+    prob = torch.sigmoid(pred.double())
+    return (prob * (prob > 0.5)).sum(dim=-1)
 
 
 def _variadic_mean(values: np.ndarray, sizes: np.ndarray) -> np.ndarray:

@@ -10,12 +10,13 @@ takes a step on the per-slot (or per-round) graphs; the loss is BCE over all
 nodes against the easy answers, positives weighted 1/num_positive a query,
 negatives by a self-adversarial softmax (``run_query.py:96-113``).
 Evaluation ranks each query's hard answers among all nodes with its easy
-answers filtered (``query/metrics.py``) and rolls the ranks into per-type,
-EPFO and negation metrics. In a process group (``parallel/multihost.py``),
-``train.data_parallel`` shards each batch's queries over the ranks and
-averages the gradients (the JAX package shards them over one process's
-devices), and evaluation shards the queries and gathers the results. The
-JAX package's log of XLA compile variants has no counterpart.
+answers filtered, on the device (``rank_queries``, ``query/metrics.py``),
+and rolls the ranks into per-type, EPFO and negation metrics on the host.
+In a process group (``parallel/multihost.py``), ``train.data_parallel``
+shards each batch's queries over the ranks and averages the gradients (the
+JAX package shards them over one process's devices), and evaluation shards
+the queries and gathers the results. The JAX package's log of XLA compile
+variants has no counterpart.
 """
 
 from __future__ import annotations
@@ -40,12 +41,13 @@ from ultra_tpu_torch.query import metrics as qmetrics
 from ultra_tpu_torch.query import ops
 from ultra_tpu_torch.query.datasets import QueryDataset, QueryGraph
 from ultra_tpu_torch.query.executor import (
-    DropoutPlanner, QueryConfig, execute, execute_grouped, graphs_for_slots,
+    DropoutPlanner, QueryConfig, cheap_schedule, execute, execute_grouped, graphs_for_slots,
     projection_schedule, simulate_symbolic, simulate_symbolic_grouped,
 )
 from ultra_tpu_torch.train.eval import precompute_relation_representations
 from ultra_tpu_torch.train.loop import TrainState, init_train_state
 from ultra_tpu_torch.utils import ckpt as ckpt_lib
+from ultra_tpu_torch.utils import profiling
 
 logger = logging.getLogger("ultra_tpu_torch")
 
@@ -172,7 +174,8 @@ def make_grouped_query_train_step(qcfg: QueryConfig, adversarial_temperature: fl
             round_of, has_proj, arg_slot, n_rounds = projection_schedule(kind[rows])
             pred = execute_grouped(model, qcfg, list(round_graphs[:n_rounds]), on(kind[rows]),
                                    on(operand[rows]), on(round_of), on(has_proj),
-                                   on(arg_slot), n_rounds)
+                                   on(arg_slot), n_rounds,
+                                   cheap=cheap_schedule(kind[rows], round_of, n_rounds))
             micro = query_bce_loss(pred, on(target[rows]), adversarial_temperature)
             (micro / accum).backward()
             loss = loss + micro.detach()
@@ -206,18 +209,114 @@ def make_query_forward_grouped(model: Ultra, qcfg: QueryConfig):
     the projections grouped into rounds (``execute_grouped``): as many
     passes a batch as its deepest query has projections (3 on BetaE's
     types), where :func:`make_query_forward` runs one at each slot where
-    some query projects. The schedule is made on the host from ``kind``."""
+    some query projects. The schedules (of the projections and of the cheap
+    ops, ``cheap_schedule``) are made on the host from ``kind``, and the
+    program goes to the device with them in one copy (:func:`_upload`).
+
+    Under a profiler ``fwd`` records the span ``ultra.query.schedule``
+    (the schedules and the upload) and counts ``query_passes``
+    (projection passes run) and ``query_projections`` (queries that
+    project in a pass) (``utils/profiling.py``)."""
 
     @torch.no_grad()
     def fwd(graph: Graph, kind, operand, rel_reprs_all=None):
-        kind = np.asarray(kind)
-        round_of, has_proj, arg_slot, n_rounds = projection_schedule(kind)
-        on = lambda a: torch.as_tensor(a, device=graph.device)  # noqa: E731
-        return execute_grouped(model, qcfg, graph, on(kind), on(np.asarray(operand)),
-                               on(round_of), on(has_proj), on(arg_slot), n_rounds,
-                               rel_reprs_all=rel_reprs_all)
+        with profiling.annotate("ultra.query.schedule"):
+            kind = np.asarray(kind)
+            round_of, has_proj, arg_slot, n_rounds = projection_schedule(kind)
+            cheap = cheap_schedule(kind, round_of, n_rounds)
+            kind_t, operand_t, round_of_t, has_proj_t, arg_slot_t = _upload(
+                (kind, operand, round_of, has_proj, arg_slot), graph.device)
+            profiling.count("query_passes", n_rounds)
+            profiling.count("query_projections", int(has_proj.sum()))
+        return execute_grouped(model, qcfg, graph, kind_t, operand_t, round_of_t,
+                               has_proj_t.bool(), arg_slot_t, n_rounds,
+                               rel_reprs_all=rel_reprs_all, cheap=cheap)
 
     return fwd
+
+
+def _upload(arrays, device: torch.device):
+    """Host integer arrays on ``device`` as int64 tensors of their shapes,
+    in one copy. To a card that is an asynchronous copy from pinned memory,
+    so the host goes on enqueueing while the card runs the work before;
+    under a profiler its bytes count as ``h2d_bytes``."""
+    arrays = [np.asarray(a) for a in arrays]
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]).astype(np.int64))
+    if device.type == "cuda":
+        profiling.count("h2d_bytes", flat.nbytes)
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    return [p.view(a.shape) for p, a in zip(torch.split(flat, [a.size for a in arrays]), arrays)]
+
+
+@torch.no_grad()
+def rank_queries(
+    model: Ultra,
+    qcfg: QueryConfig,
+    graph: Graph,
+    dataset: QueryDataset,
+    indices: np.ndarray,
+    batch_size: int,
+    restrict_nodes: Optional[np.ndarray] = None,
+    rel_reprs_all=None,
+):
+    """The per-query vectors of the filtered evaluation of ``dataset``'s
+    queries ``indices`` on ``graph``, host arrays in the order
+    ``qmetrics.evaluate`` takes them: (hard answers' filtered ranks,
+    answers' unfiltered ranks (easy block, then hard block, a query),
+    num_easy, num_hard, types, num_pred (float64)).
+
+    Batches of ``batch_size`` run through :func:`make_query_forward_grouped`;
+    the last is padded by repeating its last query and the padded rows are
+    dropped. Each batch's answer lists go to the device in one copy, and
+    the ranking runs there (``qmetrics.batch_evaluate_device``,
+    ``qmetrics.predicted_size``); nothing waits for the device until the
+    vectors of every batch come back together. ``rel_reprs_all``: the
+    relation model's outputs for every relation
+    (``precompute_relation_representations``), computed here when not
+    given.
+
+    Under a profiler the call records the span ``ultra.query.rank_queries``
+    and in it ``ultra.query.precompute`` (where it computes
+    ``rel_reprs_all``), for each batch ``ultra.query.schedule`` (decompose
+    and the answer lists' upload) and the forward's spans and counts, and
+    ``ultra.query.metrics`` (the ranking enqueued), and at the end
+    ``ultra.query.download`` (``utils/profiling.py``)."""
+    with profiling.annotate("ultra.query.rank_queries"):
+        model = model.eval()
+        device = graph.device
+        fwd = make_query_forward_grouped(model, qcfg)
+        if rel_reprs_all is None:
+            with profiling.annotate("ultra.query.precompute"):
+                rel_reprs_all = precompute_relation_representations(model, graph)
+        keep = None
+        if restrict_nodes is not None:
+            keep = torch.zeros(graph.num_nodes, dtype=torch.bool, device=device)
+            keep[torch.as_tensor(np.asarray(restrict_nodes), device=device)] = True
+        indices = np.asarray(indices)
+        out = []
+        for start in range(0, len(indices), batch_size):
+            take = indices[start : start + batch_size]
+            valid = len(take)
+            if valid < batch_size:
+                take = np.concatenate([take, np.repeat(take[-1:], batch_size - valid)])
+            with profiling.annotate("ultra.query.schedule"):
+                kind, operand = ops.decompose(dataset.queries[take])
+                answers, sizes = qmetrics.pack_answers(
+                    [dataset.easy_answers[i] for i in take[:valid]],
+                    [dataset.hard_answers[i] for i in take[:valid]])
+                (answers,) = _upload((answers,), device)
+            logits = fwd(graph, kind, operand, rel_reprs_all)[:valid]
+            with profiling.annotate("ultra.query.metrics"):
+                ranks = qmetrics.batch_evaluate_device(
+                    logits, qmetrics.PackedAnswers.split(answers, sizes), keep)
+                out.append((*ranks, qmetrics.predicted_size(logits)))
+        with profiling.annotate("ultra.query.download"):
+            ints = [torch.cat([batch[k] for batch in out]) for k in range(4)]
+            flat = torch.cat(ints).cpu().numpy()
+            num_pred = torch.cat([batch[4] for batch in out]).cpu().numpy()
+        hard_rank, answer_rank, num_easy, num_hard = np.split(
+            flat, np.cumsum([len(x) for x in ints])[:-1])
+        return (hard_rank, answer_rank, num_easy, num_hard, dataset.types[indices], num_pred)
 
 
 def evaluate_queries(
@@ -233,9 +332,8 @@ def evaluate_queries(
 ) -> Dict[str, float]:
     """Filtered complex-query evaluation of ``dataset``'s queries
     ``indices`` on ``graph`` (``run_query.py:157-264``), in batches of
-    ``batch_size``; the last batch is padded by repeating its last query and
-    the padded rows are dropped. The relation model runs once for all R
-    relations (``precompute_relation_representations``).
+    ``batch_size`` (:func:`rank_queries`). The relation model runs once for
+    all R relations (``precompute_relation_representations``).
 
     ``distributed`` (by default: in a process group of more than one
     process) shards ``indices`` over the ranks (``shard_indices`` without
@@ -248,39 +346,12 @@ def evaluate_queries(
         indices = np.asarray(indices)[
             multihost.shard_indices(len(indices), epoch=0, shuffle=False)]
     model = model.eval()
-    fwd = make_query_forward_grouped(model, qcfg)
-    v = graph.num_nodes
     rel_reprs_all = precompute_relation_representations(model, graph)
-
-    all_rank, all_answer_rank = [], []
-    all_easy, all_hard, all_types, all_num_pred = [], [], [], []
-    for start in range(0, len(indices), batch_size):
-        take = indices[start : start + batch_size]
-        valid = len(take)
-        if valid < batch_size:
-            take = np.concatenate([take, np.repeat(take[-1:], batch_size - valid)])
-        kind, operand = ops.decompose(dataset.queries[take])
-        pred = fwd(graph, kind, operand, rel_reprs_all).cpu().numpy()[:valid]
-        take = take[:valid]
-        easy = answers_to_mask([dataset.easy_answers[i] for i in take], v)
-        hard = answers_to_mask([dataset.hard_answers[i] for i in take], v)
-        rank, answer_rank, n_easy, n_hard = qmetrics.batch_evaluate(
-            pred, easy, hard, restrict_nodes)
-        prob = 1.0 / (1.0 + np.exp(-pred))
-        num_pred = (prob * (prob > 0.5)).sum(axis=-1)
-        all_rank.append(rank)
-        all_answer_rank.append(answer_rank)
-        all_easy.append(n_easy)
-        all_hard.append(n_hard)
-        all_types.append(dataset.types[take])
-        all_num_pred.append(num_pred)
-
-    vectors = [np.concatenate(x) for x in (all_rank, all_answer_rank, all_easy, all_hard,
-                                            all_types, all_num_pred)]
+    vectors = rank_queries(model, qcfg, graph, dataset, indices, batch_size,
+                           restrict_nodes=restrict_nodes, rel_reprs_all=rel_reprs_all)
     if distributed:
         vectors = [multihost.gather_ranks(x) for x in vectors]
     return qmetrics.evaluate(*vectors, metric_names, dataset.id2type)
-
 
 
 def make_step(cfg: dict, qcfg: QueryConfig, grouped: bool, sync_grads=None):
