@@ -230,6 +230,56 @@ def test_two_passes_match_jax(small_pieces, agg, mul):
         np.testing.assert_array_equal(got, want)
 
 
+# an H100's L2 as the card reports it (L2_cache_size)
+H100_L2 = 50 * 2**20
+
+
+@pytest.mark.parametrize("rows, feat, elem_bytes, features, want", [
+    (123_182, 1_024, 4, 4, 32),  # the ranking cell's pass: 504 MB of x, 8 slabs of 63 MB
+    (14_505, 2_048, 4, 4, 32),  # the eval cell's: 119 MB, 16 slabs of 7.4 MB
+    (14_541, 512, 4, 4, 32),  # FB15k-237 at a batch of 8: 29.8 MB, 4 tiles, not 1
+    (14_541, 64, 4, 4, 16),  # FB15k-237 at F = 64 (attribution): fits, one tile
+    (474, 4_096, 4, 4, 256),  # its relation graph at F = 4,096: fits, today's 4 tiles
+    (14_541, 512, 2, 8, 64),  # bf16 x at F = 512: 14.9 MB, fits where f32 does not
+    (123_182, 1_024, 2, 8, 32),  # bf16 x of the ranking pass: 256-feature slabs
+    (14_541, 512, 4, 8, 32),  # the bf16 input gradient's f32 g (8 features a unit)
+    (14_505, 1_536, 4, 4, 32),  # a width of 384 units, not a power of two
+    (14_505, 1_040, 4, 4, 256),  # 260 units, which 32 does not divide: whole rows
+    (200_000, 64, 4, 4, 16),  # a row of 16 units: no tile narrower than its warp
+])
+def test_slab_tile_rule(rows, feat, elem_bytes, features, want):
+    """B1's feature tile (``rspmm_cuda.slab_tile``) at the cells' and the
+    paths' shapes, with half of an H100's L2 as the budget: where x fits,
+    ``group_size`` of the row, as every other walk; where it does not, a
+    warp's 32 units where they divide a wider row, else whole rows. A bf16
+    x, half the bytes a feature, slabs only where the f32 x of twice its
+    bytes would, and then in tiles of more features."""
+    budget = rspmm_cuda.slab_budget(H100_L2)
+    assert budget == H100_L2 // 2
+    width = feat // features
+    whole = rspmm_cuda.group_size(width)
+    tile = rspmm_cuda.slab_tile(rows, feat, elem_bytes, features, budget)
+    assert tile == want
+    assert tile >= 8 and (tile in (8, 16) or (tile % 32 == 0 and tile <= 256))
+    if rows * feat * elem_bytes <= budget:
+        assert tile == whole
+    elif tile != whole:
+        assert tile == rspmm_cuda.SLAB_TILE and width % tile == 0 and tile < whole
+    if elem_bytes == 2:
+        f32 = rspmm_cuda.slab_tile(rows, feat, 4, 4, budget)
+        assert tile * features >= f32 * 4
+
+
+@pytest.mark.parametrize("width, group", [(1, 8), (8, 8), (9, 16), (16, 16), (17, 32),
+                                          (32, 32), (33, 64), (100, 128), (256, 256),
+                                          (512, 256)])
+def test_group_size_is_the_walks(width, group):
+    """``rspmm_cuda.group_size`` is ``csrc/rspmm_pieces.cuh::group_size``:
+    a power of two from 8 to 32 units, else the width rounded up to a
+    multiple of 32, at most 256."""
+    assert rspmm_cuda.group_size(width) == group
+
+
 @pytest.mark.parametrize("field, module, call", [
     ("piece_slot", rspmm_cuda, "rspmm_sum_fwd"),
     ("long_slot_ptr", rspmm_minmax_cuda, "rspmm_minmax_fwd"),

@@ -15,19 +15,33 @@
 // stream, with no atomics: the result is the same bits on every run.
 //
 // What bounds the walks on an H100 is the latency of the gathered row loads,
-// not their bytes: the x rows sit in L2, and a piece's edges are a chain of
-// rounds of loads. What hides that latency is edges in flight on each SM:
+// not their bytes, where the x rows sit in L2: a piece's edges are a chain
+// of rounds of loads. What hides that latency is edges in flight on each SM:
 // pieces in flight (groups) times edges in flight per thread (W::kUnroll).
+// Where x is larger than L2, every gathered row comes from HBM; B1 then
+// walks x in slabs of columns (feature tiles, below).
 //
 // Pass 1. A group of threads takes one piece and one tile of the row, the
 // pieces longest first (piece_order), so that the longest start in the
 // first wave and the groups that share a warp or a block walk pieces of
 // about one length; a thread per unit of the row (4 features, or 8: see Row
-// operands), the group as many threads as the row has units (a power of two
-// from 8 up to 32, else a multiple of 32 up to 256, the last lanes idle
-// where the row has fewer), a block of 256 threads holding 256 / group of
-// them. So at F=64 a 4-feature walk's block walks 16 pieces and no lane
-// idles; a row of more than 256 units takes several feature tiles (grid.y).
+// operands), the group as many threads as the tile has units, a block of
+// 256 threads holding 256 / group of them. The tile is the caller's
+// (launch's `tile`): a power of two from 8 up to 32, else a multiple of 32
+// up to 256, never wider than group_size(width), the last lanes idle where
+// the row has fewer. B2-B6 take group_size(width), the whole row up to 256
+// units: at F=64 a 4-feature walk's block walks 16 pieces and no lane
+// idles, and a row of more than 256 units takes several feature tiles.
+// B1 takes the tile ops/rspmm_cuda.py::slab_tile chooses from x's shape and
+// the card's L2: where x does not fit a share of L2, 32 units, a warp a
+// group. The tiles are grid.y, the slowest dimension of the grid, so the
+// blocks resident at once walk one tile's pieces and gather from one slab
+// of x (x's rows, the tile's columns; two at a slab's end), which stays in
+// L2 largely while they do. Narrower groups, whose slabs fit L2 whole, lose
+// more than that gains: a warp then walks several groups' pieces in step,
+// and each tile stages the piece table again. A feature's sum depends on
+// its own column alone, so a tile changes which threads add, never the
+// order of the sums: every tile width gives the same bits.
 // - The group first stages up to kStage edges of its piece in shared memory:
 //   the 32-bit words the walk's policy asks for (indices, the weight), read
 //   with coalesced loads, one round trip for the stage instead of dependent
@@ -196,12 +210,20 @@ struct Adds {
   }
 };
 
-// Threads of a group for a row of `width` accumulator units.
+// Threads of a group for a whole row of `width` accumulator units, up to
+// kBlock: the tile of B2-B6, and of B1 where x fits L2.
 inline int group_size(long long width) {
   if (width > 32) return width >= kBlock ? kBlock : static_cast<int>((width + 31) / 32 * 32);
   int group = 8;
   while (group < width) group *= 2;
   return group;
+}
+
+// Whether a group of `group` threads is one the walk supports: a power of
+// two from 8 to 32 (lanes of one warp), or a multiple of 32 up to kBlock.
+inline bool supported_group(long long group) {
+  return group == 8 || group == 16 || group == 32 ||
+         (group > 32 && group <= kBlock && group % 32 == 0);
 }
 
 // A barrier for the threads of group g alone, so that a group never waits
@@ -318,13 +340,16 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 template <class W>
 constexpr int kFeatures = static_cast<int>(sizeof(Acc<W>) / sizeof(float));
 
-// Checks what the walk needs, launches both passes on `stream` and returns
-// cudaGetLastError() (0 on success). num_feat not a multiple of the walk's
-// features a thread (4 or 8), no piece, or an out (or, with long rows,
-// partial) not 16-byte aligned returns cudaErrorInvalidValue and launches
-// nothing; the caller checks its own row operands' alignment.
+// Checks what the walk needs, launches both passes on `stream` in feature
+// tiles of `tile` accumulator units and returns cudaGetLastError() (0 on
+// success). num_feat not a multiple of the walk's features a thread (4 or
+// 8), a tile the walk does not support or wider than group_size(width), no
+// piece, or an out (or, with long rows, partial) not 16-byte aligned
+// returns cudaErrorInvalidValue and launches nothing; the caller checks its
+// own row operands' alignment.
 template <class W>
-int launch(Table t, const typename W::Args& a, long long num_feat, void* stream) {
+int launch(Table t, const typename W::Args& a, long long num_feat, long long tile,
+           void* stream) {
   if (t.num_pieces <= 0 || t.num_long < 0 || num_feat <= 0 || num_feat % kFeatures<W> != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -332,7 +357,10 @@ int launch(Table t, const typename W::Args& a, long long num_feat, void* stream)
     return static_cast<int>(cudaErrorInvalidValue);
   }
   t.width = num_feat / kFeatures<W>;
-  const int group = group_size(t.width);
+  if (!supported_group(tile) || tile > group_size(t.width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int group = static_cast<int>(tile);
   const int groups = kBlock / group;
   const unsigned tiles = static_cast<unsigned>((t.width + group - 1) / group);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -360,6 +388,13 @@ int launch(Table t, const typename W::Args& a, long long num_feat, void* stream)
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch in tiles of group_size(width), the whole row up to kBlock units:
+// the geometry of B2-B5.
+template <class W>
+int launch(Table t, const typename W::Args& a, long long num_feat, void* stream) {
+  return launch<W>(t, a, num_feat, group_size(num_feat / kFeatures<W>), stream);
+}
+
 // The operands of the forward walk, which the aggregations share; R and X
 // are the element types of the relation and x rows (float or bf16).
 template <class R, class X>
@@ -373,15 +408,17 @@ struct GatherArgs {
 };
 
 // The forward walk of B1 and B3: an edge brings x[col] and rel[etype],
-// widened to f32, and Agg folds it in (Agg::add(acc, w, rel, x)).
-template <class Agg, class R, class X>
+// widened to f32, and Agg folds it in (Agg::add(acc, w, rel, x)). kU and kB
+// are the walk's sizes (edges in flight, blocks an SM): 4 and 4 unless B1's
+// walk in slabs names its own (rspmm_sum_fwd.cu).
+template <class Agg, class R, class X, int kU = 4, int kB = 4>
 struct Gather {
   using Args = GatherArgs<R, X>;
   struct Edge {
     float4 x, rel;
   };
   using Row = NoRow;
-  static constexpr int kWords = 3, kUnroll = 4, kMinBlocks = 4, kSplit = 1;
+  static constexpr int kWords = 3, kUnroll = kU, kMinBlocks = kB, kSplit = 1;
 
   __device__ static Row row(const Args&, int64_t, int64_t, int64_t) { return {}; }
   __device__ static void stage(const Args& a, int64_t e, int32_t* s, int i) {

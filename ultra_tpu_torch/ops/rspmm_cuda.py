@@ -11,7 +11,10 @@ launch counters, and their plain PyTorch versions.
   CSR's piece table (``graph.py``): a group of threads per piece of at most
   ``ROW_PIECE`` edges, so a hub row no longer sets the launch's length, and
   a second pass that adds a long row's partial rows in order, into scratch
-  the wrapper allocates; both passes are one launch in the count.
+  the wrapper allocates; both passes are one launch in the count. Where x
+  is larger than a share of the card's L2 it walks x in slabs of columns,
+  one warp's features wide (:func:`slab_tile`), with the same bits as one
+  tile a row.
 - B2, ``csrc/rspmm_sum_drel.cu``: the relation gradient over the type
   segments (:func:`rspmm_sum_drel`). It replaces
   ``rspmm_pallas.py::_rel_grad_kernel``, ``rspmm_pallas_v2.py::_drel_kernel``
@@ -66,6 +69,7 @@ import torch
 
 from ultra_tpu_torch.graph import CSR, TypeSegments
 from ultra_tpu_torch.ops import build
+from ultra_tpu_torch.utils import profiling
 
 _MUL_CODE = {"mul": 0, "add": 1}
 # the groups of threads B6 splits each piece of the CSR over: its edges' sums
@@ -79,7 +83,8 @@ _KERNELS = {}  # name -> the bound C entry point, set at first launch
 # kernel's signature
 _ARGTYPES = {
     "rspmm_sum_fwd": [ctypes.c_void_p] * 14 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p,
     ],
     "rspmm_sum_drel": [ctypes.c_void_p] * 14 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
@@ -137,6 +142,68 @@ _FEATURES = dict.fromkeys(("rspmm_sum_fwd_bf16_bf16", "rspmm_sum_fwd_bf16_f32",
                            "rspmm_sum_drel_bf16", "rspmm_minmax_fwd_bf16_bf16",
                            "rspmm_minmax_dx_bf16_bf16", "rspmm_minmax_drel_bf16_bf16",
                            "rspmm_dw_bf16_bf16"), 8)
+
+
+# the share of the card's L2 that B1's x may fill and still be walked in
+# whole rows (slab_tile); timed on an H100 against 5/8 and 3/4 of its 50 MB
+# (PERF.md): FB15k-237's x at F = 512, 29.8 MB, walks faster in slabs
+SLAB_SHARE = 0.5
+# B1's feature tile where x does not fit: one warp (32 accumulator units),
+# the narrowest group that never shares a warp with another group's piece
+SLAB_TILE = 32
+# the threads of a pass-1 block, and so the widest feature tile
+# (csrc/rspmm_pieces.cuh kBlock)
+_BLOCK = 256
+
+
+def group_size(width: int) -> int:
+    """Threads of a group for a whole row of ``width`` accumulator units
+    (``csrc/rspmm_pieces.cuh::group_size``): a power of two from 8 to 32,
+    else ``width`` rounded up to a multiple of 32, at most 256."""
+    if width > 32:
+        return min(_BLOCK, -(-width // 32) * 32)
+    group = 8
+    while group < width:
+        group *= 2
+    return group
+
+
+def slab_tile(rows: int, feat: int, elem_bytes: int, features: int, budget: int) -> int:
+    """The feature tile, in accumulator units of ``features`` features, in
+    which B1 walks an x of ``rows`` x ``feat`` elements of ``elem_bytes``
+    each, given ``budget`` bytes of L2 (:func:`slab_budget`).
+
+    Where x fits the budget, ``group_size`` of the row's width: every row in
+    one tile up to 256 units, as every other walk takes it. Where it does
+    not, :data:`SLAB_TILE` units, where they divide a wider row: the tiles
+    are the grid's slowest dimension, so the blocks resident at once gather
+    from one slab of x, ``rows`` x the tile's columns, which stays in L2
+    largely (the ranking pass's, 63 MB at F = 1,024 in f32) or whole. On an
+    H100 this beat every other tile wherever x did not fit, narrower slabs
+    that fit the L2 whole included: a group of fewer than 32 threads shares
+    its warp with other groups' pieces, which the warp walks in step, and
+    more tiles stage the piece table again (PERF.md). Only shapes and the
+    card's L2 decide it."""
+    width = feat // features
+    whole = group_size(width)
+    if rows * feat * elem_bytes <= budget or width <= SLAB_TILE or width % SLAB_TILE:
+        return whole
+    return SLAB_TILE
+
+
+def slab_budget(l2_bytes: int) -> int:
+    """Bytes of a card's L2 of ``l2_bytes`` that B1's x may fill and still
+    be walked in whole rows."""
+    return int(l2_bytes * SLAB_SHARE)
+
+
+_L2_BYTES = {}  # CUDA device index -> its L2's bytes
+
+
+def _l2_bytes(device) -> int:
+    if device.index not in _L2_BYTES:
+        _L2_BYTES[device.index] = torch.cuda.get_device_properties(device).L2_cache_size
+    return _L2_BYTES[device.index]
 
 
 def _kernel(name: str):
@@ -285,10 +352,30 @@ def _launch_pieces(name: str, op: str, csr: CSR, edge_weight, relation, x, *code
     """B1 (``name`` "rspmm_sum_fwd" or one of its instances) or B3
     ("rspmm_minmax_fwd"...) on the card over ``csr``'s piece table; (rows of
     ``csr``, F) f32 out. ``codes`` are the kernel's int arguments after F
-    (mul_op, and is_min for B3)."""
+    (mul_op and B1's tile, or mul_op and is_min for B3)."""
     return _launch_walk(name, op, csr, csr.rowptr.numel() - 1,
                         {"col": csr.col, "etype": csr.etype, "eid": csr.eid}, edge_weight,
                         {"relation": relation, "x": x}, *codes)
+
+
+def _launch_sum(name: str, op: str, csr: CSR, edge_weight, relation, x, mul_code: int,
+                budget: int | None = None):
+    """B1 (``name``, one of its instances) on the card over ``csr``'s piece
+    table in the feature tile :func:`slab_tile` gives for x on the card's L2
+    (``budget`` replaces the card's share, for tests); (rows of ``csr``, F)
+    f32 out. A launch whose x does not fit adds its tiles to the counter
+    ``rspmm_sum_fwd.slab_tiles`` of ``utils/profiling.py``."""
+    features = _FEATURES.get(name, 4)
+    width = x.shape[1] // features
+    tile = group_size(width)
+    if x.is_cuda:  # a tensor elsewhere is refused before any launch
+        if budget is None:
+            budget = slab_budget(_l2_bytes(x.device))
+        tile = slab_tile(x.shape[0], x.shape[1], x.element_size(), features, budget)
+    out = _launch_pieces(name, op, csr, edge_weight, relation, x, mul_code, tile)
+    if tile < group_size(width):
+        profiling.count("rspmm_sum_fwd.slab_tiles", -(-width // tile))
+    return out
 
 
 def _csr_rows(csr: CSR):
@@ -331,8 +418,8 @@ def rspmm_sum_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul"):
     instance = _instance("rspmm_sum_fwd", "rspmm_sum_fwd", relation, x)
     if x.device.type == "cpu":
         return rspmm_sum_fwd_plain(csr, edge_weight, relation, x, mul)
-    out = _launch_pieces(_entry("rspmm_sum_fwd", instance), "rspmm_sum_fwd",
-                         csr, edge_weight, relation, x, _MUL_CODE[mul])
+    out = _launch_sum(_entry("rspmm_sum_fwd", instance), "rspmm_sum_fwd",
+                      csr, edge_weight, relation, x, _MUL_CODE[mul])
     _count(rspmm_sum_fwd, out.shape, instance)
     return out
 
@@ -365,8 +452,8 @@ def rspmm_sum_dx(csr_src: CSR, edge_weight, relation, g, mul: str = "mul"):
     if g.device.type == "cpu":
         return rspmm_sum_dx_plain(csr_src, edge_weight, relation, g, mul)
     rel = _rel_or_ones(relation, mul)
-    out = _launch_pieces(_entry("rspmm_sum_fwd", instance), "rspmm_sum_dx",
-                         csr_src, edge_weight, rel, g, _MUL_CODE["mul"])
+    out = _launch_sum(_entry("rspmm_sum_fwd", instance), "rspmm_sum_dx",
+                      csr_src, edge_weight, rel, g, _MUL_CODE["mul"])
     _count(rspmm_sum_dx, out.shape, instance)
     return out
 
