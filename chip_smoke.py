@@ -191,9 +191,6 @@ PRECOMPUTE_CHUNK = 64  # train/eval.py precompute_relation_representations
 # the sources in ultra_tpu_torch/csrc
 KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx",
            "rspmm_minmax_drel", "rspmm_dw", "gather", "conv_epilogue")
-# the kernel wrappers, each with its launch counter
-WRAPPERS = ("rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_minmax_fwd",
-            "rspmm_minmax_dx", "rspmm_minmax_drel", "rspmm_dw", "gather_rows", "gather_lanes")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv", "bf16",
           "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "distributed",
           "gather-probe", "tooling")
@@ -613,11 +610,11 @@ def dw_slots_written(g_, rel, x, g):
     wrapper zeroes it: (CSR edges whose slot was not written, slots not in
     the CSR that were written); both 0 when the walk writes the CSR's edges
     and nothing else."""
-    from ultra_tpu_torch.ops import rspmm_cuda as k
+    from ultra_tpu_torch.ops import build, rspmm_cuda
 
     csr, w = g_.csr, g_.edge_weight
     d_w = torch.full(w.shape, float("nan"), device=w.device)
-    k._launch_dw(k._kernel("rspmm_dw"), csr, w, rel, x, g, "mul", None, d_w)
+    rspmm_cuda.launch_dw(build.bind("rspmm_dw"), csr, w, rel, x, g, "mul", None, d_w)
     in_csr = torch.zeros(w.shape, dtype=torch.bool, device=w.device)
     in_csr[csr.eid.long()] = True
     return int(d_w[in_csr].isnan().sum()), int((~d_w[~in_csr].isnan()).sum())
@@ -1273,27 +1270,25 @@ def serve(split, ckpt, device):
                                           batch_size=BATCH)
 
 
-def wrappers():
-    from ultra_tpu_torch.ops import gather_cuda, rspmm_cuda, rspmm_minmax_cuda
-
-    return [getattr(gather_cuda if name.startswith("gather")
-                    else rspmm_minmax_cuda if name.startswith("rspmm_minmax") else rspmm_cuda,
-                    name)
-            for name in WRAPPERS]
-
-
 def launch_counts():
     """{wrapper: {output shape (rows, F), for B2 (V, R, F), for the gathers
-    with the element type: launches}} since the last reset."""
-    return {f.__name__: dict(f.launches) for f in wrappers()}
+    with the element type: launches}} since the last reset; E1's are read
+    apart (:func:`sum_serving`)."""
+    from ultra_tpu_torch.ops import build
+
+    return {name: dict(counter) for name, counter in build.launch_counters().items()
+            if name != "conv_epilogue"}
+
+
+def no_launches():
+    """:func:`launch_counts` with no launch."""
+    return {name: {} for name in launch_counts()}
 
 
 def reset_launch_counts():
-    from ultra_tpu_torch.ops.epilogue_cuda import conv_epilogue
+    from ultra_tpu_torch.ops import build
 
-    for f in wrappers():
-        f.launches.clear()
-    conv_epilogue.launches.clear()
+    build.clear_launch_counters()
 
 
 def fwd_launches(counts):
@@ -1332,7 +1327,7 @@ def rspmm_calls_per_layer(aggregate):
 def forward_launches(model_cfg, num_rows, feat):
     """Forward launches of one pass of an NBFNet on a graph of ``num_rows``
     nodes, by wrapper and output shape."""
-    counts = {name: {} for name in WRAPPERS}
+    counts = no_launches()
     n_sum, n_ext = rspmm_calls_per_layer(model_cfg.aggregate_func)
     layers = len(model_cfg.hidden_dims)
     add_launches(counts, "rspmm_sum_fwd", (num_rows, feat), n_sum * layers)
@@ -2314,7 +2309,7 @@ def clqa_launches(cfg, dataset, graph, splits=(1, 2)):
 
     dim = cfg.entity_model.input_dim
     chunks = -(-graph.num_relations // PRECOMPUTE_CHUNK)
-    counts = {name: {} for name in WRAPPERS}
+    counts = no_launches()
     rounds = 0
     for lo, hi in (dataset.split_ranges()[i] for i in splits):
         counts = plus(counts, times(forward_launches(cfg.relation_model, graph.num_relations,
@@ -2809,7 +2804,7 @@ def query_step_launches(cfg, kind, grouped, accum, num_nodes, num_rel):
     """What one query train step on the batch ``kind`` launches: a step's
     launches (:func:`per_step_launches`) for each projection pass
     (:func:`query_step_passes`) at its rows."""
-    counts = {name: {} for name in WRAPPERS}
+    counts = no_launches()
     for n, rows in query_step_passes(kind, grouped, accum):
         counts = plus(counts, times(per_step_launches(cfg, num_nodes, num_rel, batch=rows), n))
     return counts
@@ -2856,7 +2851,7 @@ def clqa_training_run(cfg, dataset):
     graph = prepare_query_graph(dataset.graphs[0], device="cuda")
     v, r = graph.num_nodes, graph.num_relations
     (tr_lo, tr_hi), (va_lo, va_hi), _ = dataset.split_ranges()
-    total = {name: {} for name in WRAPPERS}
+    total = no_launches()
     runs = {}
 
     # the command line's function, per slot and grouped with grad_accum 2
@@ -2874,7 +2869,7 @@ def clqa_training_run(cfg, dataset):
         counts = launch_counts()
         total = plus(total, counts)
         perm = np.random.default_rng(0).permutation(np.arange(tr_lo, tr_hi))
-        want = {name: {} for name in WRAPPERS}
+        want = no_launches()
         for step in range(CLQA_TRAIN_STEPS):
             kind = ops.decompose(dataset.queries[perm[step * BATCH:(step + 1) * BATCH]])[0]
             want = plus(want, query_step_launches(cfg, kind, "grouped" in mode,
@@ -3294,7 +3289,7 @@ def distributed_rank(rank, port, out, device="cuda"):
                        "empty_rows": int(empty.sum()), "empty_rows_written": written}
     v, r = graph.num_nodes, graph.num_relations
 
-    total = [{n: {} for n in WRAPPERS}]
+    total = [no_launches()]
 
     def counted():
         """This call's launches since the last reset, also added to the rank's total."""
@@ -3460,7 +3455,7 @@ def distributed_run(cfg, pna_cfg, split, graph, device="cuda"):
     v, r = graph.num_nodes, graph.num_relations
     index = tasks.GraphIndex.build(split.edge_index, split.edge_type, v, r)
     triples = triples_of(split)
-    record, total = {}, {n: {} for n in WRAPPERS}
+    record, total = {}, no_launches()
 
     # (a) one rank through train_distributed and evaluate_distributed
     multihost.initialize(f"localhost:{free_port()}", 1, 0,
@@ -3954,7 +3949,7 @@ def parity_runs(cfg, lp_root, records, clqa_dataset, clqa_graph):
              "neg_hits@10": clqa_test["[negation] hits@10"]},
             as_json(clqa_launches(cfg, clqa_dataset, clqa_graph, splits=(2,))[0])),
     }
-    record, total = {}, {name: {} for name in WRAPPERS}
+    record, total = {}, no_launches()
     for script, (args, want, want_launches) in runs.items():
         shutil.rmtree(base / script, ignore_errors=True)
         torch.cuda.synchronize()
@@ -4562,7 +4557,7 @@ def bf16_run(split, graph, cfg, pna_cfg, clqa_dataset, clqa_graph):
         split, graph, cfg, cfg16)
     record["clqa"], counts["clqa"], ok["clqa"] = bf16_clqa(cfg, cfg16, clqa_dataset, clqa_graph)
     record["conv"], ok["conv"] = bf16_conv(graph, split.num_relations)
-    total = {name: {} for name in WRAPPERS}
+    total = no_launches()
     for c in counts.values():
         total = plus(total, c)
     record["f32_instance_launches"] = f32_launches(total)

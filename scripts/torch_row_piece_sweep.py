@@ -114,7 +114,7 @@ def build_walk8(sizes):
     built there, one nvcc per source, all at once. Returns ({(u, b): {entry
     point: bound C function}}, {"<u>x<b>": the compiler's resource lines of
     the walk's kernels})."""
-    from ultra_tpu_torch.ops import build, rspmm_cuda
+    from ultra_tpu_torch.ops import build
 
     csrc = ROOT / "ultra_tpu_torch" / "csrc"
     procs = {}
@@ -143,9 +143,7 @@ def build_walk8(sizes):
         cdll = ctypes.CDLL(str(lib))
         for entry in WALK8_ENTRIES:
             if entry.startswith(src + "_"):
-                fn = getattr(cdll, entry)
-                fn.argtypes, fn.restype = rspmm_cuda._ARGTYPES[src], ctypes.c_int
-                fns.setdefault(size, {})[entry] = fn
+                fns.setdefault(size, {})[entry] = build.bind(entry, cdll)
     return fns, usage
 
 
@@ -456,13 +454,10 @@ def main() -> int:
         record["bf16"][name].update(row, f32_ratio=row["ms"] / record["bf16"][name]["f32_ms"])
         ok &= row["ok"]
     if walk8_fns:
-        own = {entry: rspmm_cuda._kernel(entry) for entry in WALK8_ENTRIES}
         for size, fns in walk8_fns.items():
-            # the min/max wrappers bind their entry points through rspmm_cuda too
-            rspmm_cuda._KERNELS.update(fns)
-            rows = record["walk8"]["x".join(map(str, size))] = time_bf16(f"walk8 {size}")
+            with build.swapped(fns):
+                rows = record["walk8"]["x".join(map(str, size))] = time_bf16(f"walk8 {size}")
             ok &= all(row["ok"] for row in rows.values())
-        rspmm_cuda._KERNELS.update(own)
         record["walk8"]["source, again"] = time_bf16("walk8 source, again")
 
     print(json.dumps(record, indent=1))

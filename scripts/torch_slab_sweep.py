@@ -82,7 +82,7 @@ def edit_variant(name: str, source: str, header: str):
 def build_variants(names):
     """B1 built under build/slab_sweep/<name>/ for each variant: ({name:
     {entry point: bound C function}}, {name: the compiler's resource lines})."""
-    from ultra_tpu_torch.ops import build, rspmm_cuda
+    from ultra_tpu_torch.ops import build
 
     csrc = ROOT / "ultra_tpu_torch" / "csrc"
     procs = {}
@@ -106,9 +106,7 @@ def build_variants(names):
         usage[name] = build.ptxas_usage(log)
         cdll = ctypes.CDLL(str(lib))
         for entry in ENTRIES:
-            fn = getattr(cdll, entry)
-            fn.argtypes, fn.restype = rspmm_cuda._ARGTYPES["rspmm_sum_fwd"], ctypes.c_int
-            fns.setdefault(name, {})[entry] = fn
+            fns.setdefault(name, {})[entry] = build.bind(entry, cdll)
     return fns, usage
 
 
@@ -143,14 +141,14 @@ def main() -> int:
         print("torch_slab_sweep: no CUDA device", file=sys.stderr)
         return 1
 
-    from ultra_tpu_torch.ops import build, rspmm_cuda
+    from ultra_tpu_torch.ops import build, pieces, rspmm_cuda
     from ultra_tpu_torch.utils.benchlib import device_ms
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    l2 = rspmm_cuda._l2_bytes(torch.device("cuda", torch.cuda.current_device()))
+    l2 = rspmm_cuda.l2_bytes(torch.device("cuda", torch.cuda.current_device()))
     record = {"card": card, "device": torch.cuda.get_device_name(0), "l2_bytes": l2,
               "ptxas": build.ptxas_usage(build.build_all(["rspmm_sum_fwd"]).get(
                   "rspmm_sum_fwd", "")), "cases": {}}
@@ -178,9 +176,8 @@ def main() -> int:
         rel = torch.randn(on.num_relations, feat, generator=gen).to("cuda", rel_type)
         x = torch.randn(on.num_nodes, feat, generator=gen).to("cuda", x_type)
         w = torch.rand(on.edge_weight.shape, generator=gen).cuda() * on.edge_weight
-        name = rspmm_cuda._entry("rspmm_sum_fwd", rspmm_cuda._instance("sweep", "rspmm_sum_fwd",
-                                                                         rel, x))
-        features = rspmm_cuda._FEATURES.get(name, 4)
+        name = pieces.entry("sweep", "rspmm_sum_fwd", rel, x)
+        features = pieces.features(name)
         width = feat // features
         whole = rspmm_cuda.group_size(width)
         chosen = {s: rspmm_cuda.slab_tile(x.shape[0], feat, x.element_size(), features,
@@ -189,7 +186,7 @@ def main() -> int:
         tiles = sorted(set(tiles) | {whole})
 
         def launch(tile):
-            return rspmm_cuda._launch_pieces(name, "sweep", csr, w, rel, x, 0, tile)
+            return pieces.launch_pieces(name, "sweep", csr, w, rel, x, 0, tile)
 
         want = launch(whole)
         row = {"rows": on.num_nodes, "edges": csr.col.numel(), "entry": name, "whole": whole,
@@ -201,20 +198,18 @@ def main() -> int:
             ok &= row["equal"][tile]
             print(f"[slab] {label} tile {tile}{' (whole)' if tile == whole else ''}: "
                   f"{row['ms'][tile]:.4f} ms, equal {row['equal'][tile]}", flush=True)
-        own = rspmm_cuda._KERNELS.get(name)
         for variant, fns in variant_fns.items():
-            rspmm_cuda._KERNELS[name] = fns[name]
-            for tile in sorted({whole, chosen[shares[0]]} if shares else {whole}):
-                if tile == whole and variant[0].isdigit() and chosen.get(shares[0]) != whole:
-                    continue  # the sizes in slabs leave the whole rows' walk alone
-                same = bool(torch.equal(launch(tile), want))
-                ms = device_ms(lambda: launch(tile))
-                ok &= same
-                row.setdefault("variants", {}).setdefault(variant, {})[tile] = {
-                    "ms": ms, "equal": same}
-                print(f"[slab] {label} {variant} tile {tile}: {ms:.4f} ms, equal {same}",
-                      flush=True)
-        rspmm_cuda._KERNELS[name] = own
+            with build.swapped({name: fns[name]}):
+                for tile in sorted({whole, chosen[shares[0]]} if shares else {whole}):
+                    if tile == whole and variant[0].isdigit() and chosen.get(shares[0]) != whole:
+                        continue  # the sizes in slabs leave the whole rows' walk alone
+                    same = bool(torch.equal(launch(tile), want))
+                    ms = device_ms(lambda: launch(tile))
+                    ok &= same
+                    row.setdefault("variants", {}).setdefault(variant, {})[tile] = {
+                        "ms": ms, "equal": same}
+                    print(f"[slab] {label} {variant} tile {tile}: {ms:.4f} ms, equal {same}",
+                          flush=True)
         record["cases"][label] = row
         del rel, x, w, want
         torch.cuda.empty_cache()

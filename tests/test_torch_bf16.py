@@ -62,7 +62,7 @@ from ultra_tpu.train import loop as jloop
 from ultra_tpu.train import runner as jrunner
 from ultra_tpu_torch.models import layers, nbfnet
 from ultra_tpu_torch.models import visualize as vis
-from ultra_tpu_torch.ops import rspmm_cuda, rspmm_minmax_cuda
+from ultra_tpu_torch.ops import build, pieces, rspmm_cuda, rspmm_minmax_cuda
 from ultra_tpu_torch.ops.rspmm import rspmm_from_graph
 from ultra_tpu_torch.train import loop, runner
 from ultra_tpu_torch.utils.torch_ckpt import params_from_jax
@@ -366,7 +366,7 @@ def test_bf16_rows_off_the_8_feature_layout_are_refused_by_every_bf16_instance(m
     multiple of 4 but not of 8, or a bf16 row that starts 8-byte aligned
     but not 16-byte, raises before any launch; nothing falls back to the
     4-feature walk."""
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     for call in _meta_calls(feat, offset):
         with pytest.raises(ValueError, match="F % 8|16-byte"):
             call()
@@ -380,7 +380,7 @@ def test_f32_rows_keep_the_4_feature_layout_in_every_f32_instance(monkeypatch, f
     16 bytes into their storage, pass the width and alignment checks that
     the bf16 instances fail and meet the next one, the device (meta is not
     a CUDA device)."""
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     for call in _meta_calls(feat, offset, torch.float32):
         with pytest.raises(ValueError, match="want the CUDA device"):
             call()
@@ -392,25 +392,14 @@ def test_bf16_entry_points_and_launch_keys_are_unchanged(monkeypatch):
     4-feature walk, counted under the same key, after the 8-feature walk's
     checks (F % 8); those seven entry points, every bf16 instance, are the
     ones on the 8-feature walk."""
-    names, features = [], []
+    names, walks = [], []
 
-    def launch(name, op, table, num_rows, indices, edge_weight, rows, *codes, out_name="out"):
-        names.append(name)
-        features.append(rspmm_cuda._FEATURES.get(name, 4))
-        return torch.empty(num_rows, next(iter(rows.values())).shape[1], device="meta")
+    def check(op, device, rows, index, edge_weight, features):
+        walks.append(features)
 
-    def check(op, device, rows, ptrs, ints, floats, features=4):
-        # B6 checks its operands itself, then binds its entry point
-        assert op == "rspmm_dw"
-        features_dw.append(features)
-
-    features_dw = []
-    # B3 launches through rspmm_cuda._launch_pieces, B4 and B5 through the name they imported
-    monkeypatch.setattr(rspmm_cuda, "_launch_walk", launch)
-    monkeypatch.setattr(rspmm_minmax_cuda, "_launch_walk", launch)
-    monkeypatch.setattr(rspmm_cuda, "_check_device_tensors", check)
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: names.append(name) or name)
-    monkeypatch.setattr(rspmm_cuda, "_launch_dw", lambda *_: None)
+    monkeypatch.setattr(pieces, "check_operands", check)
+    monkeypatch.setattr(build, "bind", lambda name: names.append(name) or name)
+    monkeypatch.setattr(build, "launch", lambda *_: None)
     wrappers = (rspmm_cuda.rspmm_sum_fwd, rspmm_cuda.rspmm_sum_dx, rspmm_cuda.rspmm_sum_drel,
                 rspmm_minmax_cuda.rspmm_minmax_fwd, rspmm_minmax_cuda.rspmm_minmax_dx,
                 rspmm_minmax_cuda.rspmm_minmax_drel, rspmm_cuda.rspmm_dw)
@@ -422,8 +411,8 @@ def test_bf16_entry_points_and_launch_keys_are_unchanged(monkeypatch):
                "rspmm_minmax_fwd_bf16_bf16", "rspmm_minmax_dx_bf16_bf16",
                "rspmm_minmax_drel_bf16_bf16", "rspmm_dw_bf16_bf16"]
     assert names == entries + ["rspmm_dw_bf16_bf16"]
-    assert features == [8] * 6 and features_dw == [8, 8]
-    assert rspmm_cuda._FEATURES == dict.fromkeys(entries, 8)
+    assert walks == [8] * 8
+    assert {e for e in build.ENTRY_POINTS if pieces.features(e) == 8} == set(entries)
     assert rspmm_cuda.rspmm_sum_fwd.launches == {(V, 32, "bf16_bf16"): 1}
     assert rspmm_cuda.rspmm_sum_dx.launches == {(V, 32, "bf16_f32"): 1}
     assert rspmm_cuda.rspmm_sum_drel.launches == {(V, R, 32, "bf16"): 1}
@@ -453,7 +442,8 @@ def test_walk8_sweep_finds_each_sources_size_pairs():
     assert {f"{src}.cu" for src in sweep.WALK8_SOURCES} <= set(sweep.WALK8_SIZES)
     assert {re.sub(r"(_(?:bf16|f32))+$", "", e) for e in sweep.WALK8_ENTRIES} == set(
         sweep.WALK8_SOURCES)
-    assert set(sweep.WALK8_ENTRIES) == set(rspmm_cuda._FEATURES)
+    assert set(sweep.WALK8_ENTRIES) == {e for e in build.ENTRY_POINTS
+                                        if pieces.features(e) == 8}
     for name, pairs in sweep.WALK8_SIZES.items():
         text = (csrc / name).read_text()
         assert sweep.WALK8_PATTERN.findall(text) == list(pairs), name

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from ultra_tpu_torch.ops import build, gather_cuda, rspmm_cuda
+from ultra_tpu_torch.ops import build, gather_cuda
 from ultra_tpu_torch.ops.gather_cuda import gather_lanes, gather_rows
 
 
@@ -55,7 +55,7 @@ def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
     monkeypatch.setattr(build, "_BUILD", tmp_path)
     monkeypatch.setattr(build, "_LIBS", {})
-    monkeypatch.setattr(rspmm_cuda, "_KERNELS", {})
+    monkeypatch.setattr(build, "_BOUND", {})
     x = torch.empty(10, 8, device="meta")
     for call in (lambda: gather_rows(x, torch.empty(5, dtype=torch.int32, device="meta")),
                  lambda: gather_lanes(x, torch.empty(10, 3, dtype=torch.int32, device="meta"))):
@@ -67,7 +67,7 @@ def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
 def test_device_tensor_off_the_kernel_layout_is_refused(monkeypatch):
     """G1 copies 16-byte vectors and G2 2- or 4-byte elements: other rows
     and element sizes raise before any launch."""
-    monkeypatch.setattr(gather_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     idx = torch.empty(5, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="16-byte"):
         gather_rows(torch.empty(10, 6, device="meta"), idx)  # 24-byte rows
@@ -79,7 +79,7 @@ def test_device_tensor_off_the_kernel_layout_is_refused(monkeypatch):
 def test_launch_floor_refuses_a_cpu_tensor(monkeypatch):
     """The empty kernel beside G2 measures the card: it has no plain version,
     and a tensor on the CPU raises before any launch."""
-    monkeypatch.setattr(gather_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     with pytest.raises(ValueError, match="CUDA device"):
         gather_cuda.gather_lanes_floor(torch.zeros(4, 8), torch.zeros(4, 2, dtype=torch.int32))
     with pytest.raises(TypeError, match="int32"):
@@ -122,6 +122,6 @@ def test_lane_launch_covers_every_output_once(rows, k, lanes):
 def test_index_walk_refuses_a_cpu_tensor(monkeypatch):
     """G2's index-only walk is a probe of the card: a tensor on the CPU, or
     indices that are not 2-D int32, raise before any launch."""
-    monkeypatch.setattr(gather_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     with pytest.raises(ValueError, match="CUDA device"):
         gather_cuda.gather_lanes_indices(torch.zeros(4, 2, dtype=torch.int32), torch.float32)

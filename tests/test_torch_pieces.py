@@ -32,7 +32,8 @@ import torch
 from ultra_tpu.ops.rspmm import generalized_rspmm as jax_generalized_rspmm
 from ultra_tpu_torch import graph as graph_module
 from ultra_tpu_torch.graph import make_graph
-from ultra_tpu_torch.ops import rspmm_cuda, rspmm_minmax_cuda
+from ultra_tpu_torch.ops import build, rspmm_cuda, rspmm_minmax_cuda
+from ultra_tpu_torch.ops.pieces import csr_rows
 from ultra_tpu_torch.ops.rspmm_cuda import (
     rspmm_dw_plain, rspmm_sum_drel_plain, rspmm_sum_fwd_plain,
 )
@@ -289,7 +290,7 @@ def test_a_piece_table_of_the_wrong_length_is_refused(monkeypatch, small_pieces,
     """A piece table of the wrong length never reaches a launch: the CSR
     refuses it when it is made, which is why the wrappers need not check it
     again at each launch."""
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     ei, et, ew, *_ = power_law_inputs()
     csr = port_graph(ei, et, ew).csr.to("meta")
     x, w = torch.empty(V, F, device="meta"), torch.empty(len(ew), device="meta")
@@ -305,7 +306,7 @@ def test_a_segment_table_of_the_wrong_length_is_refused(monkeypatch, small_segme
     """As a CSR's, the type segments' piece table and edge arrays are checked
     when the segments are made, so B2's wrapper, which checks only ``src``
     at each launch, never launches on a table of the wrong length."""
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     ei, et, ew, *_ = segment_inputs(seed=6)
     seg = port_graph(ei, et, ew).segments.to("meta")
     x = torch.empty(V, F, device="meta")
@@ -380,7 +381,7 @@ def test_minmax_dx_two_passes_equal_the_plain_version(small_pieces, is_min, mul)
     csr = graph.csr
     w_e = w[csr.eid.long()].unsqueeze(1)
     r, s = rel_t[csr.etype.long()], x_t[csr.col.long()]
-    rows = rspmm_cuda._csr_rows(csr)
+    rows = csr_rows(csr)
     route = (w_e != 0) & (((r * s if mul == "mul" else r + s) * w_e) == out[rows])
     assert (torch.zeros(V, F).index_add_(0, rows, route.float()) >= 2).any()
 
@@ -602,7 +603,7 @@ def test_a_segment_table_of_the_wrong_length_never_reaches_b5(monkeypatch,
     """B5's wrapper, which checks only ``src`` of the segments at each
     launch, never launches on a table or an edge array of the wrong length:
     the segments refuse it when they are made."""
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     ei, et, ew, *_ = segment_inputs(seed=6)
     seg = port_graph(ei, et, ew).segments.to("meta")
     x, rel = torch.empty(V, F, device="meta"), torch.empty(2 * R, F, device="meta")
@@ -691,7 +692,7 @@ def test_dw_walk_equals_the_plain_version(small_pieces, agg, mul):
     hub_edges = csr.eid[csr.rowptr[hub]:csr.rowptr[hub + 1]].long()
     assert (got[hub_edges] != 0).any() if agg == "sum" else (got[hub_edges] == 0).all()
     if agg != "sum":  # the inputs tie: some output is the message of two or more live edges
-        rows = rspmm_cuda._csr_rows(csr)
+        rows = csr_rows(csr)
         w_e = w[csr.eid.long()].unsqueeze(1)
         r, s = rel[csr.etype.long()], x[csr.col.long()]
         route = (w_e != 0) & (((r * s if mul == "mul" else r + s) * w_e) == out[rows])

@@ -23,7 +23,7 @@ from ultra_tpu_torch import tasks
 from ultra_tpu_torch.data.synthetic import random_kg_triples, with_inverses
 from ultra_tpu_torch.graph import make_graph
 from ultra_tpu_torch.models import nbfnet
-from ultra_tpu_torch.ops import rspmm_cuda
+from ultra_tpu_torch.ops import build, pieces, rspmm_cuda
 from ultra_tpu_torch.tasks import build_relation_graph_arrays
 
 # a budget no x of these tests exceeds: the whole-row geometry
@@ -63,17 +63,17 @@ def test_slabs_equal_the_whole_row_walk(card, instance, mul):
     rel = torch.randn(graph.num_relations, feat, generator=gen).to(card, rel_type)
     x = torch.randn(graph.num_nodes, feat, generator=gen).to(card, x_type)
     w = torch.rand(graph.edge_weight.shape, generator=gen).to(card) * graph.edge_weight
-    name = rspmm_cuda._entry("rspmm_sum_fwd", instance)
-    code = rspmm_cuda._MUL_CODE[mul]
-    whole = rspmm_cuda._launch_sum(name, "rspmm_sum_fwd", csr, w, rel, x, code, budget=WHOLE)
+    name = build.entry_point("rspmm_sum_fwd", instance)
+    code = pieces.MUL_CODE[mul]
+    whole = rspmm_cuda.launch_sum(name, "rspmm_sum_fwd", csr, w, rel, x, code, budget=WHOLE)
     # a budget of 0 bytes: the rule slabs, in tiles of a warp
-    slabbed = rspmm_cuda._launch_sum(name, "rspmm_sum_fwd", csr, w, rel, x, code, budget=0)
+    slabbed = rspmm_cuda.launch_sum(name, "rspmm_sum_fwd", csr, w, rel, x, code, budget=0)
     torch.cuda.synchronize()
     assert torch.equal(slabbed, whole), (instance, mul)
-    tiles = _tiles(feat // rspmm_cuda._FEATURES.get(name, 4))
+    tiles = _tiles(feat // pieces.features(name))
     assert rspmm_cuda.SLAB_TILE in tiles and len(tiles) >= 4
     for tile in tiles:  # every tile the walk supports at this width
-        got = rspmm_cuda._launch_pieces(name, "rspmm_sum_fwd", csr, w, rel, x, code, tile)
+        got = pieces.launch_pieces(name, "rspmm_sum_fwd", csr, w, rel, x, code, tile)
         torch.cuda.synchronize()
         assert torch.equal(got, whole), (instance, mul, tile)
 
@@ -85,8 +85,8 @@ def test_a_tile_the_walk_does_not_support_is_refused(card):
     x = torch.randn(graph.num_nodes, 256, device=card)
     for tile in (4, 24, 48, 128):  # 128 is wider than the row's 64 units
         with pytest.raises(RuntimeError, match="CUDA error"):
-            rspmm_cuda._launch_pieces("rspmm_sum_fwd", "rspmm_sum_fwd", graph.csr,
-                                      graph.edge_weight, rel, x, 0, tile)
+            pieces.launch_pieces("rspmm_sum_fwd", "rspmm_sum_fwd", graph.csr,
+                                 graph.edge_weight, rel, x, 0, tile)
 
 
 @pytest.mark.card
@@ -108,13 +108,13 @@ def test_collect_rankings_same_ranks_with_slabs(card, monkeypatch):
                               device=card).eval()
     trips = trip[:16]
     tiles = []
-    launch = rspmm_cuda._launch_pieces
+    launch = pieces.launch_pieces
 
     def spy(name, op, csr, edge_weight, relation, x, *codes):
         tiles.append((x.shape[1], codes[-1]))
         return launch(name, op, csr, edge_weight, relation, x, *codes)
 
-    monkeypatch.setattr(rspmm_cuda, "_launch_pieces", spy)
+    monkeypatch.setattr(pieces, "launch_pieces", spy)
     slabbed = collect_rankings(model, g, trips, index, batch_size=8)
     assert (1024, 32) in tiles  # the entity passes walk 128-feature slabs
     monkeypatch.setattr(rspmm_cuda, "slab_budget", lambda l2_bytes: WHOLE)

@@ -186,9 +186,7 @@ def _meta_calls(graph, feat, offset=0):
 
 
 def _no_launches():
-    return all(not f.launches for f in (rspmm_sum_fwd, rspmm_sum_dx, rspmm_sum_drel,
-                                         rspmm_minmax_fwd, rspmm_minmax_dx, rspmm_minmax_drel,
-                                         rspmm_dw))
+    return not any(build.launch_counters().values())
 
 
 def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
@@ -199,7 +197,7 @@ def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
     monkeypatch.setattr(build, "_BUILD", tmp_path)
     monkeypatch.setattr(build, "_LIBS", {})
-    monkeypatch.setattr(rspmm_cuda, "_KERNELS", {})
+    monkeypatch.setattr(build, "_BOUND", {})
     ei, et, ew, *_ = make_inputs()
     for call in _meta_calls(port_graph(ei, et, ew), B * D):
         with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -211,7 +209,7 @@ def test_device_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
 def test_device_tensor_off_the_float4_layout_is_refused(monkeypatch, feat, offset):
     """The kernel loads float4 only: a width that is not a multiple of 4, or
     a row start that is not 16-byte aligned, raises before any launch."""
-    monkeypatch.setattr(rspmm_cuda, "_kernel", lambda name: lambda *_: pytest.fail("launched"))
+    monkeypatch.setattr(build, "bind", lambda name: lambda *_: pytest.fail("launched"))
     ei, et, ew, *_ = make_inputs()
     for call in _meta_calls(port_graph(ei, et, ew), feat, offset):
         with pytest.raises(ValueError, match="F % 4|16-byte"):
@@ -265,6 +263,90 @@ def test_bf16_operands_and_gradients_are_refused():
         assert d_w.dtype == torch.float32 and d_w.shape == (E_PAD,) and d_w.abs().sum() > 0
         with torch.no_grad():  # no gradient asked for: the weights may require one
             rspmm_from_graph(weighted, torch.from_numpy(rel), torch.from_numpy(x), sum=sum_op)
+
+
+# each kernel of csrc/ with the instances it is built with ("" is the f32
+# one) and the module under ops/ that launches it
+DECLARED = {
+    "rspmm_sum_fwd": (("", "bf16_bf16", "bf16_f32"), "rspmm_cuda"),
+    "rspmm_sum_drel": (("", "bf16"), "rspmm_cuda"),
+    "rspmm_dw": (("", "bf16_bf16"), "rspmm_cuda"),
+    "rspmm_minmax_fwd": (("", "bf16_bf16"), "rspmm_minmax_cuda"),
+    "rspmm_minmax_dx": (("", "bf16_bf16"), "rspmm_minmax_cuda"),
+    "rspmm_minmax_drel": (("", "bf16_bf16"), "rspmm_minmax_cuda"),
+    "gather_rows": (("",), "gather_cuda"),
+    "gather_lanes": (("",), "gather_cuda"),
+    "gather_lanes_indices": (("",), "gather_cuda"),
+    "gather_empty": (("",), "gather_cuda"),
+    "conv_epilogue": (("",), "epilogue_cuda"),
+}
+
+
+def _ops_modules():
+    """Every module of ``ultra_tpu_torch.ops``, imported: {name: module}."""
+    import importlib
+    import pkgutil
+
+    from ultra_tpu_torch import ops
+
+    return {m.name: importlib.import_module(f"ultra_tpu_torch.ops.{m.name}")
+            for m in pkgutil.iter_modules(ops.__path__)}
+
+
+def test_every_counted_wrapper_is_in_the_launch_registry():
+    """Every function of ``ultra_tpu_torch.ops`` that has a launch counter is
+    registered under its name with that counter, and clearing the registry
+    empties every counter."""
+    found = {name: fn for module in _ops_modules().values()
+             for name, fn in vars(module).items()
+             if callable(fn) and hasattr(fn, "launches")}
+    counters = build.launch_counters()
+    assert set(found) == set(counters) == {
+        "rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_dw", "rspmm_minmax_fwd",
+        "rspmm_minmax_dx", "rspmm_minmax_drel", "gather_rows", "gather_lanes", "conv_epilogue"}
+    assert all(found[name].launches is counter for name, counter in counters.items())
+    for counter in counters.values():
+        counter[("a launch",)] += 1
+    build.clear_launch_counters()
+    assert _no_launches()
+    with pytest.raises(ValueError, match="twice"):
+        build.counted(rspmm_sum_fwd)
+
+
+def test_every_entry_point_is_declared_once_by_the_module_that_launches_it():
+    """Each kernel's instances (its entry points) have a declared signature,
+    and exactly one module under ``ops/`` declares it: the one whose
+    wrappers launch it. A second declaration is refused."""
+    import ast
+    import inspect
+
+    assert build.ENTRY_POINTS == {build.entry_point(kernel, instance): (kernel, instance)
+                                  for kernel, (instances, _) in DECLARED.items()
+                                  for instance in instances}
+    declarers = {}
+    for name, module in _ops_modules().items():
+        for node in ast.walk(ast.parse(inspect.getsource(module))):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "declare"):
+                declarers.setdefault(node.args[0].value, []).append(name)
+    assert declarers == {kernel: [module] for kernel, (_, module) in DECLARED.items()}
+    with pytest.raises(ValueError, match="twice"):
+        build.declare("rspmm_sum_fwd", [])
+    with pytest.raises(KeyError, match="rspmm_sum_fwd_f16"):
+        build.bind("rspmm_sum_fwd_f16")
+
+
+def test_registry_rspmm_counters_are_the_benchmarks():
+    """The benchmark's reader of the rspmm counters
+    (``benchmark/harness/program.py::launch_counters``) finds exactly the
+    registry's ``rspmm_*`` counters: a wrapper moved or renamed fails here,
+    before a chip run."""
+    from benchmark.harness import program
+
+    counters = build.launch_counters()
+    read = program.launch_counters()
+    assert set(read) == {name for name in counters if name.startswith("rspmm_")}
+    assert all(read[name] is counters[name] for name in read)
 
 
 def test_transposed_csr_and_type_segments_hold_live_edge_multiset():

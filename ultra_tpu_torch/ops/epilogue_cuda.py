@@ -1,5 +1,5 @@
-"""The conv epilogue for Hopper, its ctypes binding and launch counter, and
-its plain PyTorch twin.
+"""The conv epilogue for Hopper, its C signature and launch counter
+(``ops/build.py``), and its plain PyTorch twin.
 
 E1, ``csrc/conv_epilogue.cu`` (:func:`conv_epilogue`): the end of a conv
 layer at inference, ``act(layer_norm(y)) + residual`` over the rows of the
@@ -20,12 +20,16 @@ count it.
 
 from __future__ import annotations
 
-import collections
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from ultra_tpu_torch.ops.rspmm_cuda import _kernel
+from ultra_tpu_torch.ops import build
+
+# the C parameters before the stream: y, gamma, beta, residual, out, rows, N, eps, relu
+build.declare("conv_epilogue", [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int])
 
 # the row widths N the kernel is built for (csrc/conv_epilogue.cu): the
 # models' 64, and 128 (config/transductive/pretrain_synth_128.yaml)
@@ -48,10 +52,7 @@ def _check(y, gamma, beta, residual):
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"conv_epilogue: {name} is {t.dtype}, want torch.float32")
-        if t.device != y.device:
-            raise ValueError(f"conv_epilogue: {name} is on {t.device}, y on {y.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"conv_epilogue: {name} must be contiguous")
+    build.check_device("conv_epilogue", y.device, tensors, cuda=False)
     n = y.shape[-1] if y.dim() else 0
     if n % 4 or n == 0:
         raise ValueError(f"conv_epilogue: rows of {n} elements; the kernel reads 4 at a "
@@ -64,6 +65,7 @@ def _check(y, gamma, beta, residual):
                          f"{tuple(y.shape)}")
 
 
+@build.counted
 def conv_epilogue(y, gamma, beta, eps: float, relu: bool, residual=None):
     """``act(layer_norm(y)) + residual`` over the last dimension of ``y``
     (..., N): nn.LayerNorm's normalisation with ``gamma``, ``beta`` (N,) and
@@ -83,19 +85,12 @@ def conv_epilogue(y, gamma, beta, eps: float, relu: bool, residual=None):
     if any(t.data_ptr() % 16 for t in (y, gamma, beta, residual) if t is not None):
         raise ValueError("conv_epilogue: the kernel moves 16-byte vectors; an operand that "
                          "does not start 16-byte aligned is refused")
-    kernel = _kernel("conv_epilogue")
+    kernel = build.bind("conv_epilogue")
     rows = y.numel() // n
     if rows == 0:
         return y
-    with torch.cuda.device(y.device):
-        status = kernel(y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                        None if residual is None else residual.data_ptr(), y.data_ptr(),
-                        rows, n, eps, int(relu),
-                        torch.cuda.current_stream(y.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"conv_epilogue launch failed with CUDA error {status}")
+    build.launch(kernel, "conv_epilogue", y.device, y.data_ptr(), gamma.data_ptr(),
+                 beta.data_ptr(), None if residual is None else residual.data_ptr(),
+                 y.data_ptr(), rows, n, eps, int(relu))
     conv_epilogue.launches[(rows, n)] += 1
     return y
-
-
-conv_epilogue.launches = collections.Counter()  # launches by (rows, N)

@@ -1,5 +1,5 @@
-"""The gather kernels for Hopper, their launch counters, and their plain
-PyTorch versions.
+"""The gather kernels for Hopper, their C signatures and launch counters
+(``ops/build.py``), and their plain PyTorch versions.
 
 - G1, :func:`gather_rows` (``csrc/gather.cu``): ``out[i] = x[idx[i]]``,
   the row gather that the TPU probes under ``scripts/`` built in Pallas
@@ -24,11 +24,20 @@ model path calls them. G2's grid is computed here (:func:`lane_launch`).
 
 from __future__ import annotations
 
-import collections
+import ctypes
 
 import torch
 
-from ultra_tpu_torch.ops.rspmm_cuda import _kernel
+from ultra_tpu_torch.ops import build
+
+_P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C parameters of csrc/gather.cu's entry points before the stream
+build.declare("gather_rows", [_P] * 3 + [_LL, _LL], source="gather")
+build.declare("gather_lanes", [_P] * 3 + [_LL, _LL, _LL, _INT, _INT, _LL, _INT, _INT],
+              source="gather")
+build.declare("gather_lanes_indices", [_P] * 2 + [_LL, _LL, _INT, _INT, _LL, _INT, _INT],
+              source="gather")
+build.declare("gather_empty", [_LL, _INT, _INT], source="gather")
 
 
 def _check_index(op: str, x, idx, dims: int):
@@ -37,15 +46,7 @@ def _check_index(op: str, x, idx, dims: int):
                         f"and idx {idx.dtype} {tuple(idx.shape)}")
 
 
-def _check_cuda(op: str, device, **tensors):
-    for name, t in tensors.items():
-        if t.device != device or not t.is_cuda:
-            raise ValueError(f"{op}: {name} is on {t.device}, want the CUDA device {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{op}: {name} must be contiguous")
-
-
-def _key(out):
+def launch_key(out):
     """A launch counter's key: the output's rows, columns and element type,
     as in ``(616448, 512, "bfloat16")``."""
     return (*out.shape, str(out.dtype).removeprefix("torch."))
@@ -56,6 +57,7 @@ def gather_rows_plain(x, idx):
     return x.index_select(0, idx)
 
 
+@build.counted
 def gather_rows(x, idx):
     """(N, F) rows ``x[idx]`` of ``x`` (V, F), ``idx`` (N,) int32 in [0, V).
     On a CPU tensor this runs :func:`gather_rows_plain`; on a CUDA tensor it
@@ -65,25 +67,19 @@ def gather_rows(x, idx):
     _check_index("gather_rows", x, idx, 1)
     if x.device.type == "cpu":
         return gather_rows_plain(x, idx)
-    kernel = _kernel("gather_rows")
+    kernel = build.bind("gather_rows")
     row_bytes = x.shape[1] * x.element_size()
     if row_bytes % 16 or x.data_ptr() % 16:
         raise ValueError(f"gather_rows: the kernel copies 16-byte vectors; a row of "
                          f"{row_bytes} bytes or an unaligned x is refused")
-    _check_cuda("gather_rows", x.device, x=x, idx=idx)
+    build.check_device("gather_rows", x.device, {"x": x, "idx": idx})
     out = torch.empty(idx.shape[0], x.shape[1], dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        status = kernel(x.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], row_bytes,
-                        torch.cuda.current_stream(x.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"gather_rows launch failed with CUDA error {status}")
-    gather_rows.launches[_key(out)] += 1
+    build.launch(kernel, "gather_rows", x.device, x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 idx.shape[0], row_bytes)
+    gather_rows.launches[launch_key(out)] += 1
     return out
-
-
-gather_rows.launches = collections.Counter()  # launches by _key of the output
 
 
 # G2: the threads of a block, and the lanes of a row each thread takes (of
@@ -112,6 +108,7 @@ def gather_lanes_plain(x, idx):
     return torch.gather(x, 1, idx.long())
 
 
+@build.counted
 def gather_lanes(x, idx, lanes: int = LANES_PER_THREAD):
     """(M, K) ``out[i, j] = x[i, idx[i, j]]`` of ``x`` (M, W) with 2- or
     4-byte elements, ``idx`` (M, K) int32 in [0, W). On a CPU tensor this
@@ -123,24 +120,18 @@ def gather_lanes(x, idx, lanes: int = LANES_PER_THREAD):
         raise ValueError(f"gather_lanes: idx has {idx.shape[0]} rows, x {x.shape[0]}")
     if x.device.type == "cpu":
         return gather_lanes_plain(x, idx)
-    kernel = _kernel("gather_lanes")
+    kernel = build.bind("gather_lanes")
     if x.element_size() not in (2, 4):
         raise TypeError(f"gather_lanes: the kernel copies 2- or 4-byte elements, got {x.dtype}")
-    _check_cuda("gather_lanes", x.device, x=x, idx=idx)
+    build.check_device("gather_lanes", x.device, {"x": x, "idx": idx})
     out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        status = kernel(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-                        idx.shape[1], x.element_size(), lanes, *lane_launch(*idx.shape, lanes),
-                        torch.cuda.current_stream(x.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"gather_lanes launch failed with CUDA error {status}")
-    gather_lanes.launches[_key(out)] += 1
+    build.launch(kernel, "gather_lanes", x.device, x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 x.shape[0], x.shape[1], idx.shape[1], x.element_size(), lanes,
+                 *lane_launch(*idx.shape, lanes))
+    gather_lanes.launches[launch_key(out)] += 1
     return out
-
-
-gather_lanes.launches = collections.Counter()
 
 
 def gather_lanes_indices(idx, dtype, lanes: int = LANES_PER_THREAD):
@@ -149,18 +140,14 @@ def gather_lanes_indices(idx, dtype, lanes: int = LANES_PER_THREAD):
     tensor instead of the element it points at: G2 without its second,
     dependent load, whose time says what that load costs. Counts no
     launch: it is a probe, not G2."""
-    _check_cuda("gather_lanes_indices", idx.device, idx=idx)
+    build.check_device("gather_lanes_indices", idx.device, {"idx": idx})
     if idx.dtype != torch.int32 or idx.dim() != 2:
         raise TypeError(f"gather_lanes_indices: want idx 2-D int32, got {idx.dtype} "
                         f"{tuple(idx.shape)}")
     out = torch.empty(idx.shape, dtype=dtype, device=idx.device)
-    kernel = _kernel("gather_lanes_indices")
-    with torch.cuda.device(idx.device):
-        status = kernel(idx.data_ptr(), out.data_ptr(), idx.shape[0], idx.shape[1],
-                        out.element_size(), lanes, *lane_launch(*idx.shape, lanes),
-                        torch.cuda.current_stream(idx.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"gather_lanes_indices launch failed with CUDA error {status}")
+    build.launch(build.bind("gather_lanes_indices"), "gather_lanes_indices", idx.device,
+                 idx.data_ptr(), out.data_ptr(), idx.shape[0], idx.shape[1], out.element_size(),
+                 lanes, *lane_launch(*idx.shape, lanes))
     return out
 
 
@@ -169,11 +156,7 @@ def launch_empty(device, grid: int, block_x: int, block_y: int = 1):
     ``block_y`` threads on ``device``'s current stream (through ``ctypes``,
     as the gathers launch); returns nothing. Its device time is the floor
     under any launch on that grid."""
-    kernel = _kernel("gather_empty")
-    with torch.cuda.device(device):
-        status = kernel(grid, block_x, block_y, torch.cuda.current_stream(device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"gather_empty launch failed with CUDA error {status}")
+    build.launch(build.bind("gather_empty"), "gather_empty", device, grid, block_x, block_y)
 
 
 def gather_lanes_floor(x, idx, lanes: int = LANES_PER_THREAD):
@@ -182,5 +165,5 @@ def gather_lanes_floor(x, idx, lanes: int = LANES_PER_THREAD):
     returns nothing. Its device time is the floor under G2's. Counts no
     launch: it computes nothing."""
     _check_index("gather_lanes_floor", x, idx, 2)
-    _check_cuda("gather_lanes_floor", x.device, x=x, idx=idx)
+    build.check_device("gather_lanes_floor", x.device, {"x": x, "idx": idx})
     launch_empty(x.device, *lane_launch(*idx.shape, lanes))

@@ -1,11 +1,11 @@
-"""The min/max-aggregation rspmm kernels for Hopper, their ctypes bindings
-and launch counters, and their plain PyTorch versions.
+"""The min/max-aggregation rspmm kernels for Hopper, their C signatures and
+launch counters (``ops/build.py``), and their plain PyTorch versions.
 
 - B3, ``csrc/rspmm_minmax_fwd.cu``: the forward over a destination-major
   CSR (:func:`rspmm_minmax_fwd`). It replaces
   ``ultra_tpu/ops/rspmm_pallas.py::_minmax_kernel`` and
   ``rspmm_pallas_v2.py::_minmax_kernel_v2``. It walks the CSR's piece table
-  as B1 does (``ops/rspmm_cuda.py``), and takes the extreme of a long row's
+  as B1 does (``ops/pieces.py``), and takes the extreme of a long row's
   partial rows in a second pass: exact, so the output does not depend on
   how the rows were cut.
 - B4, ``csrc/rspmm_minmax_dx.cu``: the input gradient over the source-major
@@ -37,22 +37,27 @@ F)`` (and a bf16 instance's types) since the last ``clear()``.
 
 from __future__ import annotations
 
-import collections
+import ctypes
 
 import torch
 
 from ultra_tpu_torch.graph import CSR, TypeSegments
-from ultra_tpu_torch.ops.rspmm_cuda import (
-    _MUL_CODE, _check_dtypes, _compute_type, _count, _csr_rows, _entry, _instance,
-    _launch_pieces, _launch_walk,
-)
+from ultra_tpu_torch.ops import build, pieces
+
+_P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C parameters before the stream, as each source's PIECES_ENTRIES lists them
+build.declare("rspmm_minmax_fwd", [_P] * 14 + [_LL, _LL, _LL, _INT, _INT],
+              instances=("", "bf16_bf16"))
+build.declare("rspmm_minmax_dx", [_P] * 16 + [_LL, _LL, _LL, _INT], instances=("", "bf16_bf16"))
+build.declare("rspmm_minmax_drel", [_P] * 16 + [_LL, _LL, _LL, _INT],
+              instances=("", "bf16_bf16"))
 
 
 def _message(rel_e, x_e, w_e, mul):
     """``(rel op x) * w`` per edge, each operation rounded in
-    :func:`_compute_type` of the three (f32 for f32 and bf16 rows): the
+    :func:`pieces.compute_type` of the three (f32 for f32 and bf16 rows): the
     value the kernels compute and route against."""
-    dtype = _compute_type(rel_e, x_e, w_e)
+    dtype = pieces.compute_type(rel_e, x_e, w_e)
     rel_e, x_e = rel_e.to(dtype), x_e.to(dtype)
     m = rel_e * x_e if mul == "mul" else rel_e + x_e
     return m * w_e.to(dtype).unsqueeze(1)
@@ -66,7 +71,7 @@ def rspmm_minmax_fwd_plain(csr: CSR, edge_weight, relation, x, mul: str = "mul",
     row with no live edge is -inf (max) or +inf (min). Forward values only:
     scatter_reduce_'s own gradient shares a tie between the tying edges,
     where the rspmm gives each of them the whole gradient."""
-    rows = _csr_rows(csr)
+    rows = pieces.csr_rows(csr)
     w_e = edge_weight.index_select(0, csr.eid)
     live = w_e != 0
     rows, w_e = rows[live], w_e[live]
@@ -79,6 +84,7 @@ def rspmm_minmax_fwd_plain(csr: CSR, edge_weight, relation, x, mul: str = "mul",
                                "amin" if is_min else "amax", include_self=True)
 
 
+@build.counted
 def rspmm_minmax_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul",
                      is_min: bool = False):
     """Min/max rspmm forward over a destination-major CSR; (V, F) f32 out.
@@ -89,26 +95,23 @@ def rspmm_minmax_fwd(csr: CSR, edge_weight, relation, x, mul: str = "mul",
     tensor this runs :func:`rspmm_minmax_fwd_plain`; on
     a CUDA tensor it launches B3's instance for the two types, building it
     first if needed, and raises if it cannot."""
-    _check_dtypes(edge_weight, relation, x, mul, op="rspmm_minmax_fwd")
-    instance = _instance("rspmm_minmax_fwd", "rspmm_minmax_fwd", relation, x)
+    pieces.check_dtypes(edge_weight, relation, x, mul, op="rspmm_minmax_fwd")
+    entry = pieces.entry("rspmm_minmax_fwd", "rspmm_minmax_fwd", relation, x)
     if x.device.type == "cpu":
         return rspmm_minmax_fwd_plain(csr, edge_weight, relation, x, mul, is_min)
-    out = _launch_pieces(_entry("rspmm_minmax_fwd", instance), "rspmm_minmax_fwd", csr,
-                         edge_weight, relation, x, _MUL_CODE[mul], int(bool(is_min)))
-    _count(rspmm_minmax_fwd, out.shape, instance)
+    out = pieces.launch_pieces(entry, "rspmm_minmax_fwd", csr, edge_weight, relation, x,
+                               pieces.MUL_CODE[mul], int(bool(is_min)))
+    rspmm_minmax_fwd.launches[pieces.launch_key(out.shape, entry)] += 1
     return out
 
 
-rspmm_minmax_fwd.launches = collections.Counter()  # launches by output shape
-
-
 def _check_backward(op, edge_weight, relation, x, g, out, mul):
-    """The operands' types and shapes; returns the instance to launch."""
-    _check_dtypes(edge_weight, relation, x, mul, op=op, g=g, out=out)
+    """The operands' types and shapes; returns the entry point to launch."""
+    pieces.check_dtypes(edge_weight, relation, x, mul, op=op, g=g, out=out)
     if g.shape != out.shape or g.dim() != 2 or g.shape[1] != x.shape[1]:
         raise ValueError(f"{op}: want g and out (V, F) with F={x.shape[1]}, got "
                          f"{tuple(g.shape)} and {tuple(out.shape)}")
-    return _instance(op, op, relation, x)
+    return pieces.entry(op, op, relation, x)
 
 
 def rspmm_minmax_dx_terms(csr_src: CSR, edge_weight, relation, x, g, out, mul: str = "mul"):
@@ -118,7 +121,7 @@ def rspmm_minmax_dx_terms(csr_src: CSR, edge_weight, relation, x, g, out, mul: s
     :func:`_message` computes it) and 0 elsewhere, in ``g``'s type; d_x is
     their sum by ``src``. An f64 ``g`` gives a reference that routes as the
     forward did."""
-    src = _csr_rows(csr_src)
+    src = pieces.csr_rows(csr_src)
     w_e = edge_weight.index_select(0, csr_src.eid)
     live = w_e != 0
     src, w_e = src[live], w_e[live]
@@ -140,6 +143,7 @@ def rspmm_minmax_dx_plain(csr_src: CSR, edge_weight, relation, x, g, out, mul: s
     return d_x.index_add_(0, src, terms)
 
 
+@build.counted
 def rspmm_minmax_dx(csr_src: CSR, edge_weight, relation, x, g, out, mul: str = "mul"):
     """Input gradient of the min/max rspmm: (N, F) f32 from the forward's
     inputs (``relation`` (R, F) and ``x`` (N, F), f32 or bf16 each), its
@@ -151,19 +155,15 @@ def rspmm_minmax_dx(csr_src: CSR, edge_weight, relation, x, g, out, mul: str = "
     launches B4's instance for the two row types over ``csr_src``'s piece
     table (both of its passes, one count), building it first if needed, and
     raises if it cannot."""
-    instance = _check_backward("rspmm_minmax_dx", edge_weight, relation, x, g, out, mul)
+    entry = _check_backward("rspmm_minmax_dx", edge_weight, relation, x, g, out, mul)
     if g.device.type == "cpu":
         return rspmm_minmax_dx_plain(csr_src, edge_weight, relation, x, g, out, mul)
-    d_x = _launch_walk(_entry("rspmm_minmax_dx", instance), "rspmm_minmax_dx", csr_src,
-                       csr_src.rowptr.numel() - 1,
-                       {"col": csr_src.col, "etype": csr_src.etype, "eid": csr_src.eid},
-                       edge_weight, {"relation": relation, "x": x, "g": g, "out": out},
-                       _MUL_CODE[mul], out_name="d_x")
-    _count(rspmm_minmax_dx, d_x.shape, instance)
+    d_x = pieces.launch_walk(entry, "rspmm_minmax_dx", csr_src, csr_src.rowptr.numel() - 1,
+                             {"col": csr_src.col, "etype": csr_src.etype, "eid": csr_src.eid},
+                             edge_weight, {"relation": relation, "x": x, "g": g, "out": out},
+                             pieces.MUL_CODE[mul], out_name="d_x")
+    rspmm_minmax_dx.launches[pieces.launch_key(d_x.shape, entry)] += 1
     return d_x
-
-
-rspmm_minmax_dx.launches = collections.Counter()
 
 
 def rspmm_minmax_drel_terms(seg: TypeSegments, edge_weight, relation, x, g, out,
@@ -195,6 +195,7 @@ def rspmm_minmax_drel_plain(seg: TypeSegments, edge_weight, relation, x, g, out,
     return d_rel.index_add_(0, etype, terms)
 
 
+@build.counted
 def rspmm_minmax_drel(seg: TypeSegments, edge_weight, relation, x, g, out, mul: str = "mul"):
     """Relation gradient of the min/max rspmm: (R, F) f32, R =
     ``seg.num_types`` = the rows of ``relation``, from the forward's inputs,
@@ -206,18 +207,15 @@ def rspmm_minmax_drel(seg: TypeSegments, edge_weight, relation, x, g, out, mul: 
     instance for the two row types over the segments' piece table (both of
     its passes, one count), building it first if needed, and raises if it
     cannot."""
-    instance = _check_backward("rspmm_minmax_drel", edge_weight, relation, x, g, out, mul)
+    entry = _check_backward("rspmm_minmax_drel", edge_weight, relation, x, g, out, mul)
     if relation.shape[0] != seg.num_types:
         raise ValueError(f"rspmm_minmax_drel: relation has {relation.shape[0]} rows, the "
                          f"segments {seg.num_types} types")
     if g.device.type == "cpu":
         return rspmm_minmax_drel_plain(seg, edge_weight, relation, x, g, out, mul)
-    d_rel = _launch_walk(_entry("rspmm_minmax_drel", instance), "rspmm_minmax_drel", seg,
-                         seg.num_types, {"src": seg.src, "dst": seg.dst, "eid": seg.eid},
-                         edge_weight, {"relation": relation, "x": x, "g": g, "out": out},
-                         _MUL_CODE[mul], out_name="d_rel")
-    _count(rspmm_minmax_drel, d_rel.shape, instance)
+    d_rel = pieces.launch_walk(entry, "rspmm_minmax_drel", seg, seg.num_types,
+                               {"src": seg.src, "dst": seg.dst, "eid": seg.eid},
+                               edge_weight, {"relation": relation, "x": x, "g": g, "out": out},
+                               pieces.MUL_CODE[mul], out_name="d_rel")
+    rspmm_minmax_drel.launches[pieces.launch_key(d_rel.shape, entry)] += 1
     return d_rel
-
-
-rspmm_minmax_drel.launches = collections.Counter()

@@ -158,8 +158,8 @@ def gather_probe(graph, seed=0):
     key of its output), ``"equal"`` says whether every output equalled its
     plain version's."""
     from ultra_tpu_torch.ops.gather_cuda import (
-        LANES_PER_THREAD, _key, gather_lanes, gather_lanes_floor, gather_lanes_indices,
-        gather_lanes_plain, gather_rows, gather_rows_plain, launch_empty,
+        LANES_PER_THREAD, gather_lanes, gather_lanes_floor, gather_lanes_indices,
+        gather_lanes_plain, gather_rows, gather_rows_plain, launch_empty, launch_key,
     )
     from ultra_tpu_torch.ops.rspmm_cuda import rspmm_sum_fwd
 
@@ -173,7 +173,7 @@ def gather_probe(graph, seed=0):
         long_idx = idx.long()
         least_ms, bound_by = gather_bound_ms(x, idx)
         rows[name] = {
-            "replaces": replaces, "out_key": list(_key(got)), "equal": equal,
+            "replaces": replaces, "out_key": list(launch_key(got)), "equal": equal,
             "max_abs_err": 0.0 if equal else None,
             "ms": device_ms(lambda: kernel(x, idx)), "plain_ms": device_ms(lambda: plain(x, idx)),
             "library_ms": device_ms(lambda: library(x, dim, long_idx)),
