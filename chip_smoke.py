@@ -47,8 +47,8 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    seed, on the FB15k-237-shaped synthetic graph, through
    ``UltraPredictor.from_checkpoint``: the precompute and a few batches of
    tail and head requests, with the kernels' launch counters read around
-   each phase (E1: 6 launches a pass of either model); its scores are
-   compared with the same predictor on the CPU;
+   each phase (E2, the conv's tail: 6 launches a pass of either model); its
+   scores are compared with the same predictor on the CPU;
 6. fine-tunes the same model on the same graph: batch 8, 256 strict
    negatives, easy-edge masks, AdamW. One step's loss and gradients are
    compared with the same step on the CPU (and, as a control of that check,
@@ -64,9 +64,16 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    sum of squares, max and min per layer: B1 and B3, and in training B4
    and B5), the relation model with sum. Its step's gradients are held to a
    bound on the median over the tensors (see MINMAX_GRAD_MEDIAN), on a
-   batch of PNA_CHECK_BATCH rows;
-8. holds a ``max`` conv and a ``rotate`` conv (its sum runs B1 at twice the
-   width) on the card against the same conv on the CPU;
+   batch of PNA_CHECK_BATCH rows; its serving ends each PNA layer with E1
+   and each relation layer with E2;
+8. holds the conv's tail E2 (the linear of ``[input | update]``, layer
+   norm, ReLU and the short cut in one pass) against its plain twin at the
+   ranking cell's entity pass, the evaluation cell's (14,505 nodes x 32
+   queries), a FB15k-237 batch of 8, the precompute's 474 x 64 rows and the
+   ranking cell's 74 x 64, timed beside the twin and the ops it replaced
+   (``torch.cat``, ``F.linear`` and E1), one launch a call asserted; then a
+   ``max`` conv and a ``rotate`` conv (its sum runs B1 at twice the width)
+   on the card against the same conv on the CPU, each ended by one E2;
 9. runs ``compute_dtype: bfloat16`` (``[bf16]``, see BF16_REL): the bf16
    instances of B1-B6 against their plain versions in f64 on the same bf16
    operands, each timed beside the f32 instance (with the ratio of the two
@@ -190,7 +197,7 @@ TIMED_PRECOMPUTES = 5
 PRECOMPUTE_CHUNK = 64  # train/eval.py precompute_relation_representations
 # the sources in ultra_tpu_torch/csrc
 KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx",
-           "rspmm_minmax_drel", "rspmm_dw", "gather", "conv_epilogue")
+           "rspmm_minmax_drel", "rspmm_dw", "gather", "conv_epilogue", "conv_tail")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv", "bf16",
           "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "distributed",
           "gather-probe", "tooling")
@@ -222,6 +229,17 @@ EPILOGUE_REL_TOL = 2e-6
 # entity pass (YAGO3-10's 123,182 nodes x 16 queries; the benchmark runs
 # it), and the FB15k-237-shaped graph's at a batch of 8 ([serving])
 EPILOGUE_SHAPES = (("ranking", 123_182 * 2 * 8, False), ("fb15k237", 14_541 * 8, True))
+# E2 against its plain twin: max |err| over the output's largest |value|
+# (tests/test_torch_conv_tail.py: the 128 products of a row and the layer
+# norm summed in other orders)
+CONV_TAIL_REL_TOL = 1e-5
+# E2's rows: (tag, rows, on a path of this script): the ranking cell's entity
+# pass, the evaluation cell's (14,505 nodes x 32 queries), the FB15k-237
+# graph's at a batch of 8 ([serving]), the precompute's 474 relations x 64
+# ([serving]) and the ranking cell's 74 x 64
+CONV_TAIL_SHAPES = (("ranking", 123_182 * 16, False), ("eval", 14_505 * 32, False),
+                    ("fb15k237", 14_541 * 8, True), ("precompute", 474 * 64, True),
+                    ("ranking-precompute", 74 * 64, False))
 # A plain version's time is the reference a kernel is read against, not a
 # result: the median of 5 runs of 10 calls, where a kernel's takes 20
 PLAIN_SAMPLES = 5
@@ -1081,6 +1099,61 @@ def epilogue_rows(dim):
     return rows, ok
 
 
+def conv_tail_rows(dim):
+    """E2 (``ops/conv_tail_cuda.py``) at each of CONV_TAIL_SHAPES, ReLU and
+    the short cut, against its plain twin on the card (CONV_TAIL_REL_TOL),
+    each check one launch (asserted); times the kernel, the twin and, as
+    ``library_ms``, the ops the conv ran before it: ``torch.cat``,
+    ``F.linear`` and E1. Its bound: x and u read and the output written
+    once, 12 bytes an element, against 2 * 128 * 64 f32 operations a row.
+    Returns (rows of the kernels line, ok)."""
+    import torch.nn.functional as F
+
+    from ultra_tpu_torch.ops.conv_tail_cuda import conv_tail, conv_tail_plain
+    from ultra_tpu_torch.ops.epilogue_cuda import conv_epilogue
+    from ultra_tpu_torch.utils.benchlib import device_ms
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    rows, ok = {}, True
+    for tag, m, on_path in CONV_TAIL_SHAPES:
+        x = torch.randn(m, dim, generator=gen, device="cuda")
+        u = 4 * torch.randn(m, dim, generator=gen, device="cuda") + 0.5
+        w = (torch.rand(dim, 2 * dim, generator=gen, device="cuda") - 0.5) / 4
+        b = torch.randn(dim, generator=gen, device="cuda") / 4
+        gamma = torch.rand(dim, generator=gen, device="cuda") + 0.5
+        beta = torch.randn(dim, generator=gen, device="cuda")
+        args = (x, u, w, b, gamma, beta, 1e-5, True, x)
+        want = conv_tail_plain(*args)
+        before = collections.Counter(conv_tail.launches)
+        got = conv_tail(*args)
+        launched = conv_tail.launches - before
+        torch.cuda.synchronize()
+        err = largest_difference(got, want)
+        scale = float(want.abs().max())
+        case_ok = (bool(torch.isfinite(got).all()) and err <= CONV_TAIL_REL_TOL * scale
+                   and launched == {(m, dim): 1})
+        ok &= case_ok
+        print(f"[kernel] conv_tail/{tag} ({m}, {dim}): ok={case_ok} launches={dict(launched)} "
+              f"max_abs_err={err!r} over the largest |output| {err / scale!r}", flush=True)
+        del got, want
+        name = f"conv_tail/{tag}/M{m}"
+        rows[name] = kernel_row(
+            name, "ultra_tpu_torch/csrc/conv_tail.cu",
+            "none: XLA's concatenation, linear, layer norm, ReLU and add "
+            "(ultra_tpu/models/layers.py)", (m, dim), device_ms(lambda: conv_tail(*args)),
+            device_ms(lambda: conv_tail_plain(*args), samples=PLAIN_SAMPLES),
+            bound_ms(12 * m * dim, 2 * 2 * dim * dim * m), err,
+            f"|err| <= {CONV_TAIL_REL_TOL} * max |output| against the plain twin on the card",
+            on_path=on_path,
+            library_ms=device_ms(lambda: conv_epilogue(
+                F.linear(torch.cat([x, u], dim=-1), w, b), gamma, beta, 1e-5, True, x),
+                samples=PLAIN_SAMPLES),
+            library_call="torch.cat + F.linear + E1 (conv_epilogue)")
+        del x, u, args
+        torch.cuda.empty_cache()
+    return rows, ok
+
+
 def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform,
                   training_graphs=()):
     """Every kernel wrapper against its plain version at each shape the
@@ -1270,14 +1343,27 @@ def serve(split, ckpt, device):
                                           batch_size=BATCH)
 
 
+# the kernels that end a conv layer, whose launches are read apart
+# (:func:`layer_ends`)
+LAYER_ENDS = ("conv_epilogue", "conv_tail")
+
+
 def launch_counts():
     """{wrapper: {output shape (rows, F), for B2 (V, R, F), for the gathers
-    with the element type: launches}} since the last reset; E1's are read
-    apart (:func:`sum_serving`)."""
+    with the element type: launches}} since the last reset; E1's and E2's
+    are read apart (:func:`layer_ends`)."""
     from ultra_tpu_torch.ops import build
 
     return {name: dict(counter) for name, counter in build.launch_counters().items()
-            if name != "conv_epilogue"}
+            if name not in LAYER_ENDS}
+
+
+def layer_ends():
+    """{E1's and E2's wrapper: {(rows, N): launches}} since the last reset."""
+    from ultra_tpu_torch.ops import build
+
+    counters = build.launch_counters()
+    return {name: dict(counters[name]) for name in LAYER_ENDS}
 
 
 def no_launches():
@@ -1309,7 +1395,8 @@ def plus(a, b):
     out = {name: dict(by_shape) for name, by_shape in a.items()}
     for name, by_shape in b.items():
         for shape, c in by_shape.items():
-            out[name][shape] = out[name].get(shape, 0) + c
+            row = out.setdefault(name, {})
+            row[shape] = row.get(shape, 0) + c
     return out
 
 
@@ -1614,8 +1701,10 @@ def pna_serving(split, cfg):
     .pth layout) through ``UltraPredictor.from_checkpoint``: the precompute,
     3 batches of tail and 1 of head requests, then TIMED_BATCHES warm
     batches timed; launches asserted per phase, scores of one batch held
-    against the same predictor on the CPU. Returns (the ``[pna-serving]``
-    record, the launches of the precompute and the 4 batches)."""
+    against the same predictor on the CPU. E2 ends each layer of the
+    relation model's precompute, E1 each PNA layer of a batch (its linear
+    takes 13 x 64). Returns (the ``[pna-serving]`` record, the launches of
+    the precompute and the 4 batches, E1's and E2's among them)."""
     from ultra_tpu_torch.serve import UltraPredictor
     from ultra_tpu_torch.train.loop import init_ultra_params
 
@@ -1636,7 +1725,7 @@ def pna_serving(split, cfg):
                                           batch_size=BATCH)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    precompute_counts = launch_counts()
+    precompute_counts, precompute_ends = launch_counts(), layer_ends()
 
     rng = np.random.default_rng(2)
     h = rng.integers(0, num_nodes, TAIL_BATCHES * BATCH)
@@ -1645,7 +1734,7 @@ def pna_serving(split, cfg):
     reset_launch_counts()
     tail_s, _ = pred.predict_tails(h, r, k=TOPK)
     head_s, _ = pred.predict_heads(t, r_head, k=TOPK)
-    serve_counts = launch_counts()
+    serve_counts, serve_ends = launch_counts(), layer_ends()
 
     reset_launch_counts()
     lat = []
@@ -1673,15 +1762,25 @@ def pna_serving(split, cfg):
     want_precompute = times(forward_launches(cfg.relation_model, num_rel,
                                              PRECOMPUTE_CHUNK * dim),
                             -(-num_rel // PRECOMPUTE_CHUNK))
+    relation_layers = len(cfg.relation_model.hidden_dims) * -(-num_rel // PRECOMPUTE_CHUNK)
+    want_ends = ({"conv_epilogue": {},
+                  "conv_tail": {(num_rel * PRECOMPUTE_CHUNK, dim): relation_layers}},
+                 {"conv_epilogue": {(num_nodes * BATCH, dim): len(cfg.entity_model.hidden_dims)
+                                    * (TAIL_BATCHES + HEAD_BATCHES)},
+                  "conv_tail": {}})
     record = {
         "params": n_params, "setup_s": setup_s,
         "batch_ms_median": statistics.median(lat), "batch_ms_min": min(lat),
         "batch_ms_max": max(lat), "requests_per_s": TIMED_BATCHES * BATCH / total_s,
         "peak_mem_mib": peak_mib, "cpu_vs_card_max_abs_err": float(score_err.max()),
         "cpu_s": cpu_s, "launches_per_batch": as_json(per_batch),
-        "launches": {"precompute": as_json(precompute_counts), "serve": as_json(serve_counts)},
+        "launches": {"precompute": as_json(precompute_counts), "serve": as_json(serve_counts),
+                     "layer_ends": [as_json(precompute_ends), as_json(serve_ends)]},
     }
     print("[pna-serving] " + json.dumps(record), flush=True)
+    check((precompute_ends, serve_ends) == want_ends,
+          f"E1 and E2 launched {precompute_ends} in the PNA precompute and {serve_ends} in "
+          f"its batches, want {want_ends}")
     check(precompute_counts == want_precompute,
           f"the PNA precompute launched {precompute_counts}, want {want_precompute}")
     check(serve_counts == times(per_batch, TAIL_BATCHES + HEAD_BATCHES),
@@ -1692,14 +1791,16 @@ def pna_serving(split, cfg):
                and np.isfinite(head_s).all()), "PNA scores are not finite")
     check(bool(np.all(score_err <= SCORE_ATOL + SCORE_RTOL * np.abs(cpu_scores))),
           f"card and CPU PNA scores differ by up to {float(score_err.max())!r}")
-    return record, plus(precompute_counts, serve_counts)
+    counts = plus(precompute_counts, serve_counts)
+    return record, plus(counts, plus(precompute_ends, serve_ends))
 
 
 def conv_checks(graph, num_rel):
     """A ``max`` conv and a ``rotate`` conv (sum: B1 at twice the width) at
     F = 512 on the entity graph, on the card against the same conv on the
     CPU, forward, with random weights and inputs from a seed; each conv's
-    launches are read around its card run. Returns the ``[conv]`` record."""
+    launches are read around its card run (E2 ends each: one launch).
+    Returns the ``[conv]`` record."""
     from ultra_tpu_torch.models.layers import ConvConfig, GeneralizedRelationalConv
 
     cpu_graph = graph.to("cpu")
@@ -1708,9 +1809,12 @@ def conv_checks(graph, num_rel):
     query = torch.randn(BATCH, 64, generator=gen)
     feat = BATCH * 64
     record, ok = {}, True
+    tail = {"conv_tail": {(graph.num_nodes * BATCH, 64): 1}}
     for name, kw, want in (
-        ("max", dict(aggregate_func="max"), {"rspmm_minmax_fwd": {(graph.num_nodes, feat): 1}}),
-        ("rotate", dict(message_func="rotate"), {"rspmm_sum_fwd": {(graph.num_nodes, 2 * feat): 1}}),
+        ("max", dict(aggregate_func="max"),
+         {"rspmm_minmax_fwd": {(graph.num_nodes, feat): 1}, **tail}),
+        ("rotate", dict(message_func="rotate"),
+         {"rspmm_sum_fwd": {(graph.num_nodes, 2 * feat): 1}, **tail}),
     ):
         torch.manual_seed(0)
         conv = GeneralizedRelationalConv(ConvConfig(num_relation=num_rel, **kw))
@@ -1719,6 +1823,7 @@ def conv_checks(graph, num_rel):
             got = copy.deepcopy(conv).cuda()(graph, x.cuda(), boundary.cuda(), query.cuda())
             got = got.cpu()
             counts = {k: v for k, v in launch_counts().items() if v}
+            counts.update({k: v for k, v in layer_ends().items() if v})
             expect = conv(cpu_graph, x, boundary, query)
         err = (got - expect).abs()
         case_ok = bool(torch.isfinite(got).all() and
@@ -3007,8 +3112,7 @@ def sum_serving(split, cfg):
     """The serving path at full width: ultra_3g, random weights from a seed,
     written in the reference .pth layout and served from it. Returns (the
     ``[serving]`` record, the launches of the precompute and the 4
-    batches, E1's under ``conv_epilogue``)."""
-    from ultra_tpu_torch.ops.epilogue_cuda import conv_epilogue
+    batches, E1's and E2's under their wrappers' names)."""
     from ultra_tpu_torch.train.eval import precompute_relation_representations
     from ultra_tpu_torch.train.loop import init_ultra_params
 
@@ -3032,10 +3136,11 @@ def sum_serving(split, cfg):
     precompute_launches = fwd_launches(precompute_counts)
     want_precompute = len(pred.model.relation_model.layers) * -(-num_rel // PRECOMPUTE_CHUNK)
     dim = cfg.entity_model.input_dim
-    # E1 ends each conv layer: a launch a layer of each pass, on the relation
-    # graph's rows x 64 relations, the entity graph's x a batch
-    precompute_epilogue = dict(conv_epilogue.launches)
-    want_precompute_epilogue = {(num_rel * PRECOMPUTE_CHUNK, dim): want_precompute}
+    # E2 ends each conv layer: a launch a layer of each pass, on the relation
+    # graph's rows x 64 relations, the entity graph's x a batch; E1 none
+    precompute_ends = layer_ends()
+    want_precompute_ends = {"conv_epilogue": {},
+                            "conv_tail": {(num_rel * PRECOMPUTE_CHUNK, dim): want_precompute}}
 
     # the precompute alone, warm, timed a few times (it ran once above, inside
     # set-up): it is mostly host time, which varies from run to run
@@ -3062,7 +3167,7 @@ def sum_serving(split, cfg):
     tail_s, tail_i = pred.predict_tails(h, r, k=TOPK)
     head_s, head_i = pred.predict_heads(t, r_head, k=TOPK)
     serve_counts = launch_counts()
-    serve_epilogue = dict(conv_epilogue.launches)
+    serve_ends = layer_ends()
     serve_launches = fwd_launches(serve_counts)
     want_serve = layers * (TAIL_BATCHES + HEAD_BATCHES)
 
@@ -3078,8 +3183,9 @@ def sum_serving(split, cfg):
         lat.append(1e3 * (time.perf_counter() - t0))
     total_s = time.perf_counter() - t_all
     timed_launches = fwd_launches(launch_counts())
-    timed_epilogue = dict(conv_epilogue.launches)
-    want_timed_epilogue = {(num_nodes * BATCH, dim): layers * TIMED_BATCHES}
+    timed_ends = layer_ends()
+    want_timed_ends = {"conv_epilogue": {},
+                       "conv_tail": {(num_nodes * BATCH, dim): layers * TIMED_BATCHES}}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     # top-k against score_all, on the card
@@ -3111,9 +3217,9 @@ def sum_serving(split, cfg):
         "launches": {"precompute": precompute_launches, "serve": serve_launches,
                      "timed_precompute": timed_precompute_launches,
                      "timed": timed_launches,
-                     "conv_epilogue": as_json({"precompute": precompute_epilogue,
-                                               "serve": serve_epilogue,
-                                               "timed": timed_epilogue})},
+                     "layer_ends": {"precompute": as_json(precompute_ends),
+                                    "serve": as_json(serve_ends),
+                                    "timed": as_json(timed_ends)}},
         "precompute_bitwise_repeatable": deterministic,
     }
     print("[serving] " + json.dumps(serving), flush=True)
@@ -3127,18 +3233,17 @@ def sum_serving(split, cfg):
           f"timed precomputes launched {timed_precompute_launches}, want {want_precompute}")
     check(timed_launches == layers * TIMED_BATCHES,
           f"timed batches launched {timed_launches}, want {layers * TIMED_BATCHES}")
-    check(precompute_epilogue == want_precompute_epilogue,
-          f"the precompute launched E1 {precompute_epilogue}, want {want_precompute_epilogue}")
-    check(timed_epilogue == want_timed_epilogue,
-          f"timed batches launched E1 {timed_epilogue}, want {want_timed_epilogue} (6 a pass)")
+    check(precompute_ends == want_precompute_ends,
+          f"the precompute launched E1 and E2 {precompute_ends}, want {want_precompute_ends}")
+    check(timed_ends == want_timed_ends,
+          f"timed batches launched E1 and E2 {timed_ends}, want {want_timed_ends} (E2 6 a "
+          "pass)")
     check(ok_topk, "top-k disagrees with score_all, or scores are not finite")
     check(ok_cpu, f"card and CPU scores differ by up to {float(score_err.max())!r}")
     del pred, cpu_pred
     torch.cuda.empty_cache()
     counts = plus(precompute_counts, serve_counts)
-    counts["conv_epilogue"] = dict(collections.Counter(precompute_epilogue)
-                                   + collections.Counter(serve_epilogue))
-    return serving, counts
+    return serving, plus(counts, plus(precompute_ends, serve_ends))
 
 
 
@@ -4751,7 +4856,15 @@ def main() -> int:
     run("training", training_phase)
     run("pna-serving", pna_serving_phase)
     run("pna-training", pna_training_phase)
-    run("conv", lambda: conv_checks(graph, num_rel))
+
+    def conv_phase():
+        rows, ok = conv_tail_rows(cfg.entity_model.input_dim)
+        kernels.update(rows)
+        check(ok, "E2 disagrees with its plain twin or launched other than once (see the "
+                  "[kernel] lines)")
+        conv_checks(graph, num_rel)
+
+    run("conv", conv_phase)
 
     def bf16_phase():
         rows, ok = bf16_kernels(graph, cfg, torch.Generator().manual_seed(0))

@@ -27,6 +27,7 @@ from ultra_tpu_torch.data.synthetic import random_kg_triples, with_inverses
 from ultra_tpu_torch.graph import make_graph
 from ultra_tpu_torch.models import layers, nbfnet
 from ultra_tpu_torch.ops import epilogue_cuda
+from ultra_tpu_torch.ops.conv_tail_cuda import conv_tail
 from ultra_tpu_torch.ops.epilogue_cuda import conv_epilogue, conv_epilogue_plain
 from ultra_tpu_torch.tasks import build_relation_graph_arrays
 
@@ -95,8 +96,8 @@ def graph():
                       relation_graph=make_graph(rei, ret, nrel, 4, device="cpu"))
 
 
-def _model(remat=False, dims=(64, 64, 64)):
-    cfg = nbfnet.NBFNetConfig(input_dim=64, hidden_dims=dims, num_relation=1,
+def _model(remat=False, dims=(64, 64, 64), dim=64):
+    cfg = nbfnet.NBFNetConfig(input_dim=dim, hidden_dims=dims, num_relation=1,
                               project_relations=True, remat=remat)
     torch.manual_seed(0)
     model = nbfnet.NBFNet(cfg)
@@ -107,11 +108,11 @@ def _model(remat=False, dims=(64, 64, 64)):
     return model
 
 
-def _inputs(graph):
+def _inputs(graph, dim=64):
     g = torch.Generator().manual_seed(1)
-    query = torch.randn(BATCH, 64, generator=g)
+    query = torch.randn(BATCH, dim, generator=g)
     boundary = nbfnet.scatter_boundary(torch.tensor([3, 3, 17]), query, graph.num_nodes)
-    rel_input = torch.randn(BATCH, graph.num_relations, 64, generator=g)
+    rel_input = torch.randn(BATCH, graph.num_relations, dim, generator=g)
     return boundary, query, rel_input
 
 
@@ -141,6 +142,10 @@ def _parent_bellmanford(model, graph, boundary, query, rel_input):
 
 
 def test_conv_calls_the_epilogue_only_without_gradients(graph, monkeypatch):
+    """E1 ends the layers that E2 (``ops/conv_tail_cuda.py``) does not
+    take: at inference a 64 -> 64 layer is E2's, a 128 -> 128 layer E1's,
+    and with a gradient wanted, or at a width E1 is not built for (32), the
+    ops are composed."""
     calls = []
 
     def spy(*args, **kwargs):
@@ -148,11 +153,11 @@ def test_conv_calls_the_epilogue_only_without_gradients(graph, monkeypatch):
         return conv_epilogue(*args, **kwargs)
 
     monkeypatch.setattr(epilogue_cuda, "conv_epilogue", spy)
-    model = _model()
-    boundary, query, rel_input = _inputs(graph)
+    model = _model(dims=(128, 128), dim=128)
+    boundary, query, rel_input = _inputs(graph, dim=128)
     with torch.no_grad():
         nbfnet.bellmanford(model, graph, boundary, query, rel_input)
-    assert calls == [(V, BATCH, 64)] * 3
+    assert calls == [(V, BATCH, 128)] * 2
     calls.clear()
     nbfnet.bellmanford(model, graph, boundary, query, rel_input)
     assert calls == []
@@ -160,11 +165,12 @@ def test_conv_calls_the_epilogue_only_without_gradients(graph, monkeypatch):
     model.requires_grad_(False)
     nbfnet.bellmanford(model, graph, boundary.requires_grad_(), query, rel_input)
     assert calls == []
-    # a width it is not built for (32): composed
+    # 64 -> 64 (E2's), then a width E1 is not built for (32): composed
     model = _model(dims=(64, 32))
+    boundary, query, rel_input = _inputs(graph)
     with torch.no_grad():
-        nbfnet.bellmanford(model, graph, boundary.detach(), query, rel_input)
-    assert calls == [(V, BATCH, 64)]
+        nbfnet.bellmanford(model, graph, boundary, query, rel_input)
+    assert calls == []
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -226,11 +232,15 @@ def test_collect_rankings_same_ranks_with_the_kernel(card, monkeypatch):
                               device=card).eval()
     trips = trip[:48]
     conv_epilogue.launches.clear()
+    conv_tail.launches.clear()
     fused = collect_rankings(model, g, trips, index, batch_size=8)
     layers_ = len(model.entity_model.layers)
-    # a pass of the entity model a batch (both directions), and the relation
-    # model's precompute: 6 launches each
-    assert conv_epilogue.launches[(300 * 16, 64)] == layers_ * 6
+    # E2 ends every layer (64 -> 64): 6 launches a pass of the entity model a
+    # batch (both directions: 16 queries), and 6 in the relation model's
+    # precompute (10 relations x a chunk of 64 queries); E1 none
+    assert dict(conv_tail.launches) == {(300 * 16, 64): layers_ * 6, (10 * 64, 64): layers_}
+    assert not conv_epilogue.launches
+    monkeypatch.setattr(layers.GeneralizedRelationalConv, "_tail", lambda *a: False)
     monkeypatch.setattr(layers.GeneralizedRelationalConv, "_fused", lambda *a: False)
     composed = collect_rankings(model, g, trips, index, batch_size=8)
     for a, b in zip(fused, composed, strict=True):

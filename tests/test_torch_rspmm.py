@@ -279,6 +279,7 @@ DECLARED = {
     "gather_lanes_indices": (("",), "gather_cuda"),
     "gather_empty": (("",), "gather_cuda"),
     "conv_epilogue": (("",), "epilogue_cuda"),
+    "conv_tail": (("",), "conv_tail_cuda"),
 }
 
 
@@ -303,7 +304,8 @@ def test_every_counted_wrapper_is_in_the_launch_registry():
     counters = build.launch_counters()
     assert set(found) == set(counters) == {
         "rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_dw", "rspmm_minmax_fwd",
-        "rspmm_minmax_dx", "rspmm_minmax_drel", "gather_rows", "gather_lanes", "conv_epilogue"}
+        "rspmm_minmax_dx", "rspmm_minmax_drel", "gather_rows", "gather_lanes", "conv_epilogue",
+        "conv_tail"}
     assert all(found[name].launches is counter for name, counter in counters.items())
     for counter in counters.values():
         counter[("a launch",)] += 1

@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ultra_tpu_torch.graph import Graph
-from ultra_tpu_torch.ops import epilogue_cuda
+from ultra_tpu_torch.ops import conv_tail_cuda, epilogue_cuda
 from ultra_tpu_torch.ops.rspmm import degree, rspmm_from_graph
 
 EPS = 1e-6  # PNA std clamp
@@ -274,16 +274,44 @@ class GeneralizedRelationalConv(nn.Module):
                                       relation.to(boundary.dtype))
         else:
             update = self._update(graph, input, boundary, relation)
+        if self._tail(input, update, residual):
+            ln = self.layer_norm
+            return conv_tail_cuda.conv_tail(input, update, self.linear.weight, self.linear.bias,
+                                            ln.weight, ln.bias, ln.eps,
+                                            cfg.activation == "relu", residual)
         output = self.linear(torch.cat([input.to(update.dtype), update], dim=-1))
         return self._epilogue(output, residual)
 
+    def _tail(self, input, update, residual) -> bool:
+        """Whether one call of ``conv_tail_cuda.conv_tail`` (E2, one kernel
+        on the card) computes the linear of ``[input | update]``, the layer
+        norm, the activation and the short cut: where no gradient is wanted,
+        the layer norm is on, the activation ReLU or none, the linear 64 ->
+        64 over the two, every operand f32, ``input`` and ``update`` of one
+        shape, contiguous and 16-byte aligned, and the short cut's input
+        none or ``input`` itself. Else the linear, then :meth:`_epilogue`."""
+        cfg = self.cfg
+        if not cfg.layer_norm or cfg.activation not in ("relu", None, ""):
+            return False
+        width = conv_tail_cuda.WIDTH
+        if self.linear.weight.shape != (width, 2 * width) or update.shape != input.shape:
+            return False
+        if residual is not None and residual is not input:
+            return False
+        operands = (input, update, self.linear.weight, self.linear.bias, self.layer_norm.weight,
+                    self.layer_norm.bias)
+        if any(t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16
+               for t in operands):
+            return False
+        return not (torch.is_grad_enabled() and any(t.requires_grad for t in operands))
+
     def _epilogue(self, output, residual):
-        """Layer norm, activation and short cut. Where no gradient is
-        wanted, the layer norm is on, the activation ReLU or none and the
-        output f32 of a width E1 is built for, one call of
-        ``epilogue_cuda.conv_epilogue`` (one kernel on the card); else the
-        composed ops, whose autograd graph training, remat and attribution
-        need."""
+        """Layer norm, activation and short cut, where :meth:`_tail` does
+        not take the layer. Where no gradient is wanted, the layer norm is
+        on, the activation ReLU or none and the output f32 of a width E1 is
+        built for, one call of ``epilogue_cuda.conv_epilogue`` (one kernel
+        on the card); else the composed ops, whose autograd graph training,
+        remat and attribution need."""
         cfg = self.cfg
         if self._fused(output, residual):
             ln = self.layer_norm
