@@ -136,10 +136,13 @@ def test_collect_rankings_records_its_phases_and_answers_the_same(ranking, cache
             assert call.time_range.start <= e.time_range.start <= e.time_range.end \
                 <= call.time_range.end
     assert got == want
-    # each batch's phases in order, siblings that do not overlap
+    # the pipelined order, siblings that do not overlap: batch 0's mask,
+    # upload and score; then batch i+1's, each followed by batch i's
+    # download and negatives; then the last batch's download and negatives
     phases = sorted((e for e in spans if e is not call), key=lambda e: e.time_range.start)
     order = [e.name.split(".")[-1] for e in phases if e.name != "ultra.eval.precompute"]
-    assert order == list(PHASES) * batches
+    enqueue, collect = list(PHASES[:3]), list(PHASES[3:])
+    assert order == enqueue + (enqueue + collect) * (batches - 1) + collect
     for a, b in zip(phases, phases[1:]):
         assert a.time_range.end <= b.time_range.start
     # nothing is copied to a device on the CPU

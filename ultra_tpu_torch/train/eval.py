@@ -5,7 +5,8 @@ the tail (and, through the inverse relation, as the head) of each test
 triple on its device; the strict-negative masks are built on the host
 (``tasks.strict_negative_mask``) and the metrics are aggregated there. The
 JAX package's TPU launch amortisation (stream budgets, several batches per
-dispatch) has no counterpart: a Python loop over batches takes its place.
+dispatch) has no counterpart: a Python loop over batches takes its place,
+pipelined one batch deep as the JAX package pipelines its groups.
 """
 
 from __future__ import annotations
@@ -113,12 +114,21 @@ def collect_rankings(
     and both directions as one pass. The last batch is padded by repeating
     its last triple; the padded rows' results are dropped.
 
+    The loop is a one-batch pipeline, as the JAX package's is: batch i+1's
+    masks are built, uploaded and its pass enqueued before the host waits
+    for batch i's ranks, so the host's work of a batch runs while the card
+    computes the one before. On a card the masks go up from pinned memory
+    without blocking, and each batch's ranks come back into pinned host
+    tensors by a copy enqueued right after its ranking, behind a CUDA event
+    that the host waits on before reading them (:func:`_enqueue_download`).
+
     Under a profiler the call records the span ``ultra.eval.collect_rankings``
     and in it ``ultra.eval.precompute`` and, for each batch, ``mask``,
-    ``upload``, ``score`` (the pass and the ranking enqueued), ``download``
-    (where the host waits on the device) and ``negatives``, each
-    ``ultra.eval.<name>``; and counts the bytes it uploads to a device
-    that is not the CPU as ``h2d_bytes`` (``utils/profiling.py``).
+    ``upload``, ``score`` (the pass, the ranking and the ranks' copy back
+    enqueued), ``download`` (where the host waits on the device) and
+    ``negatives``, each ``ultra.eval.<name>``: batch i's ``download`` and
+    ``negatives`` follow batch i+1's ``score``. It counts the bytes it
+    uploads to a card as ``h2d_bytes`` (``utils/profiling.py``).
     """
     with profiling.annotate("ultra.eval.collect_rankings"):
         model = model.eval()
@@ -128,8 +138,22 @@ def collect_rankings(
         if cache_relations:
             with profiling.annotate("ultra.eval.precompute"):
                 rel_reprs_all = precompute_relation_representations(model, graph)
-        copied = graph.device.type != "cpu"
         rankings, num_negatives, tail_rankings, num_tail_negs = [], [], [], []
+
+        def collect(pending):
+            ranks, done, t_mask, h_mask, valid = pending
+            with profiling.annotate("ultra.eval.download"):
+                if done is not None:
+                    done.synchronize()
+                t_rank, h_rank = (r.numpy()[:valid] for r in ranks)
+            with profiling.annotate("ultra.eval.negatives"):
+                t_neg, h_neg = _count_rows(t_mask[:valid]), _count_rows(h_mask[:valid])
+            rankings.extend((t_rank, h_rank))
+            num_negatives.extend((t_neg, h_neg))
+            tail_rankings.append(t_rank)
+            num_tail_negs.append(t_neg)
+
+        pending = None
         for start in range(0, len(trips), batch_size):
             batch = trips[start:start + batch_size]
             valid = len(batch)
@@ -138,25 +162,59 @@ def collect_rankings(
             with profiling.annotate("ultra.eval.mask"):
                 t_mask, h_mask = tasks.strict_negative_mask(filtered_index, batch)
             with profiling.annotate("ultra.eval.upload"):
-                args = [torch.as_tensor(a, device=graph.device) for a in (batch, t_mask, h_mask)]
-                if copied:
-                    profiling.count("h2d_bytes", batch.nbytes + t_mask.nbytes + h_mask.nbytes)
+                args = _upload((batch, t_mask, h_mask), graph.device)
             with profiling.annotate("ultra.eval.score"):
                 if rel_reprs_all is None:
-                    t_rank, h_rank = score_and_rank_batch(model, graph, *args)
+                    ranks = score_and_rank_batch(model, graph, *args)
                 else:
-                    t_rank, h_rank = score_and_rank_batch_cached(model, graph, rel_reprs_all,
-                                                                 *args)
-            with profiling.annotate("ultra.eval.download"):
-                t_rank, h_rank = t_rank.cpu().numpy()[:valid], h_rank.cpu().numpy()[:valid]
-            with profiling.annotate("ultra.eval.negatives"):
-                t_neg, h_neg = t_mask.sum(axis=-1)[:valid], h_mask.sum(axis=-1)[:valid]
-            rankings += [t_rank, h_rank]
-            num_negatives += [t_neg, h_neg]
-            tail_rankings.append(t_rank)
-            num_tail_negs.append(t_neg)
+                    ranks = score_and_rank_batch_cached(model, graph, rel_reprs_all, *args)
+                ranks, done = _enqueue_download(ranks)
+            if pending is not None:
+                collect(pending)
+            pending = (ranks, done, t_mask, h_mask, valid)
+        if pending is not None:
+            collect(pending)
         return (np.concatenate(rankings), np.concatenate(num_negatives),
                 np.concatenate(tail_rankings), np.concatenate(num_tail_negs))
+
+
+def _count_rows(mask: np.ndarray) -> np.ndarray:
+    """(B,) int64 count of each row's True entries. ``count_nonzero`` of a
+    whole row counts its bytes directly, where a sum (or ``count_nonzero``)
+    over an axis widens each to int64 first, several times slower."""
+    return np.array([np.count_nonzero(row) for row in mask], dtype=np.int64)
+
+
+def _upload(arrays, device: torch.device):
+    """Host arrays as tensors on ``device``. To a card each goes up from a
+    pinned buffer without blocking the host, and its bytes count as
+    ``h2d_bytes``; PyTorch's caching host allocator keeps a pinned block
+    until its copy has run. numpy fills the buffer in one thread: a host
+    ``copy_`` (as in ``pin_memory()``) wakes PyTorch's intra-op threads,
+    whose stragglers on a busy host held the card idle for milliseconds."""
+    if device.type != "cuda":
+        return [torch.as_tensor(a, device=device) for a in arrays]
+    profiling.count("h2d_bytes", sum(a.nbytes for a in arrays))
+    out = []
+    for a in arrays:
+        pinned = torch.empty(a.shape, dtype=torch.as_tensor(a).dtype, pin_memory=True)
+        pinned.numpy()[...] = a
+        out.append(pinned.to(device, non_blocking=True))
+    return out
+
+
+def _enqueue_download(tensors):
+    """(host tensors, event): on a card, copies of ``tensors`` enqueued into
+    fresh pinned host tensors, and an event recorded behind them; the host
+    reads the copies after ``event.synchronize()``. Elsewhere the tensors
+    themselves and no event."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+            for t in tensors]
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(tensors[0].device))
+    return host, done
 
 
 def compute_metrics(metrics, ranking, num_negative, ranking_t=None, num_negative_t=None):
