@@ -74,6 +74,10 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    (``torch.cat``, ``F.linear`` and E1), one launch a call asserted; then a
    ``max`` conv and a ``rotate`` conv (its sum runs B1 at twice the width)
    on the card against the same conv on the CPU, each ended by one E2;
+   and (``[boundary-rows]``) the boundary added as its rows at the ranking
+   cell's shape (see RANKING_GRAPH): the relation model and every hidden
+   state of the entity pass with the rows the same bits as without them,
+   and the pass's six ``index_add_`` calls timed beside its six dense adds;
 9. runs ``compute_dtype: bfloat16`` (``[bf16]``, see BF16_REL): the bf16
    instances of B1-B6 against their plain versions in f64 on the same bf16
    operands, each timed beside the f32 instance (with the ratio of the two
@@ -200,7 +204,7 @@ KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_
            "rspmm_minmax_drel", "rspmm_dw", "gather", "conv_epilogue", "conv_tail")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv", "bf16",
           "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "distributed",
-          "gather-probe", "tooling")
+          "gather-probe", "tooling", "boundary-rows")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -240,6 +244,13 @@ CONV_TAIL_REL_TOL = 1e-5
 CONV_TAIL_SHAPES = (("ranking", 123_182 * 16, False), ("eval", 14_505 * 32, False),
                     ("fb15k237", 14_541 * 8, True), ("precompute", 474 * 64, True),
                     ("ranking-precompute", 74 * 64, False))
+# [boundary-rows]: the ranking cell's graph (YAGO3-10's shape: 123,182
+# entities, 37 direct relations, 1,079,040 training triples, Zipf relations,
+# 30 categories; benchmark/traffic/rank.yago310.json) and its entity pass of
+# 16 queries, 8 triples both ways
+RANKING_GRAPH = dict(num_nodes=123_182, num_direct_rel=37, num_triples=1_079_040,
+                     rel_dist="zipf", categories=30)
+RANKING_QUERIES = 16
 # A plain version's time is the reference a kernel is read against, not a
 # result: the median of 5 runs of 10 calls, where a kernel's takes 20
 PLAIN_SAMPLES = 5
@@ -1835,6 +1846,84 @@ def conv_checks(graph, num_rel):
     print("[conv] " + json.dumps(record), flush=True)
     check(ok, f"a conv differs between the card and the CPU, or launched other kernels: "
               f"{record}")
+    return record
+
+
+def boundary_rows_run(cfg, device="cuda"):
+    """The boundary added as its rows (``models/layers.py``, ``_update``) at
+    the ranking cell's entity pass, random weights from a seed: the
+    relation model (on the 74 relations) and each of the entity model's six hidden
+    states with ``boundary_rows`` given must equal the same
+    ``bellmanford`` without them bit for bit, and the scores of
+    ``entity_nbfnet_score_all`` the dense path's. Heads repeat across the
+    batch. Then times the pass's six ``index_add_`` calls of 16 rows
+    against its six dense adds of (V, 16, 64) (``benchlib.device_ms``).
+    Returns the record."""
+    from ultra_tpu_torch.data.kg import KGSplit, split_to_graph
+    from ultra_tpu_torch.data.synthetic import random_kg_triples, with_inverses
+    from ultra_tpu_torch.models.nbfnet import (
+        Ultra, bellmanford, boundary_rows, entity_nbfnet_score_all, rel_nbfnet_apply,
+        scatter_boundary,
+    )
+    from ultra_tpu_torch.utils.benchlib import device_ms
+
+    t0 = time.perf_counter()
+    g = RANKING_GRAPH
+    trip = random_kg_triples(g["num_nodes"], g["num_direct_rel"], g["num_triples"], seed=0,
+                             rel_dist=g["rel_dist"], categories=g["categories"])
+    edge_index, edge_type = with_inverses(trip, g["num_direct_rel"])
+    graph = split_to_graph(KGSplit(edge_index, edge_type, g["num_nodes"],
+                                   2 * g["num_direct_rel"], np.ascontiguousarray(trip[:, :2].T),
+                                   trip[:, 2].copy()), device=device)
+    setup_s = time.perf_counter() - t0
+    torch.manual_seed(0)
+    model = Ultra(cfg).to(device)
+    gen = torch.Generator().manual_seed(7)
+    b = RANKING_QUERIES
+    h = torch.randint(0, graph.num_nodes, (b,), generator=gen)
+    h[b // 2::3] = h[0]  # a head repeated across the batch
+    h = h.to(device)
+    r = torch.randint(0, graph.num_relations, (b,), generator=gen).to(device)
+    record = {"V": graph.num_nodes, "E": int(graph.csr.col.numel()), "B": b,
+              "graph_s": round(setup_s, 1)}
+    with torch.no_grad():
+        rel_repr = rel_nbfnet_apply(model.relation_model, graph.relation_graph, r)
+        ones = torch.ones(b, cfg.relation_model.input_dim, device=device)
+        dense_rel = bellmanford(model.relation_model, graph.relation_graph,
+                                scatter_boundary(r, ones, graph.relation_graph.num_nodes),
+                                ones)[-1].transpose(0, 1)
+        record["relation_equal"] = torch.equal(rel_repr, dense_rel)
+        query = rel_repr[torch.arange(b, device=device), r]
+        boundary = scatter_boundary(h, query, graph.num_nodes)
+        rows = boundary_rows(h, query, graph.num_nodes)
+        got = bellmanford(model.entity_model, graph, boundary, query, rel_repr, rows)
+        want = bellmanford(model.entity_model, graph, boundary, query, rel_repr)
+        record["hiddens_equal"] = [torch.equal(a, w) for a, w in zip(got, want)]
+        feature = torch.cat([want[-1], query.expand(graph.num_nodes, b, query.shape[-1])], -1)
+        del got, want
+        scores = entity_nbfnet_score_all(model.entity_model, graph, rel_repr, h, r)
+        record["scores_equal"] = torch.equal(scores, model.entity_model.mlp(feature)
+                                             .squeeze(-1).T)
+        del feature, scores
+        update = torch.randn(boundary.shape, generator=torch.Generator().manual_seed(1)).to(device)
+        flat = update.view(-1, update.shape[-1])
+        index, values = rows
+        n_layers = len(cfg.entity_model.hidden_dims)
+
+        def dense_adds():
+            for _ in range(n_layers):
+                update + boundary
+
+        def row_adds():
+            for _ in range(n_layers):
+                flat.index_add_(0, index, values)
+
+        record["dense_adds_ms"] = device_ms(dense_adds)
+        record["index_adds_ms"] = device_ms(row_adds)
+    record["ok"] = (record["relation_equal"] and all(record["hiddens_equal"])
+                    and record["scores_equal"])
+    print("[boundary-rows] " + json.dumps(record), flush=True)
+    check(record["ok"], f"the boundary's rows differ from its dense add: {record}")
     return record
 
 
@@ -4912,6 +5001,7 @@ def main() -> int:
     run("distributed", distributed_phase)
     run("gather-probe", gather_probe_phase)
     run("tooling", tooling_phase)
+    run("boundary-rows", lambda: boundary_rows_run(cfg))
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke failed:\n" + "\n".join(failures), file=sys.stderr)

@@ -207,7 +207,10 @@ def test_rank_queries_records_its_spans_and_counts_only_under_a_profiler(
     for want, got in zip(plain, traced):
         assert want.dtype == got.dtype
         np.testing.assert_array_equal(got, want)
-    assert dict(profiling.counters) == {"query_passes": 7, "query_projections": 25}
+    # the relation model's 2 convs add its boundary as rows in the one
+    # precompute; the projections' fuzzy sets are added dense, uncounted
+    assert dict(profiling.counters) == {"query_passes": 7, "query_projections": 25,
+                                        "boundary_rows": 2}
 
     spans = [e for e in prof.events() if e.name.startswith("ultra.query.")]
     calls = [e for e in spans if e.name == "ultra.query.rank_queries"]
@@ -244,8 +247,10 @@ def test_execute_grouped_records_its_rounds_only_under_a_profiler(record_functio
     torch.testing.assert_close(traced, plain, rtol=0, atol=0)
     assert record_function_calls == ["ultra.query.schedule"] + [
         "ultra.query.cheap", "ultra.query.project"] * 2 + ["ultra.query.cheap"]
-    # the toy set's first four queries: two 1p, two 2i; nothing goes to a card
-    assert dict(profiling.counters) == {"query_passes": 2, "query_projections": 6}
+    # the toy set's first four queries: two 1p, two 2i; nothing goes to a card;
+    # each pass runs the relation model, whose 2 convs add its boundary as rows
+    assert dict(profiling.counters) == {"query_passes": 2, "query_projections": 6,
+                                        "boundary_rows": 4}
 
 
 def test_cheap_schedule_by_hand():

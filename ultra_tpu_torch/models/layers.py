@@ -49,6 +49,7 @@ from torch import nn
 from ultra_tpu_torch.graph import Graph
 from ultra_tpu_torch.ops import conv_tail_cuda, epilogue_cuda
 from ultra_tpu_torch.ops.rspmm import degree, rspmm_from_graph
+from ultra_tpu_torch.utils import profiling
 
 EPS = 1e-6  # PNA std clamp
 
@@ -255,12 +256,15 @@ class GeneralizedRelationalConv(nn.Module):
         relation_input: torch.Tensor = None,  # (B, R, D) injected relation reprs
         per_edge: bool = False,
         residual: torch.Tensor = None,  # (V, B, output_dim) the short cut's input
+        rows: tuple = None,  # ((B,) flat rows of (V*B, D), (B, D)): boundary's nonzero rows
     ) -> torch.Tensor:
         """One message-passing round; returns (V, B, output_dim), plus
         ``residual`` where given (the short cut, added after the
         activation). With ``per_edge``, ``max`` and ``pna`` reduce one
         message per edge in plain torch (see the module note) for every
-        message function."""
+        message function. ``rows``, where the boundary was scattered from
+        them (``nbfnet.py::boundary_rows``), lets a sum or mean conv add
+        the boundary as those rows (:meth:`_update`)."""
         cfg = self.cfg
         relation = self.layer_relation(query, relation_input)
         aggregate = cfg.aggregate_func
@@ -273,7 +277,7 @@ class GeneralizedRelationalConv(nn.Module):
                                       input.to(boundary.dtype), boundary,
                                       relation.to(boundary.dtype))
         else:
-            update = self._update(graph, input, boundary, relation)
+            update = self._update(graph, input, boundary, relation, rows)
         if self._tail(input, update, residual):
             ln = self.layer_norm
             return conv_tail_cuda.conv_tail(input, update, self.linear.weight, self.linear.bias,
@@ -338,8 +342,22 @@ class GeneralizedRelationalConv(nn.Module):
         return not (torch.is_grad_enabled()
                     and any(t is not None and t.requires_grad for t in operands))
 
-    def _update(self, graph: Graph, input, boundary, relation):
-        """The aggregated update on the rspmm kernels, boundary folded in."""
+    def _update(self, graph: Graph, input, boundary, relation, rows=None):
+        """The aggregated update on the rspmm kernels, boundary folded in.
+
+        ``sum`` and ``mean`` add the boundary to the combined aggregate. With
+        ``rows`` (the entity and relation models' scattered boundaries,
+        ``nbfnet.py::boundary_rows``) that is one ``index_add_`` of the B
+        nonzero rows onto the aggregate's (V*B, D) view, in place: every
+        producer of the aggregate (the sum rspmm, rotate's ``cat``, the
+        edge group's combine) returns a fresh tensor that no backward
+        saves, so autograd takes the write too. It is the dense add's
+        result bit for bit: the flat rows are distinct, so each nonzero
+        element gets the one f32 addition the dense add makes there, and
+        every other element is ``update + 0.0``, which is ``update``, since
+        a sum that starts at +0.0 never holds -0.0. Without ``rows``
+        (UltraQuery's fuzzy sets, attribution's convs) the dense add.
+        ``max`` and ``pna`` read every row of the dense boundary."""
         cfg = self.cfg
         aggregate = cfg.aggregate_func
         enter, combine = _shard_ops(graph)
@@ -350,7 +368,13 @@ class GeneralizedRelationalConv(nn.Module):
             else:
                 update = rspmm_from_graph(graph, relation, input, sum="add",
                                           mul=_MESSAGE2MUL[cfg.message_func])
-            update = combine(update) + boundary
+            update = combine(update)
+            if rows is None:
+                update = update + boundary
+            else:
+                index, values = rows
+                update.view(-1, update.shape[-1]).index_add_(0, index, values)
+                profiling.count("boundary_rows", 1)
             if aggregate == "mean":
                 deg = combine(degree(graph, include_self_loop=False))
                 update = update / (deg[:, None, None] + 1.0)

@@ -114,11 +114,30 @@ class Ultra(nn.Module):
 
 def scatter_boundary(h_index, query, num_nodes: int):
     """(V, B, D) boundary: query[b] added onto node h_index[b] — add, not
-    set, so duplicate heads accumulate as the reference's ``scatter_add_``."""
+    set, so duplicate heads accumulate as the reference's ``scatter_add_``.
+
+    Its callers that run a model on it, :func:`entity_nbfnet_features` and
+    :func:`rel_nbfnet_apply`, also hand its nonzero rows to
+    :func:`bellmanford` (:func:`boundary_rows`): layer 0's input and its
+    short cut read this dense tensor, and each sum or mean conv adds the
+    rows alone, the same bits (``layers.py``, ``_update``)."""
     b, d = query.shape
     boundary = torch.zeros(num_nodes, b, d, dtype=query.dtype, device=query.device)
     batch = torch.arange(b, device=query.device)
     return boundary.index_put_((h_index, batch), query, accumulate=True)
+
+
+def boundary_rows(h_index, query, num_nodes: int):
+    """The nonzero rows of ``scatter_boundary(h_index, query, num_nodes)``:
+    (flat indices ``h_index * B + arange(B)`` into its (V*B, D) view,
+    ``query``). The batch index makes the B indices distinct, whatever the
+    heads. They are int32 wherever the view's rows allow: PyTorch's CPU
+    ``index_add_`` hands an int64 index to ``scatter_add_``, whose threads
+    cost milliseconds a call on a busy host (the card takes either)."""
+    b = query.shape[0]
+    dtype = torch.int32 if num_nodes * b <= torch.iinfo(torch.int32).max else torch.int64
+    batch = torch.arange(b, dtype=dtype, device=query.device)
+    return torch.add(batch, h_index, alpha=b, out=torch.empty_like(batch)), query
 
 
 def bellmanford(
@@ -127,13 +146,21 @@ def bellmanford(
     boundary,  # (V, B, D)
     query,  # (B, D)
     relation_input=None,  # (B, R, D) for project_relations
+    rows=None,  # boundary_rows(...) where ``boundary`` is scatter_boundary(...)
 ):
     """Run every conv layer with the original boundary condition and
     residual short-cuts between equal-width layers; returns all hidden
     states. Each conv adds its short cut itself (``residual``), so that at
     inference one kernel ends the layer (``layers.py``). With
     ``cfg.remat`` and a gradient wanted, each conv is recomputed in the
-    backward instead of keeping its activations."""
+    backward instead of keeping its activations.
+
+    ``rows``, the boundary's nonzero rows (:func:`boundary_rows`), come
+    from the entity and relation models' callers, whose boundary is
+    scattered: each sum or mean conv then adds those B rows in place of the
+    dense (V, B, D) boundary, the same bits, since every other row of it is
+    zeros (``layers.py``, ``_update``). Without them (UltraQuery's fuzzy
+    sets) every conv adds the dense boundary."""
     layer_input = boundary
     hiddens = []
     remat = model.cfg.remat and torch.is_grad_enabled()
@@ -142,10 +169,10 @@ def bellmanford(
                     and layer_input.shape[-1] == conv.cfg.output_dim else None)
         if remat:
             hidden = checkpoint(conv, graph, layer_input, boundary, query, relation_input,
-                                residual=residual, use_reentrant=False)
+                                residual=residual, rows=rows, use_reentrant=False)
         else:
             hidden = conv(graph, layer_input, boundary, query, relation_input,
-                          residual=residual)
+                          residual=residual, rows=rows)
         hiddens.append(hidden)
         layer_input = hidden
     return hiddens
@@ -157,7 +184,8 @@ def rel_nbfnet_apply(model: NBFNet, rel_graph: Graph, query_rels):
     b, d = query_rels.shape[0], model.cfg.input_dim
     query = torch.ones(b, d, dtype=torch.float32, device=query_rels.device)
     boundary = scatter_boundary(query_rels, query, rel_graph.num_nodes)
-    hiddens = bellmanford(model, rel_graph, boundary, query)
+    hiddens = bellmanford(model, rel_graph, boundary, query,
+                          rows=boundary_rows(query_rels, query, rel_graph.num_nodes))
     if model.cfg.concat_hidden:
         node_query = query.expand(rel_graph.num_nodes, b, d)
         output = model.mlp(torch.cat(hiddens + [node_query], dim=-1))
@@ -185,14 +213,17 @@ def entity_nbfnet_features(
     batch = torch.arange(b, device=h_index.device)
     query = relation_representations[batch, r_index]  # (B, D)
     boundary = scatter_boundary(h_index, query, graph.num_nodes)
-    return _node_features(model, graph, boundary, query, relation_representations)
+    return _node_features(model, graph, boundary, query, relation_representations,
+                          boundary_rows(h_index, query, graph.num_nodes))
 
 
-def _node_features(model: NBFNet, graph: Graph, boundary, query, relation_representations):
-    """Bellman-Ford from ``boundary`` (V, B, D); returns (V, B, F) node
-    features [last hidden (or every hidden) ‖ query]."""
+def _node_features(model: NBFNet, graph: Graph, boundary, query, relation_representations,
+                   rows=None):
+    """Bellman-Ford from ``boundary`` (V, B, D), whose nonzero rows are
+    ``rows`` where given; returns (V, B, F) node features [last hidden (or
+    every hidden) ‖ query]."""
     hiddens = bellmanford(
-        model, graph, boundary, query, relation_input=relation_representations
+        model, graph, boundary, query, relation_input=relation_representations, rows=rows
     )
     node_query = query.expand(graph.num_nodes, *query.shape)
     if model.cfg.concat_hidden:
