@@ -244,6 +244,9 @@ CONV_TAIL_REL_TOL = 1e-5
 CONV_TAIL_SHAPES = (("ranking", 123_182 * 16, False), ("eval", 14_505 * 32, False),
                     ("fb15k237", 14_541 * 8, True), ("precompute", 474 * 64, True),
                     ("ranking-precompute", 74 * 64, False))
+# E2's bf16-x instance (compute_dtype: bfloat16; the linear reads x rounded to
+# bf16): the bf16 ranking cell's entity pass, timed beside the f32 instance
+CONV_TAIL_BF16_X_SHAPES = (("ranking", 123_182 * 16, False),)
 # [boundary-rows]: the ranking cell's graph (YAGO3-10's shape: 123,182
 # entities, 37 direct relations, 1,079,040 training triples, Zipf relations,
 # 30 categories; benchmark/traffic/rank.yago310.json) and its entity pass of
@@ -1111,13 +1114,15 @@ def epilogue_rows(dim):
 
 
 def conv_tail_rows(dim):
-    """E2 (``ops/conv_tail_cuda.py``) at each of CONV_TAIL_SHAPES, ReLU and
-    the short cut, against its plain twin on the card (CONV_TAIL_REL_TOL),
-    each check one launch (asserted); times the kernel, the twin and, as
-    ``library_ms``, the ops the conv ran before it: ``torch.cat``,
-    ``F.linear`` and E1. Its bound: x and u read and the output written
-    once, 12 bytes an element, against 2 * 128 * 64 f32 operations a row.
-    Returns (rows of the kernels line, ok)."""
+    """E2 (``ops/conv_tail_cuda.py``) at each of CONV_TAIL_SHAPES, and its
+    bf16-x instance at CONV_TAIL_BF16_X_SHAPES, ReLU and the short cut,
+    against its plain twin on the card (CONV_TAIL_REL_TOL), each check one
+    launch (asserted); times the kernel, the twin and, as ``library_ms``,
+    the ops the conv ran before it: ``torch.cat``, ``F.linear`` and E1 (for
+    the bf16-x instance, ``x`` rounded and widened first, and ``f32_ms``,
+    the f32 instance on the same operands). Its bound: x and u read and the
+    output written once, 12 bytes an element, against 2 * 128 * 64 f32
+    operations a row. Returns (rows of the kernels line, ok)."""
     import torch.nn.functional as F
 
     from ultra_tpu_torch.ops.conv_tail_cuda import conv_tail, conv_tail_plain
@@ -1126,7 +1131,10 @@ def conv_tail_rows(dim):
 
     gen = torch.Generator("cuda").manual_seed(0)
     rows, ok = {}, True
-    for tag, m, on_path in CONV_TAIL_SHAPES:
+    cases = ([(tag, m, on_path, False) for tag, m, on_path in CONV_TAIL_SHAPES]
+             + [(f"{tag}-bf16_x", m, on_path, True)
+                for tag, m, on_path in CONV_TAIL_BF16_X_SHAPES])
+    for tag, m, on_path, round_x in cases:
         x = torch.randn(m, dim, generator=gen, device="cuda")
         u = 4 * torch.randn(m, dim, generator=gen, device="cuda") + 0.5
         w = (torch.rand(dim, 2 * dim, generator=gen, device="cuda") - 0.5) / 4
@@ -1134,33 +1142,41 @@ def conv_tail_rows(dim):
         gamma = torch.rand(dim, generator=gen, device="cuda") + 0.5
         beta = torch.randn(dim, generator=gen, device="cuda")
         args = (x, u, w, b, gamma, beta, 1e-5, True, x)
-        want = conv_tail_plain(*args)
+        want = conv_tail_plain(*args, round_x=round_x)
         before = collections.Counter(conv_tail.launches)
-        got = conv_tail(*args)
+        got = conv_tail(*args, round_x=round_x)
         launched = conv_tail.launches - before
         torch.cuda.synchronize()
         err = largest_difference(got, want)
         scale = float(want.abs().max())
+        key = (m, dim, "bf16_x") if round_x else (m, dim)
         case_ok = (bool(torch.isfinite(got).all()) and err <= CONV_TAIL_REL_TOL * scale
-                   and launched == {(m, dim): 1})
+                   and launched == {key: 1})
         ok &= case_ok
         print(f"[kernel] conv_tail/{tag} ({m}, {dim}): ok={case_ok} launches={dict(launched)} "
               f"max_abs_err={err!r} over the largest |output| {err / scale!r}", flush=True)
         del got, want
         name = f"conv_tail/{tag}/M{m}"
+        lin_x = x.bfloat16().float() if round_x else x
+        extra = {}
+        if round_x:
+            extra["f32_ms"] = device_ms(lambda: conv_tail(*args))
         rows[name] = kernel_row(
             name, "ultra_tpu_torch/csrc/conv_tail.cu",
             "none: XLA's concatenation, linear, layer norm, ReLU and add "
-            "(ultra_tpu/models/layers.py)", (m, dim), device_ms(lambda: conv_tail(*args)),
-            device_ms(lambda: conv_tail_plain(*args), samples=PLAIN_SAMPLES),
+            "(ultra_tpu/models/layers.py)", key,
+            device_ms(lambda: conv_tail(*args, round_x=round_x)),
+            device_ms(lambda: conv_tail_plain(*args, round_x=round_x), samples=PLAIN_SAMPLES),
             bound_ms(12 * m * dim, 2 * 2 * dim * dim * m), err,
             f"|err| <= {CONV_TAIL_REL_TOL} * max |output| against the plain twin on the card",
             on_path=on_path,
             library_ms=device_ms(lambda: conv_epilogue(
-                F.linear(torch.cat([x, u], dim=-1), w, b), gamma, beta, 1e-5, True, x),
+                F.linear(torch.cat([lin_x, u], dim=-1), w, b), gamma, beta, 1e-5, True, x),
                 samples=PLAIN_SAMPLES),
-            library_call="torch.cat + F.linear + E1 (conv_epilogue)")
-        del x, u, args
+            library_call="torch.cat + F.linear + E1 (conv_epilogue)", **extra)
+        if round_x:
+            rows[name]["f32_ratio"] = rows[name]["ms"] / extra["f32_ms"]
+        del x, u, args, lin_x
         torch.cuda.empty_cache()
     return rows, ok
 

@@ -279,7 +279,7 @@ DECLARED = {
     "gather_lanes_indices": (("",), "gather_cuda"),
     "gather_empty": (("",), "gather_cuda"),
     "conv_epilogue": (("",), "epilogue_cuda"),
-    "conv_tail": (("",), "conv_tail_cuda"),
+    "conv_tail": (("", "bf16_x"), "conv_tail_cuda"),
 }
 
 

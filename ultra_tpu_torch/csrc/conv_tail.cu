@@ -44,6 +44,16 @@
 //   __shfl_xor_sync each (two passes, as E1); gamma, beta, ReLU and the short
 //   cut (x from the stage) follow, and each row is written once, in 16-byte
 //   stores.
+// - the bf16-x instance (ROUND_X; compute_dtype: bfloat16) takes the same f32
+//   x, whose linear half the JAX package computes on x rounded to bf16 and
+//   widened back (the rspmm's operand, promoted by the concatenation), while
+//   its short cut adds x itself. Once a tile has landed, each thread reads
+//   the TR x 8 values of x that its short cut adds, keeps them in registers
+//   and writes them back rounded to bf16 (round to nearest even); the
+//   threads' values partition the tile, so one barrier follows. BM * 64
+//   conversions a tile, where rounding inside the product would repeat each
+//   on the 8 lanes of its row. No extra shared memory, so the occupancy
+//   stays three blocks an SM; the f32 instance's code is as it was.
 // Without the loads it runs about as fast (the sweep's probe `noload`): the
 // FFMA loop bounds it, at about 37 TFLOP/s, where cuBLAS's f32 GEMM reaches
 // 36 on this shape and 52 on large square ones. A small M runs on one block
@@ -54,6 +64,7 @@
 // CONV_TAIL_SIZES (BM, TR, S) and the product's unrolling are the sweep's to
 // edit (scripts/torch_conv_tail_sweep.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -112,6 +123,13 @@ __device__ __forceinline__ void load_tile(float* stage, const float* x, const fl
   }
 }
 
+// Rounds a float4 of x to bf16 (round to nearest even) and widens it back.
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  const float2 lo = __bfloat1622float2(__float22bfloat162_rn(make_float2(v.x, v.y)));
+  const float2 hi = __bfloat1622float2(__float22bfloat162_rn(make_float2(v.z, v.w)));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // acc[i][:] += a's row (group + kGroups * i) over k = 0..63 times w's rows
 // k (64 floats each: the thread's 8 columns).
 template <int BM, int TR>
@@ -161,7 +179,7 @@ __device__ __forceinline__ float act(float v) {
   }
 }
 
-template <int BM, int TR, int S, bool RELU, bool RESIDUAL>
+template <int BM, int TR, int S, bool RELU, bool RESIDUAL, bool ROUND_X>
 __global__ void __launch_bounds__(Tile<BM, TR, S>::kThreads)
     conv_tail_kernel(const float* __restrict__ x, const float* __restrict__ u,
                      const float* __restrict__ w, const float* __restrict__ bias,
@@ -210,7 +228,30 @@ __global__ void __launch_bounds__(Tile<BM, TR, S>::kThreads)
     cp_async_wait<S - 1>();  // this tile's group has landed
     __syncthreads();
 
-    const float* xs = stages + (it % S) * T::kStage;
+    float* xs = stages + (it % S) * T::kStage;
+    // ROUND_X: the thread's own TR x 8 values of x, the ones its short cut
+    // adds, kept unrounded in registers and rounded in place in the stage.
+    // The threads' values partition the tile's x, so no value is rounded
+    // twice or read by its owner after another thread rounded it.
+    float shortcut[ROUND_X ? TR : 1][8];
+    if constexpr (ROUND_X) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        float4* row = reinterpret_cast<float4*>(xs + (group + T::kGroups * i) * kRow);
+        const float4 r0 = row[col], r1 = row[8 + col];
+        shortcut[i][0] = r0.x;
+        shortcut[i][1] = r0.y;
+        shortcut[i][2] = r0.z;
+        shortcut[i][3] = r0.w;
+        shortcut[i][4] = r1.x;
+        shortcut[i][5] = r1.y;
+        shortcut[i][6] = r1.z;
+        shortcut[i][7] = r1.w;
+        row[col] = round_bf16(r0);
+        row[8 + col] = round_bf16(r1);
+      }
+      __syncthreads();  // the whole tile's x rounded before the product reads it
+    }
     float acc[TR][8];
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
@@ -247,7 +288,10 @@ __global__ void __launch_bounds__(Tile<BM, TR, S>::kThreads)
       float o[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) o[j] = act<RELU>(v[j] * rstd * g[j] + be[j]);
-      if constexpr (RESIDUAL) {
+      if constexpr (RESIDUAL && ROUND_X) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[j] += shortcut[i][j];
+      } else if constexpr (RESIDUAL) {
         const float4 r0 = *reinterpret_cast<const float4*>(xs + r * kRow + 4 * col);
         const float4 r1 = *reinterpret_cast<const float4*>(xs + r * kRow + 32 + 4 * col);
         o[0] += r0.x;
@@ -274,11 +318,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 // The grid that fills the card at the instance's occupancy, found once (0
 // where the card refuses the instance).
-template <int BM, int TR, int S, bool RELU, bool RESIDUAL>
+template <int BM, int TR, int S, bool RELU, bool RESIDUAL, bool ROUND_X>
 long long max_blocks() {
   static const long long blocks = [] {
     using T = Tile<BM, TR, S>;
-    const auto kernel = conv_tail_kernel<BM, TR, S, RELU, RESIDUAL>;
+    const auto kernel = conv_tail_kernel<BM, TR, S, RELU, RESIDUAL, ROUND_X>;
     int dev = 0, sms = 0, per_sm = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
@@ -300,23 +344,45 @@ struct Args {
   float eps;
 };
 
-template <int BM, int TR, int S, bool RELU, bool RESIDUAL>
+template <int BM, int TR, int S, bool RELU, bool RESIDUAL, bool ROUND_X>
 int launch(const Args& a, long long blocks, cudaStream_t stream) {
   using T = Tile<BM, TR, S>;
-  conv_tail_kernel<BM, TR, S, RELU, RESIDUAL>
+  conv_tail_kernel<BM, TR, S, RELU, RESIDUAL, ROUND_X>
       <<<static_cast<unsigned>(blocks), T::kThreads, T::kSmemBytes, stream>>>(
           a.x, a.u, a.w, a.bias, a.gamma, a.beta, a.out, a.rows, a.eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // As many blocks as fill the card, or one a tile where there are fewer tiles.
-template <bool RELU, bool RESIDUAL>
+template <bool RELU, bool RESIDUAL, bool ROUND_X>
 int launch_act(const Args& a, cudaStream_t stream) {
-  const long long cap = max_blocks<CONV_TAIL_SIZES, RELU, RESIDUAL>();
+  const long long cap = max_blocks<CONV_TAIL_SIZES, RELU, RESIDUAL, ROUND_X>();
   if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   constexpr long long kBM = Tile<CONV_TAIL_SIZES>::kBM;
   const long long tiles = (a.rows + kBM - 1) / kBM;
-  return launch<CONV_TAIL_SIZES, RELU, RESIDUAL>(a, tiles < cap ? tiles : cap, stream);
+  return launch<CONV_TAIL_SIZES, RELU, RESIDUAL, ROUND_X>(a, tiles < cap ? tiles : cap, stream);
+}
+
+template <bool ROUND_X>
+int launch_instance(const void* x, const void* u, const void* w, const void* bias,
+                    const void* gamma, const void* beta, void* out, long long rows, float eps,
+                    int relu, int residual, void* stream) {
+  if (rows < 1 || !aligned16(x) || !aligned16(u) || !aligned16(w) || !aligned16(bias) ||
+      !aligned16(gamma) || !aligned16(beta) || !aligned16(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{static_cast<const float*>(x),     static_cast<const float*>(u),
+               static_cast<const float*>(w),     static_cast<const float*>(bias),
+               static_cast<const float*>(gamma), static_cast<const float*>(beta),
+               static_cast<float*>(out),         rows,
+               eps};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (relu) {
+    return residual ? launch_act<true, true, ROUND_X>(a, s)
+                    : launch_act<true, false, ROUND_X>(a, s);
+  }
+  return residual ? launch_act<false, true, ROUND_X>(a, s)
+                  : launch_act<false, false, ROUND_X>(a, s);
 }
 
 }  // namespace
@@ -331,18 +397,17 @@ int launch_act(const Args& a, cudaStream_t stream) {
 extern "C" int conv_tail(const void* x, const void* u, const void* w, const void* bias,
                          const void* gamma, const void* beta, void* out, long long rows,
                          float eps, int relu, int residual, void* stream) {
-  if (rows < 1 || !aligned16(x) || !aligned16(u) || !aligned16(w) || !aligned16(bias) ||
-      !aligned16(gamma) || !aligned16(beta) || !aligned16(out)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Args a{static_cast<const float*>(x),     static_cast<const float*>(u),
-               static_cast<const float*>(w),     static_cast<const float*>(bias),
-               static_cast<const float*>(gamma), static_cast<const float*>(beta),
-               static_cast<float*>(out),         rows,
-               eps};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (relu) {
-    return residual ? launch_act<true, true>(a, s) : launch_act<true, false>(a, s);
-  }
-  return residual ? launch_act<false, true>(a, s) : launch_act<false, false>(a, s);
+  return launch_instance<false>(x, u, w, bias, gamma, beta, out, rows, eps, relu, residual,
+                                stream);
+}
+
+// The bf16-x instance: the same arguments; the linear reads x rounded to
+// bf16 (round to nearest even) and widened back, the short cut adds x as
+// it is.
+extern "C" int conv_tail_bf16_x(const void* x, const void* u, const void* w, const void* bias,
+                                const void* gamma, const void* beta, void* out,
+                                long long rows, float eps, int relu, int residual,
+                                void* stream) {
+  return launch_instance<true>(x, u, w, bias, gamma, beta, out, rows, eps, relu, residual,
+                               stream);
 }

@@ -25,7 +25,11 @@ port to its Pallas path: the kernels accumulate in f32 and write f32
 (``ops/rspmm.py``). PNA's squares are taken of the bf16 tensors, in bf16;
 the boundary, the degree, the PNA features, ``linear``, ``layer_norm`` and
 the activation stay f32, and ``linear`` sees the rounded input widened
-back to f32, as the JAX package's concatenation promotes it. The per-edge
+back to f32, as the JAX package's concatenation promotes it, while the short
+cut adds the f32 layer input (``bellmanford``'s ``residual``). At inference
+E2's bf16-x instance takes the f32 input and rounds it on chip
+(``_tail``), so the rounded copy feeds only the rspmm. The casts count their
+bytes read and written in the profiling counter ``cast_bytes``. The per-edge
 path rounds its operands the same way and computes in f32. ``rotate`` with
 ``max`` or ``pna`` is left in f32, as the JAX package returns from it
 before the cast.
@@ -129,6 +133,15 @@ def _rotate_sum_rspmm(graph: Graph, relation, input):
     out4 = rspmm_from_graph(graph, r4, x4, sum="add", mul="mul")
     return torch.cat([out4[..., :d] - out4[..., d:2 * d],
                       out4[..., 2 * d:3 * d] + out4[..., 3 * d:]], dim=-1)
+
+
+def _cast(t, dtype):
+    """``t.to(dtype)``; a cast that copies counts the bytes it reads and
+    writes in the profiling counter ``cast_bytes``."""
+    if t.dtype == dtype:
+        return t
+    profiling.count("cast_bytes", t.numel() * (t.element_size() + dtype.itemsize))
+    return t.to(dtype)
 
 
 def _shard_ops(graph: Graph):
@@ -269,40 +282,46 @@ class GeneralizedRelationalConv(nn.Module):
         relation = self.layer_relation(query, relation_input)
         aggregate = cfg.aggregate_func
         edgewise = aggregate in ("max", "pna") and (per_edge or cfg.message_func == "rotate")
+        x = input  # the layer's input as it came: E2 takes it, and rounds it itself
         if cfg.compute_dtype and not (edgewise and cfg.message_func == "rotate"):
             dtype = getattr(torch, cfg.compute_dtype)
-            input, relation = input.to(dtype), relation.to(dtype)
+            input, relation = _cast(input, dtype), _cast(relation, dtype)
         if edgewise:
             update = _per_edge_update(aggregate, cfg.message_func, graph,
                                       input.to(boundary.dtype), boundary,
                                       relation.to(boundary.dtype))
         else:
             update = self._update(graph, input, boundary, relation, rows)
-        if self._tail(input, update, residual):
+        if self._tail(x, input, update, residual):
             ln = self.layer_norm
-            return conv_tail_cuda.conv_tail(input, update, self.linear.weight, self.linear.bias,
+            return conv_tail_cuda.conv_tail(x, update, self.linear.weight, self.linear.bias,
                                             ln.weight, ln.bias, ln.eps,
-                                            cfg.activation == "relu", residual)
+                                            cfg.activation == "relu", residual,
+                                            round_x=input.dtype == torch.bfloat16)
         output = self.linear(torch.cat([input.to(update.dtype), update], dim=-1))
         return self._epilogue(output, residual)
 
-    def _tail(self, input, update, residual) -> bool:
+    def _tail(self, x, input, update, residual) -> bool:
         """Whether one call of ``conv_tail_cuda.conv_tail`` (E2, one kernel
         on the card) computes the linear of ``[input | update]``, the layer
         norm, the activation and the short cut: where no gradient is wanted,
         the layer norm is on, the activation ReLU or none, the linear 64 ->
-        64 over the two, every operand f32, ``input`` and ``update`` of one
-        shape, contiguous and 16-byte aligned, and the short cut's input
-        none or ``input`` itself. Else the linear, then :meth:`_epilogue`."""
+        64 over the two, every operand f32 (``input`` may be ``x`` rounded
+        to bf16, which E2's bf16-x instance rounds from ``x`` itself), ``x``
+        and ``update`` of one shape, contiguous and 16-byte aligned, and the
+        short cut's input none or ``x`` itself. Else the linear, then
+        :meth:`_epilogue`."""
         cfg = self.cfg
         if not cfg.layer_norm or cfg.activation not in ("relu", None, ""):
             return False
         width = conv_tail_cuda.WIDTH
-        if self.linear.weight.shape != (width, 2 * width) or update.shape != input.shape:
+        if self.linear.weight.shape != (width, 2 * width) or update.shape != x.shape:
             return False
-        if residual is not None and residual is not input:
+        if residual is not None and residual is not x:
             return False
-        operands = (input, update, self.linear.weight, self.linear.bias, self.layer_norm.weight,
+        if input is not x and input.dtype != torch.bfloat16:
+            return False
+        operands = (x, update, self.linear.weight, self.linear.bias, self.layer_norm.weight,
                     self.layer_norm.bias)
         if any(t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16
                for t in operands):
