@@ -78,6 +78,12 @@ It needs one CUDA card and exits non-zero without one. In order, it:
    cell's shape (see RANKING_GRAPH): the relation model and every hidden
    state of the entity pass with the rows the same bits as without them,
    and the pass's six ``index_add_`` calls timed beside its six dense adds;
+   and (``[scorer]``) the scorer S1 (the scoring MLP over [hidden | query]
+   in one pass) against its plain twin, the composed ops, at the ranking
+   cell's, the evaluation cell's and a FB15k-237 batch's shapes and a
+   ragged one, timed beside them, one launch a call asserted, with the
+   blocks an SM holds (``[serving]`` and ``[pna-serving]`` assert its
+   launch a batch);
 9. runs ``compute_dtype: bfloat16`` (``[bf16]``, see BF16_REL): the bf16
    instances of B1-B6 against their plain versions in f64 on the same bf16
    operands, each timed beside the f32 instance (with the ratio of the two
@@ -201,10 +207,11 @@ TIMED_PRECOMPUTES = 5
 PRECOMPUTE_CHUNK = 64  # train/eval.py precompute_relation_representations
 # the sources in ultra_tpu_torch/csrc
 KERNELS = ("rspmm_sum_fwd", "rspmm_sum_drel", "rspmm_minmax_fwd", "rspmm_minmax_dx",
-           "rspmm_minmax_drel", "rspmm_dw", "gather", "conv_epilogue", "conv_tail")
+           "rspmm_minmax_drel", "rspmm_dw", "gather", "conv_epilogue", "conv_tail",
+           "mlp_score")
 PHASES = ("kernels", "serving", "training", "pna-serving", "pna-training", "conv", "bf16",
           "visualize", "link-prediction", "clqa", "pretrain", "clqa-training", "distributed",
-          "gather-probe", "tooling", "boundary-rows")
+          "gather-probe", "tooling", "boundary-rows", "scorer")
 # the PNA configuration (benchlib.pna_config): ultra_3g widths, a sum
 # relation model and a PNA entity model, whose layers' linear takes 13 * 64
 PNA_PARAMS = 439041
@@ -247,6 +254,22 @@ CONV_TAIL_SHAPES = (("ranking", 123_182 * 16, False), ("eval", 14_505 * 32, Fals
 # E2's bf16-x instance (compute_dtype: bfloat16; the linear reads x rounded to
 # bf16): the bf16 ranking cell's entity pass, timed beside the f32 instance
 CONV_TAIL_BF16_X_SHAPES = (("ranking", 123_182 * 16, False),)
+# S1, the scorer, against its plain twin: max |err| over the logits' largest
+# |value| (tests/test_torch_mlp_score.py: a row's products summed in other
+# orders, E2's tolerance)
+SCORER_REL_TOL = 1e-5
+# S1's shapes: (tag, nodes, queries, on a path of this script): the ranking
+# cell's entity pass (1,970,912 rows), the evaluation cell's (464,160), the
+# FB15k-237 graph's at a batch of 8 ([serving]; 116,328), and a ragged count
+# whose last tile is mostly past the end
+SCORER_SHAPES = (("ranking", 123_182, 16, False), ("eval", 14_505, 32, False),
+                 ("fb15k237", 14_541, 8, True), ("ragged", 1_001, 3, False))
+# the phases that read S1's launches (layer_ends), whose batches of 8 on
+# FB15k-237 give the on-path shape
+SCORER_PHASES = ("serving", "pna-serving")
+# the acceptance of S1 at the ranking cell's shape: at most this many ms, and
+# at most this share of the composed ops' time in the same run
+SCORER_RANKING_MS, SCORER_RANKING_RATIO = 1.1, 1 / 3
 # [boundary-rows]: the ranking cell's graph (YAGO3-10's shape: 123,182
 # entities, 37 direct relations, 1,079,040 training triples, Zipf relations,
 # 30 categories; benchmark/traffic/rank.yago310.json) and its entity pass of
@@ -1181,6 +1204,74 @@ def conv_tail_rows(dim):
     return rows, ok
 
 
+def scorer_rows():
+    """S1 (``ops/mlp_score_cuda.py``) at each of SCORER_SHAPES against its
+    plain twin on the card (SCORER_REL_TOL), each check one launch
+    (asserted); times the kernel and, as ``plain_ms`` and ``library_ms``,
+    the twin, which is the composed ops the scorer ran before it
+    (``torch.cat``, ``F.linear``, ReLU, ``F.linear``). Its bound: a row of h
+    read and its logit written, 260 bytes, against 2 * 64 * 128 + 2 * 128
+    f32 operations a row. Prints the blocks an SM holds at each batch
+    (ptxas's registers are on the ``[build]`` line). Returns (rows of the
+    kernels line, ok)."""
+    from ultra_tpu_torch.ops.mlp_score_cuda import blocks, mlp_score, mlp_score_plain
+    from ultra_tpu_torch.utils.benchlib import device_ms
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator("cuda").manual_seed(0)
+    rows, ok = {}, True
+    for tag, v, b, on_path in SCORER_SHAPES:
+        h = (torch.relu(torch.randn(v, b, 64, generator=gen, device="cuda"))
+             + 0.5 * torch.randn(v, b, 64, generator=gen, device="cuda"))
+        q = torch.randn(b, 64, generator=gen, device="cuda")
+        w1 = (torch.rand(128, 128, generator=gen, device="cuda") - 0.5) / 8
+        b1 = torch.randn(128, generator=gen, device="cuda") / 8
+        w2 = (torch.rand(1, 128, generator=gen, device="cuda") - 0.5) / 8
+        b2 = torch.randn(1, generator=gen, device="cuda")
+        args = (h, q, w1, b1, w2, b2)
+        m = v * b
+        want = mlp_score_plain(*args)
+        before = collections.Counter(mlp_score.launches)
+        got = mlp_score(*args)
+        launched = mlp_score.launches - before
+        torch.cuda.synchronize()
+        err = largest_difference(got, want)
+        scale = float(want.abs().max())
+        grid = blocks(b, torch.device("cuda"))
+        case_ok = (bool(torch.isfinite(got).all()) and err <= SCORER_REL_TOL * scale
+                   and launched == {(m, b): 1} and grid > 0)
+        ok &= case_ok
+        print(f"[kernel] mlp_score/{tag} ({m}, {b}): ok={case_ok} launches={dict(launched)} "
+              f"max_abs_err={err!r} over the largest |logit| {err / scale!r}; grid {grid} "
+              f"blocks, {grid / sms!r} an SM", flush=True)
+        del got, want
+        name = f"mlp_score/{tag}/M{m}xB{b}"
+        plain_ms = device_ms(lambda: mlp_score_plain(*args), samples=PLAIN_SAMPLES)
+        rows[name] = kernel_row(
+            name, "ultra_tpu_torch/csrc/mlp_score.cu",
+            "none: XLA's concatenation, linears and ReLU (ultra_tpu/models/nbfnet.py)",
+            (m, b), device_ms(lambda: mlp_score(*args)), plain_ms,
+            bound_ms(260 * m, (2 * 64 * 128 + 2 * 128) * m), err,
+            f"|err| <= {SCORER_REL_TOL} * max |logit| against the plain twin on the card",
+            on_path=on_path, library_ms=plain_ms,
+            library_call="torch.cat + F.linear + relu + F.linear (the plain twin)",
+            blocks_per_sm=grid / sms)
+        if on_path:
+            rows[name]["phases"] = SCORER_PHASES
+        if tag == "ranking":
+            row = rows[name]
+            fast = (row["ms"] <= SCORER_RANKING_MS
+                    and row["ms"] <= SCORER_RANKING_RATIO * row["library_ms"])
+            print(f"[kernel] mlp_score/ranking: {row['ms']!r} ms, "
+                  f"{row['ms'] / row['library_ms']!r} of the composed ops' "
+                  f"{row['library_ms']!r}; want at most {SCORER_RANKING_MS} ms and "
+                  f"{SCORER_RANKING_RATIO:.3f}: ok={fast}", flush=True)
+            ok &= fast
+        del h, q, args
+        torch.cuda.empty_cache()
+    return rows, ok
+
+
 def check_kernels(graph, rule_graph, lp_graph, clqa_graph, cfg, gen, uniform,
                   training_graphs=()):
     """Every kernel wrapper against its plain version at each shape the
@@ -1370,15 +1461,15 @@ def serve(split, ckpt, device):
                                           batch_size=BATCH)
 
 
-# the kernels that end a conv layer, whose launches are read apart
-# (:func:`layer_ends`)
-LAYER_ENDS = ("conv_epilogue", "conv_tail")
+# the kernels that end a conv layer (E1, E2) and the entity pass (S1, the
+# scorer), whose launches are read apart (:func:`layer_ends`)
+LAYER_ENDS = ("conv_epilogue", "conv_tail", "mlp_score")
 
 
 def launch_counts():
     """{wrapper: {output shape (rows, F), for B2 (V, R, F), for the gathers
-    with the element type: launches}} since the last reset; E1's and E2's
-    are read apart (:func:`layer_ends`)."""
+    with the element type: launches}} since the last reset; E1's, E2's and
+    S1's are read apart (:func:`layer_ends`)."""
     from ultra_tpu_torch.ops import build
 
     return {name: dict(counter) for name, counter in build.launch_counters().items()
@@ -1386,7 +1477,8 @@ def launch_counts():
 
 
 def layer_ends():
-    """{E1's and E2's wrapper: {(rows, N): launches}} since the last reset."""
+    """{E1's, E2's and S1's wrapper: {(rows, N), for S1 (rows, B):
+    launches}} since the last reset."""
     from ultra_tpu_torch.ops import build
 
     counters = build.launch_counters()
@@ -1730,8 +1822,9 @@ def pna_serving(split, cfg):
     batches timed; launches asserted per phase, scores of one batch held
     against the same predictor on the CPU. E2 ends each layer of the
     relation model's precompute, E1 each PNA layer of a batch (its linear
-    takes 13 x 64). Returns (the ``[pna-serving]`` record, the launches of
-    the precompute and the 4 batches, E1's and E2's among them)."""
+    takes 13 x 64), S1 scores each batch: one launch. Returns (the
+    ``[pna-serving]`` record, the launches of the precompute and the 4
+    batches, E1's, E2's and S1's among them)."""
     from ultra_tpu_torch.serve import UltraPredictor
     from ultra_tpu_torch.train.loop import init_ultra_params
 
@@ -1772,7 +1865,7 @@ def pna_serving(split, cfg):
         pred.predict_tails(hb, rb, k=TOPK)  # returns host arrays: synchronised
         lat.append(1e3 * (time.perf_counter() - t0))
     total_s = time.perf_counter() - t_all
-    timed_counts = launch_counts()
+    timed_counts, timed_ends = launch_counts(), layer_ends()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     card = pred.score_all(h[:BATCH], r[:BATCH])
@@ -1790,11 +1883,15 @@ def pna_serving(split, cfg):
                                              PRECOMPUTE_CHUNK * dim),
                             -(-num_rel // PRECOMPUTE_CHUNK))
     relation_layers = len(cfg.relation_model.hidden_dims) * -(-num_rel // PRECOMPUTE_CHUNK)
+    entity_layers = len(cfg.entity_model.hidden_dims)
+    # E1 ends each PNA layer of a batch and S1 scores it: one launch a batch
+    batch_ends = lambda batches: {
+        "conv_epilogue": {(num_nodes * BATCH, dim): entity_layers * batches},
+        "conv_tail": {}, "mlp_score": {(num_nodes * BATCH, BATCH): batches}}
     want_ends = ({"conv_epilogue": {},
-                  "conv_tail": {(num_rel * PRECOMPUTE_CHUNK, dim): relation_layers}},
-                 {"conv_epilogue": {(num_nodes * BATCH, dim): len(cfg.entity_model.hidden_dims)
-                                    * (TAIL_BATCHES + HEAD_BATCHES)},
-                  "conv_tail": {}})
+                  "conv_tail": {(num_rel * PRECOMPUTE_CHUNK, dim): relation_layers},
+                  "mlp_score": {}},
+                 batch_ends(TAIL_BATCHES + HEAD_BATCHES), batch_ends(TIMED_BATCHES))
     record = {
         "params": n_params, "setup_s": setup_s,
         "batch_ms_median": statistics.median(lat), "batch_ms_min": min(lat),
@@ -1802,12 +1899,13 @@ def pna_serving(split, cfg):
         "peak_mem_mib": peak_mib, "cpu_vs_card_max_abs_err": float(score_err.max()),
         "cpu_s": cpu_s, "launches_per_batch": as_json(per_batch),
         "launches": {"precompute": as_json(precompute_counts), "serve": as_json(serve_counts),
-                     "layer_ends": [as_json(precompute_ends), as_json(serve_ends)]},
+                     "layer_ends": [as_json(precompute_ends), as_json(serve_ends),
+                                    as_json(timed_ends)]},
     }
     print("[pna-serving] " + json.dumps(record), flush=True)
-    check((precompute_ends, serve_ends) == want_ends,
-          f"E1 and E2 launched {precompute_ends} in the PNA precompute and {serve_ends} in "
-          f"its batches, want {want_ends}")
+    check((precompute_ends, serve_ends, timed_ends) == want_ends,
+          f"E1, E2 and S1 launched {precompute_ends} in the PNA precompute, {serve_ends} in "
+          f"its 4 batches and {timed_ends} in the timed ones, want {want_ends}")
     check(precompute_counts == want_precompute,
           f"the PNA precompute launched {precompute_counts}, want {want_precompute}")
     check(serve_counts == times(per_batch, TAIL_BATCHES + HEAD_BATCHES),
@@ -1878,8 +1976,8 @@ def boundary_rows_run(cfg, device="cuda"):
     from ultra_tpu_torch.data.kg import KGSplit, split_to_graph
     from ultra_tpu_torch.data.synthetic import random_kg_triples, with_inverses
     from ultra_tpu_torch.models.nbfnet import (
-        Ultra, bellmanford, boundary_rows, entity_nbfnet_score_all, rel_nbfnet_apply,
-        scatter_boundary,
+        Ultra, _score_nodes, bellmanford, boundary_rows, entity_nbfnet_score_all,
+        rel_nbfnet_apply, scatter_boundary,
     )
     from ultra_tpu_torch.utils.benchlib import device_ms
 
@@ -1915,12 +2013,11 @@ def boundary_rows_run(cfg, device="cuda"):
         got = bellmanford(model.entity_model, graph, boundary, query, rel_repr, rows)
         want = bellmanford(model.entity_model, graph, boundary, query, rel_repr)
         record["hiddens_equal"] = [torch.equal(a, w) for a, w in zip(got, want)]
-        feature = torch.cat([want[-1], query.expand(graph.num_nodes, b, query.shape[-1])], -1)
+        dense_scores = _score_nodes(model.entity_model, want, query)
         del got, want
         scores = entity_nbfnet_score_all(model.entity_model, graph, rel_repr, h, r)
-        record["scores_equal"] = torch.equal(scores, model.entity_model.mlp(feature)
-                                             .squeeze(-1).T)
-        del feature, scores
+        record["scores_equal"] = torch.equal(scores, dense_scores)
+        del dense_scores, scores
         update = torch.randn(boundary.shape, generator=torch.Generator().manual_seed(1)).to(device)
         flat = update.view(-1, update.shape[-1])
         index, values = rows
@@ -3217,7 +3314,7 @@ def sum_serving(split, cfg):
     """The serving path at full width: ultra_3g, random weights from a seed,
     written in the reference .pth layout and served from it. Returns (the
     ``[serving]`` record, the launches of the precompute and the 4
-    batches, E1's and E2's under their wrappers' names)."""
+    batches, E1's, E2's and S1's under their wrappers' names)."""
     from ultra_tpu_torch.train.eval import precompute_relation_representations
     from ultra_tpu_torch.train.loop import init_ultra_params
 
@@ -3245,7 +3342,8 @@ def sum_serving(split, cfg):
     # graph's rows x 64 relations, the entity graph's x a batch; E1 none
     precompute_ends = layer_ends()
     want_precompute_ends = {"conv_epilogue": {},
-                            "conv_tail": {(num_rel * PRECOMPUTE_CHUNK, dim): want_precompute}}
+                            "conv_tail": {(num_rel * PRECOMPUTE_CHUNK, dim): want_precompute},
+                            "mlp_score": {}}
 
     # the precompute alone, warm, timed a few times (it ran once above, inside
     # set-up): it is mostly host time, which varies from run to run
@@ -3289,8 +3387,12 @@ def sum_serving(split, cfg):
     total_s = time.perf_counter() - t_all
     timed_launches = fwd_launches(launch_counts())
     timed_ends = layer_ends()
-    want_timed_ends = {"conv_epilogue": {},
-                       "conv_tail": {(num_nodes * BATCH, dim): layers * TIMED_BATCHES}}
+    # E2 ends each layer of a batch and S1 scores it: one launch a batch
+    batch_ends = lambda batches: {
+        "conv_epilogue": {}, "conv_tail": {(num_nodes * BATCH, dim): layers * batches},
+        "mlp_score": {(num_nodes * BATCH, BATCH): batches}}
+    want_serve_ends = batch_ends(TAIL_BATCHES + HEAD_BATCHES)
+    want_timed_ends = batch_ends(TIMED_BATCHES)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     # top-k against score_all, on the card
@@ -3339,10 +3441,11 @@ def sum_serving(split, cfg):
     check(timed_launches == layers * TIMED_BATCHES,
           f"timed batches launched {timed_launches}, want {layers * TIMED_BATCHES}")
     check(precompute_ends == want_precompute_ends,
-          f"the precompute launched E1 and E2 {precompute_ends}, want {want_precompute_ends}")
-    check(timed_ends == want_timed_ends,
-          f"timed batches launched E1 and E2 {timed_ends}, want {want_timed_ends} (E2 6 a "
-          "pass)")
+          f"the precompute launched E1, E2 and S1 {precompute_ends}, want "
+          f"{want_precompute_ends}")
+    check((serve_ends, timed_ends) == (want_serve_ends, want_timed_ends),
+          f"E1, E2 and S1 launched {serve_ends} in 4 batches and {timed_ends} in the timed "
+          f"ones, want {want_serve_ends} and {want_timed_ends} (E2 6 a pass, S1 one)")
     check(ok_topk, "top-k disagrees with score_all, or scores are not finite")
     check(ok_cpu, f"card and CPU scores differ by up to {float(score_err.max())!r}")
     del pred, cpu_pred
@@ -5018,6 +5121,14 @@ def main() -> int:
     run("gather-probe", gather_probe_phase)
     run("tooling", tooling_phase)
     run("boundary-rows", lambda: boundary_rows_run(cfg))
+
+    def scorer_phase():
+        rows, ok = scorer_rows()
+        kernels.update(rows)
+        check(ok, "S1 disagrees with its plain twin, launched other than once, or is slower "
+                  "than it should be at the ranking cell's shape (see the [kernel] lines)")
+
+    run("scorer", scorer_phase)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke failed:\n" + "\n".join(failures), file=sys.stderr)

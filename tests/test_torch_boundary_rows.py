@@ -143,7 +143,8 @@ def _dense_entity_features(model, graph, rel_repr, h_index, r_index):
     """``entity_nbfnet_features`` with ``bellmanford`` given no rows."""
     query = rel_repr[torch.arange(h_index.shape[0], device=h_index.device), r_index]
     boundary = nbfnet.scatter_boundary(h_index, query, graph.num_nodes)
-    return nbfnet._node_features(model, graph, boundary, query, rel_repr)
+    hiddens = nbfnet.bellmanford(model, graph, boundary, query, relation_input=rel_repr)
+    return nbfnet._features(model, hiddens, query)
 
 
 def _dense_relation(model, rel_graph, query_rels):
@@ -291,7 +292,8 @@ def test_the_counter_reads_each_conv_that_added_rows(graph, tmp_path):
 def test_card_ranking_forward_is_the_dense_path(card):
     """A ranking batch of 16 on a 3,000-node graph at ULTRA's widths, on
     the card: the relation model, every entity hidden state and the scores
-    with rows the dense path's bits (B1, E2 and index_add_ on the card)."""
+    with rows the dense path's bits (B1, E2 and index_add_ on the card; the
+    scores of both through the scorer S1)."""
     g = _graph(num_nodes=3000, num_direct=20, num_triples=40_000, device=card, pad_to=None)
     model = _ultra().to(card)
     gen = torch.Generator().manual_seed(5)
@@ -309,5 +311,4 @@ def test_card_ranking_forward_is_the_dense_path(card):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         scores = nbfnet.entity_nbfnet_score_all(model.entity_model, g, rel_repr, h, r)
-        feature = _dense_entity_features(model.entity_model, g, rel_repr, h, r)
-        assert torch.equal(scores, model.entity_model.mlp(feature).squeeze(-1).T)
+        assert torch.equal(scores, nbfnet._score_nodes(model.entity_model, want, query))

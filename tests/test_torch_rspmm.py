@@ -280,6 +280,8 @@ DECLARED = {
     "gather_empty": (("",), "gather_cuda"),
     "conv_epilogue": (("",), "epilogue_cuda"),
     "conv_tail": (("", "bf16_x"), "conv_tail_cuda"),
+    "mlp_score": (("",), "mlp_score_cuda"),
+    "mlp_score_blocks": (("",), "mlp_score_cuda"),
 }
 
 
@@ -305,7 +307,7 @@ def test_every_counted_wrapper_is_in_the_launch_registry():
     assert set(found) == set(counters) == {
         "rspmm_sum_fwd", "rspmm_sum_dx", "rspmm_sum_drel", "rspmm_dw", "rspmm_minmax_fwd",
         "rspmm_minmax_dx", "rspmm_minmax_drel", "gather_rows", "gather_lanes", "conv_epilogue",
-        "conv_tail"}
+        "conv_tail", "mlp_score"}
     assert all(found[name].launches is counter for name, counter in counters.items())
     for counter in counters.values():
         counter[("a launch",)] += 1

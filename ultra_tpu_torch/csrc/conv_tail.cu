@@ -67,6 +67,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #define CONV_TAIL_SIZES 64, 4, 1
@@ -76,6 +77,7 @@ namespace {
 constexpr int kN = 64;         // the layer's width, in and out
 constexpr int kK = 2 * kN;     // [x | u]
 constexpr int kRow = kN + 4;   // a staged row of x or u: 64 floats and 4 of padding
+constexpr int kMaxDevices = 64;  // the cards whose grids max_blocks keeps
 
 template <int BM, int TR, int S>
 struct Tile {
@@ -316,24 +318,30 @@ __global__ void __launch_bounds__(Tile<BM, TR, S>::kThreads)
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-// The grid that fills the card at the instance's occupancy, found once (0
-// where the card refuses the instance).
+// The grid that fills the current card at the instance's occupancy, found
+// once a card (0 where the card refuses the instance). The shared-memory
+// attribute it sets first is the card's own, so a card that has not been
+// asked yet sets it before its first launch.
 template <int BM, int TR, int S, bool RELU, bool RESIDUAL, bool ROUND_X>
 long long max_blocks() {
-  static const long long blocks = [] {
+  static std::atomic<long long> found[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  long long blocks = found[dev].load(std::memory_order_relaxed);
+  if (blocks == 0) {
     using T = Tile<BM, TR, S>;
     const auto kernel = conv_tail_kernel<BM, TR, S, RELU, RESIDUAL, ROUND_X>;
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::kSmemBytes) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::kThreads,
                                                       T::kSmemBytes) != cudaSuccess) {
-      return 0LL;
+      return 0;
     }
-    return static_cast<long long>(sms) * per_sm;
-  }();
+    blocks = static_cast<long long>(sms) * per_sm;
+    found[dev].store(blocks, std::memory_order_relaxed);
+  }
   return blocks;
 }
 

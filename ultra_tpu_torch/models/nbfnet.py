@@ -22,6 +22,7 @@ from ultra_tpu_torch.graph import Graph
 from ultra_tpu_torch.models.layers import (
     ConvConfig, GeneralizedRelationalConv, check_compute_dtype,
 )
+from ultra_tpu_torch.ops import mlp_score_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +117,7 @@ def scatter_boundary(h_index, query, num_nodes: int):
     """(V, B, D) boundary: query[b] added onto node h_index[b] — add, not
     set, so duplicate heads accumulate as the reference's ``scatter_add_``.
 
-    Its callers that run a model on it, :func:`entity_nbfnet_features` and
+    Its callers that run a model on it, :func:`_entity_hiddens` and
     :func:`rel_nbfnet_apply`, also hand its nonzero rows to
     :func:`bellmanford` (:func:`boundary_rows`): layer 0's input and its
     short cut read this dense tensor, and each sum or mean conv adds the
@@ -209,26 +210,59 @@ def entity_nbfnet_features(
 ):
     """Bellman-Ford on the entity graph for (h, r) rows of shape (B,).
     Returns (V, B, F) node features [last hidden ‖ query]."""
+    return _features(model, *_entity_hiddens(model, graph, relation_representations,
+                                             h_index, r_index))
+
+
+def _entity_hiddens(model: NBFNet, graph: Graph, relation_representations, h_index, r_index):
+    """Bellman-Ford on the entity graph for (h, r) rows of shape (B,), from
+    the boundary of each row's query at its head: (every layer's (V, B, D)
+    hidden state, the queries (B, D))."""
     b = h_index.shape[0]
     batch = torch.arange(b, device=h_index.device)
     query = relation_representations[batch, r_index]  # (B, D)
     boundary = scatter_boundary(h_index, query, graph.num_nodes)
-    return _node_features(model, graph, boundary, query, relation_representations,
-                          boundary_rows(h_index, query, graph.num_nodes))
+    hiddens = bellmanford(model, graph, boundary, query,
+                          relation_input=relation_representations,
+                          rows=boundary_rows(h_index, query, graph.num_nodes))
+    return hiddens, query
 
 
-def _node_features(model: NBFNet, graph: Graph, boundary, query, relation_representations,
-                   rows=None):
-    """Bellman-Ford from ``boundary`` (V, B, D), whose nonzero rows are
-    ``rows`` where given; returns (V, B, F) node features [last hidden (or
-    every hidden) ‖ query]."""
-    hiddens = bellmanford(
-        model, graph, boundary, query, relation_input=relation_representations, rows=rows
-    )
-    node_query = query.expand(graph.num_nodes, *query.shape)
+def _features(model: NBFNet, hiddens, query):
+    """(V, B, F) [last hidden (or every hidden) ‖ query] of each node."""
+    node_query = query.expand(hiddens[-1].shape[0], *query.shape)
     if model.cfg.concat_hidden:
         return torch.cat(hiddens + [node_query], dim=-1)
     return torch.cat([hiddens[-1], node_query], dim=-1)
+
+
+def _score_nodes(model: NBFNet, hiddens, query):
+    """(B, V) logits of the scoring MLP over every node's features: one
+    ``mlp_score_cuda.mlp_score`` call (S1, one kernel on the card) where
+    :func:`_scorer_fused` takes it, else ``model.mlp`` over
+    :func:`_features`, whose autograd graph training and attribution need."""
+    if _scorer_fused(model, hiddens[-1], query):
+        first, last = model.mlp[0], model.mlp[2]
+        return mlp_score_cuda.mlp_score(hiddens[-1], query, first.weight, first.bias,
+                                        last.weight, last.bias).T
+    return model.mlp(_features(model, hiddens, query)).squeeze(-1).T
+
+
+def _scorer_fused(model: NBFNet, hidden, query) -> bool:
+    """Whether S1 computes the scores: where no gradient is wanted, the
+    features are the last hidden state and the query alone (no
+    ``concat_hidden``), the MLP is two linears with a ReLU between them, and
+    S1 takes their operands (``mlp_score_cuda.takes``: its widths, batch,
+    dtype and layout). The CPU takes it too: there the call is the composed
+    ops' twin, the same bits."""
+    mlp = model.mlp
+    if model.cfg.concat_hidden or [type(m) for m in mlp] != [nn.Linear, nn.ReLU, nn.Linear]:
+        return False
+    first, last = mlp[0], mlp[2]
+    operands = (hidden, query, first.weight, first.bias, last.weight, last.bias)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        return False
+    return mlp_score_cuda.takes(*operands)
 
 
 def entity_nbfnet_apply(
@@ -250,10 +284,8 @@ def entity_nbfnet_score_all(
     model: NBFNet, graph: Graph, relation_representations, h_index, r_index
 ):
     """(B, V) logits of every node as the tail of each (h, r) row."""
-    feature = entity_nbfnet_features(
-        model, graph, relation_representations, h_index, r_index
-    )
-    return model.mlp(feature).squeeze(-1).T
+    return _score_nodes(model, *_entity_hiddens(model, graph, relation_representations,
+                                                h_index, r_index))
 
 
 def query_nbfnet_apply(
@@ -265,8 +297,9 @@ def query_nbfnet_apply(
     ``relation_representations`` (B, R, D) as the relation input, then the
     MLP on [last hidden ‖ query] (B, D). Returns (B, V) scores. UltraQuery
     runs it with an :class:`Ultra`'s ``entity_model``."""
-    feature = _node_features(model, graph, node_features, query, relation_representations)
-    return model.mlp(feature).squeeze(-1).T
+    hiddens = bellmanford(model, graph, node_features, query,
+                          relation_input=relation_representations)
+    return _score_nodes(model, hiddens, query)
 
 
 def ultra_apply(model: Ultra, graph: Graph, batch):
